@@ -11,18 +11,23 @@ the script exits non-zero without a result line:
   1. require a CUDA device (no CPU fallback)
   2. card name and power limit (nvidia-smi), torch / CUDA versions
   3. build the kernels from the repository sources (nvcc, sm_90a)
-  4. unmasked kernel against its plain PyTorch version on the card
+  4. unmasked kernel against its plain PyTorch version on the card: a
+     sweep of ragged shapes on a stretched grid (float32 and float64), then
+     the main paths' shapes 128^3 and 256^3 in float32
   5. flat step parity: 32^3 float64, 5 steps on CUDA (kernel) against CPU
   6. flat main path: 128^3 float32, warm-up then 50 timed steps
   7. the same at 256^3 float32, 20 timed steps
-  8. unmasked kernel time against the plain sweeps at 128^3 float32
+  8. unmasked kernel time (eager calls, and the same in a CUDA graph)
+     against the plain sweeps at 128^3 and 256^3 float32, beside its bound
+     (least bytes over the card's memory rate)
   9. stage the urban case at 32^3 and 128^3 (udales_tpu_torch.cases, into
      .bench_cache/)
  10. masked kernel against the plain masked sweeps: the urban 128^3 masks
-     in float32, random {0,1} masks on a stretched grid in float64
+     in float32, and random {0,1} masks over the sweep of ragged shapes
  11. urban step parity: 32^3 float64, 5 steps on CUDA against CPU
  12. urban main path: 128^3 float32, warm-up then 30 timed steps
- 13. masked kernel time against the plain masked sweeps at 128^3 float32
+ 13. masked kernel time against the plain masked sweeps at 128^3 float32,
+     beside its bound
 The line before the last is a JSON object describing the kernels and the
 main paths; the last line is {"ok": true, "device": {...}}.
 """
@@ -39,6 +44,12 @@ import numpy as np
 import torch
 
 CACHE = Path(__file__).resolve().parent / ".bench_cache"
+HBM_BYTES_PER_S = 3.35e12    # H100 SXM data sheet; the kernels are byte-bound
+# (nx, ny, nz) against the kernel's 8 x 32 (j, k) tile and its i-chunks: odd
+# sizes, smaller than a tile in every direction, one more than a tile
+# multiple, nz + 1 a tile multiple, exact multiples, a long i march
+RAGGED_SHAPES = [(24, 20, 37), (5, 3, 2), (33, 17, 65), (9, 8, 63),
+                 (32, 16, 64), (70, 9, 130), (1, 1, 1)]
 
 
 def phase(n, msg):
@@ -55,6 +66,32 @@ def random_ghosts(grid, dtype, device, seed):
         u=t(rng.standard_normal(cell)), v=t(rng.standard_normal(cell)),
         w=t(rng.standard_normal((nx + 2, ny + 2, nz + 1))),
         ekm=t(rng.uniform(0.5, 1.5, cell)))
+
+
+def random_masks(grid, dtype, device, seed):
+    """Random {0,1} pmask_u/v/w (70% fluid) in the ghosted cell layout."""
+    nx, ny, nz = grid.shape
+    rng = np.random.default_rng(seed)
+    return {k: torch.tensor(rng.uniform(size=(nx + 2, ny + 2, nz + 2)) > 0.3,
+                            dtype=dtype, device=device) for k in "uvw"}
+
+
+def ragged_sweep(fused, masked, n):
+    """Kernel against plain over RAGGED_SHAPES on a stretched grid, float64
+    (1e-12) and float32 (1e-5); any miss raises."""
+    from udales_tpu_torch.grid import Grid
+    for shape in RAGGED_SHAPES:
+        nz = shape[2]
+        zf = np.cumsum(1.04 ** np.arange(nz)) - 0.5 * 1.04 ** np.arange(nz)
+        for np_dt, dtype, rtol in ((np.float64, torch.float64, 1e-12),
+                                   (np.float32, torch.float32, 1e-5)):
+            grid = Grid(*shape, float(shape[0]), float(shape[1]), zf,
+                        dtype=np_dt)
+            pm = random_masks(grid, dtype, "cuda", seed=4) if masked else None
+            check_kernel(fused, random_ghosts(grid, dtype, "cuda", seed=1),
+                         grid, pm, rtol,
+                         f"{'masked, ' if masked else ''}stretched {shape} "
+                         f"{np_dt.__name__}", n)
 
 
 def plain_diff(g, grid, pmasks=None):
@@ -82,6 +119,22 @@ def cuda_ms(fn, n):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / n
+
+
+def graph_ms(fn, n):
+    """Mean device milliseconds of `fn` with `n` calls captured in one CUDA
+    graph, where the host's launch rate cannot set the time."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    return cuda_ms(graph.replay, 3) / n
 
 
 def numpy_state(grid, seed):
@@ -166,7 +219,7 @@ def run_main_path(model, state, warm, steps, smi, fused, label):
 
 def flat_main_path(n, warm, steps, smi, fused):
     from udales_tpu_torch import entry
-    model = entry._build(n, n, n, "float32", device="cuda")
+    model = entry._build(n, n, n, "float32")    # the default device: the card
     return run_main_path(model, entry._init_state(model, seed=43), warm,
                          steps, smi, fused, f"flat {n}^3 float32")
 
@@ -185,16 +238,36 @@ def check_kernel(fused, g, grid, pmasks, rtol, label, n):
     return err
 
 
-def time_kernel(fused, g, grid, pmasks, reps=50):
-    """Kernel and plain ms, in turns plain, kernel, kernel, plain."""
+def time_kernel(fused, g, grid, pmasks, smi, label, n, reps=50):
+    """Kernel and plain ms, in turns plain, kernel, kernel, plain, printed
+    beside the bound.  `ms` is CUDA events over `reps` back-to-back eager
+    calls of the wrapper, whose host work can hide the kernel; `graph_ms`
+    is the same calls captured in one CUDA graph, the kernel's own device
+    time.  Returns dict(ms, plain_ms, bound_ms, graph_ms)."""
+    from udales_tpu_torch.ops.fused_diff import least_bytes
+    kernel = lambda: fused(g, grid, pmasks=pmasks)
+    plain = lambda: plain_diff(g, grid, pmasks)
     for _ in range(3):
-        fused(g, grid, pmasks=pmasks)
-        plain_diff(g, grid, pmasks)
-    p1 = cuda_ms(lambda: plain_diff(g, grid, pmasks), reps)
-    k1 = cuda_ms(lambda: fused(g, grid, pmasks=pmasks), reps)
-    k2 = cuda_ms(lambda: fused(g, grid, pmasks=pmasks), reps)
-    p2 = cuda_ms(lambda: plain_diff(g, grid, pmasks), reps)
-    return (k1 + k2) / 2, (p1 + p2) / 2, (k1, k2, p1, p2)
+        kernel()
+        plain()
+    p1 = cuda_ms(plain, reps)
+    e1, k1 = cuda_ms(kernel, reps), graph_ms(kernel, reps)
+    e2, k2 = cuda_ms(kernel, reps), graph_ms(kernel, reps)
+    p2 = cuda_ms(plain, reps)
+    nbytes = least_bytes(grid.shape, g.u.element_size(), pmasks is not None)
+    out = dict(ms=(e1 + e2) / 2, plain_ms=(p1 + p2) / 2,
+               bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+               graph_ms=(k1 + k2) / 2)
+    share = lambda ms: f"{100 * out['bound_ms'] / ms:.1f}%"
+    phase(n, f"{label} on {smi}: kernel {out['ms']:.4f} ms issued eagerly "
+             f"({e1:.4f}, {e2:.4f}), {out['graph_ms']:.4f} ms in a CUDA "
+             f"graph ({k1:.4f}, {k2:.4f}); plain diff_u/v/w "
+             f"{out['plain_ms']:.4f} ms ({p1:.4f}, {p2:.4f}); bound "
+             f"{out['bound_ms']:.4f} ms ({nbytes / 1e6:.1f} MB at 3.35 "
+             f"TB/s), of which the kernel reaches {share(out['ms'])} eagerly "
+             f"and {share(out['graph_ms'])} in a graph = "
+             f"{nbytes / (out['graph_ms'] * 1e-3) / 1e12:.3f} TB/s")
+    return out
 
 
 def parity(states, names):
@@ -242,18 +315,21 @@ def main():
     for line in fused_diff_mom.build_log.splitlines():
         if "registers" in line or "spill" in line:
             print("  " + line.strip(), flush=True)
+    print("  resident blocks per SM: " + ", ".join(
+        f"{'masked' if m else 'unmasked'} {str(dt)[6:]} "
+        f"{fused_diff_mom.blocks_per_sm(dt, m)}"
+        for dt in (torch.float32, torch.float64) for m in (False, True)),
+        flush=True)
 
     # 4. kernel against its plain version on the card
-    zf = np.cumsum(1.04 ** np.arange(37)) - 0.5 * 1.04 ** np.arange(37)
-    stretched = Grid(24, 20, 37, 24.0, 20.0, zf, dtype=np.float64)
+    ragged_sweep(fused_diff_mom, masked=False, n=4)
     g128 = Grid.uniform(128, 128, 128, 128.0, 128.0, 128.0, dtype=np.float32)
-    check_kernel(fused_diff_mom, random_ghosts(stretched, torch.float64,
-                                               "cuda", seed=1),
-                 stretched, None, 1e-12, "stretched (24, 20, 37) float64", 4)
-    # the 128^3 float32 case: the main path's shape
-    kernel_err = check_kernel(
-        fused_diff_mom, random_ghosts(g128, torch.float32, "cuda", seed=1),
-        g128, None, 1e-5, "uniform (128, 128, 128) float32", 4)
+    g256 = Grid.uniform(256, 256, 256, 256.0, 256.0, 256.0, dtype=np.float32)
+    # the main paths' shapes
+    kernel_err = max(check_kernel(
+        fused_diff_mom, random_ghosts(grid, torch.float32, "cuda", seed=1),
+        grid, None, 1e-5, f"uniform {grid.shape} float32", 4)
+        for grid in (g128, g256))
 
     # 5. CUDA (kernel) against CPU (plain) over 5 steps
     states = {}
@@ -281,15 +357,12 @@ def main():
         raise RuntimeError("projection left a divergent velocity field")
 
     # 8. kernel time against the plain sweeps, in turns
-    g = random_ghosts(g128, torch.float32, "cuda", seed=2)
-    kernel_ms, plain_ms, (k1, k2, p1, p2) = time_kernel(fused_diff_mom, g,
-                                                        g128, None)
-    nbytes = 4 * (3 * 130 * 130 * 130 + 130 * 130 * 129
-                  + 2 * 128 ** 3 + 128 * 128 * 129)
-    phase(8, f"128^3 float32 on {smi}: kernel {kernel_ms:.4f} ms "
-             f"({k1:.4f}, {k2:.4f}), plain diff_u/v/w {plain_ms:.4f} ms "
-             f"({p1:.4f}, {p2:.4f}); kernel moves >= {nbytes / 1e6:.1f} MB "
-             f"= {nbytes / (kernel_ms * 1e-3) / 1e12:.3f} TB/s")
+    t128 = time_kernel(fused_diff_mom,
+                       random_ghosts(g128, torch.float32, "cuda", seed=2),
+                       g128, None, smi, "128^3 float32", 8)
+    t256 = time_kernel(fused_diff_mom,
+                       random_ghosts(g256, torch.float32, "cuda", seed=2),
+                       g256, None, smi, "256^3 float32", 8, reps=20)
 
     # 9. stage the urban case (host NumPy preprocessing, no JAX)
     t0 = time.perf_counter()
@@ -298,7 +371,7 @@ def main():
              f" s under {CACHE.name}/")
 
     # 10. masked kernel against the plain masked sweeps
-    u128 = load_case(urban[128], "900", dtype="float32", device="cuda")
+    u128 = load_case(urban[128], "900", dtype="float32")   # on the card
     ibm = u128.ibm
     pm128 = dict(u=ibm.pmask_u, v=ibm.pmask_v, w=ibm.pmask_w)
     solid = {k: int((getattr(ibm.masks, k) < 0.5).sum()) for k in "uvwc"}
@@ -309,15 +382,7 @@ def main():
         fused_diff_mom, random_ghosts(u128.grid, torch.float32, "cuda",
                                       seed=3),
         u128.grid, pm128, 1e-5, "masked, urban 128^3 masks, float32", 10)
-    rng = np.random.default_rng(4)
-    pm_rand = {k: torch.tensor((rng.uniform(size=(26, 22, 39)) > 0.3)
-                               .astype(np.float64), device="cuda")
-               for k in "uvw"}
-    check_kernel(fused_diff_mom, random_ghosts(stretched, torch.float64,
-                                               "cuda", seed=5),
-                 stretched, pm_rand, 1e-12,
-                 "masked, random {0,1} masks, stretched (24, 20, 37) "
-                 "float64", 10)
+    ragged_sweep(fused_diff_mom, masked=True, n=10)
 
     # 11. urban CUDA (masked kernel) against CPU (plain) over 5 steps
     states = {}
@@ -343,18 +408,16 @@ def main():
         raise RuntimeError("projection left a divergent velocity field")
 
     # 13. masked kernel time against the plain masked sweeps, in turns
-    g = random_ghosts(u128.grid, torch.float32, "cuda", seed=6)
-    masked_ms, masked_plain_ms, (k1, k2, p1, p2) = time_kernel(
-        fused_diff_mom, g, u128.grid, pm128)
-    nbytes_m = nbytes + 4 * 3 * 130 * 130 * 130
-    phase(13, f"urban 128^3 float32 on {smi}: masked kernel "
-              f"{masked_ms:.4f} ms ({k1:.4f}, {k2:.4f}), plain masked "
-              f"diff_u/v/w {masked_plain_ms:.4f} ms ({p1:.4f}, {p2:.4f}); "
-              f"moves >= {nbytes_m / 1e6:.1f} MB = "
-              f"{nbytes_m / (masked_ms * 1e-3) / 1e12:.3f} TB/s")
+    tm128 = time_kernel(fused_diff_mom,
+                        random_ghosts(u128.grid, torch.float32, "cuda",
+                                      seed=6),
+                        u128.grid, pm128, smi,
+                        "masked, urban 128^3 float32", 13)
 
-    if "jax" in sys.modules:
-        raise RuntimeError("the port imported jax")
+    foreign = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "udales_tpu"))
+    if foreign:
+        raise RuntimeError(f"the port imported {foreign}")
 
     src = "udales_tpu_torch/csrc/fused_diff_mom.cu"
     rates = lambda d: {k: d[k] for k in ("ms_per_step", "points_per_s",
@@ -363,11 +426,13 @@ def main():
         {"name": "fused_diff_mom", "route": "cuda", "source": src,
          "replaces": "udales_tpu/ops/pallas_stencil.py:191",
          "launches": main["launches"], "max_abs_err": kernel_err,
-         "ms": kernel_ms, "plain_ms": plain_ms},
+         **t128, "bound_by": "bytes", "library_ms": None,
+         "launches_256": big["launches"],
+         **{f"{k}_256": v for k, v in t256.items()}},
         {"name": "fused_diff_mom_masked", "route": "cuda", "source": src,
          "replaces": "udales_tpu/ops/pallas_stencil.py:191",
          "launches": urb["launches"], "max_abs_err": masked_err,
-         "ms": masked_ms, "plain_ms": masked_plain_ms}],
+         **tm128, "bound_by": "bytes", "library_ms": None}],
         "main_path": rates(main), "main_path_256": rates(big),
         "urban_128": rates(urb)}))
     print(json.dumps({"ok": True, "device": {

@@ -120,16 +120,24 @@ def cuda():
     return torch.device("cuda")
 
 
+# Shapes against the kernel's 8 x 32 (j, k) tile and its i-chunks: odd
+# sizes, smaller than a tile in every direction, one more than a tile
+# multiple, nz + 1 a tile multiple, exact multiples, and a long i march.
+RAGGED = [((24, 20, 37), 1.04), ((5, 3, 2), 1.04), ((33, 17, 65), 1.04),
+          ((9, 8, 63), 1.04), ((32, 16, 64), 1.0), ((70, 9, 130), 1.02),
+          ((1, 1, 1), 1.0)]
+RAGGED_IDS = ["x".join(map(str, shape)) for shape, _ in RAGGED]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,rtol",
                          [(np.float64, 1e-12), (np.float32, 1e-5)],
                          ids=["f64", "f32"])
-@pytest.mark.parametrize("shape,stretch", [((24, 20, 37), 1.04),
-                                           ((32, 16, 64), 1.0)],
-                         ids=["stretched-odd", "uniform"])
+@pytest.mark.parametrize("shape,stretch", RAGGED, ids=RAGGED_IDS)
 def test_kernel_matches_plain_on_card(cuda, dtype, rtol, shape, stretch):
-    """Kernel == plain sweeps on the same card tensors; float32 differs by
-    FMA contraction, hence 1e-5 x max|ref| there."""
+    """Kernel == plain sweeps on the same card tensors over the sweep of
+    ragged shapes; float32 differs by FMA contraction, hence 1e-5 x
+    max|ref| there."""
     grid = Grid(*shape, float(shape[0]), float(shape[1]),
                 _zf(shape[2], stretch), dtype=dtype)
     g = torch_ghosts(ghosted_inputs(shape, seed=2, dtype=dtype), cuda)
@@ -148,11 +156,13 @@ def test_kernel_matches_plain_on_card(cuda, dtype, rtol, shape, stretch):
 @pytest.mark.parametrize("dtype,rtol",
                          [(np.float64, 1e-12), (np.float32, 1e-5)],
                          ids=["f64", "f32"])
-def test_masked_kernel_matches_plain_on_card(cuda, dtype, rtol):
-    """The masked variant == diff_u/v/w(M=...) on a stretched odd-sized
-    grid with random {0,1} masks; it counts as a masked launch only."""
-    shape = (24, 20, 37)
-    grid = Grid(*shape, 24.0, 20.0, _zf(37, 1.04), dtype=dtype)
+@pytest.mark.parametrize("shape,stretch", RAGGED, ids=RAGGED_IDS)
+def test_masked_kernel_matches_plain_on_card(cuda, dtype, rtol, shape,
+                                             stretch):
+    """The masked variant == diff_u/v/w(M=...) over the sweep of ragged
+    shapes with random {0,1} masks; it counts as a masked launch only."""
+    grid = Grid(*shape, float(shape[0]), float(shape[1]),
+                _zf(shape[2], stretch), dtype=dtype)
     g = torch_ghosts(ghosted_inputs(shape, seed=6, dtype=dtype), cuda)
     rng = np.random.default_rng(7)
     pm = {k: torch.tensor((rng.uniform(size=tuple(g.u.shape)) > 0.3)
@@ -197,3 +207,15 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         kern(bad, grid)
     assert kern.launch_count == kern.masked_launch_count == 0
+
+
+def test_least_bytes_counts_each_array_once():
+    """The bound's byte count: inputs read once, outputs written once."""
+    from udales_tpu_torch.ops.fused_diff import least_bytes
+    n = 128
+    cell, face = (n + 2) ** 3, (n + 2) ** 2 * (n + 1)
+    out = 2 * n ** 3 + n * n * (n + 1)
+    assert least_bytes((n, n, n), 4, False) == 4 * (3 * cell + face + out)
+    assert least_bytes((n, n, n), 4, True) == 4 * (6 * cell + face + out)
+    assert least_bytes((3, 4, 5), 8, False) == 8 * (
+        3 * 5 * 6 * 7 + 5 * 6 * 6 + 2 * 60 + 3 * 4 * 6)

@@ -60,12 +60,20 @@ def rel_err(got, ref):
 @pytest.fixture(scope="module")
 def staged(tmp_path_factory):
     """The urban 32^3 case, staged by the port in a subprocess that blocks
-    JAX (sys.modules["jax"] = None makes any JAX import fail)."""
+    JAX and the JAX package (a None entry in sys.modules makes any import
+    of that name fail); the same subprocess loads the case on the CPU and
+    takes one step."""
     root = tmp_path_factory.mktemp("urban")
     code = ("import sys; sys.modules['jax'] = None; "
+            "sys.modules['udales_tpu'] = None; "
+            "import torch; "
             "from udales_tpu_torch import cases; "
-            f"cases.stage_urban({N}, sys.argv[1]); "
-            "assert not any(m == 'jax' or m.startswith('jax.') "
+            "from udales_tpu_torch.run import load_case; "
+            f"case = cases.stage_urban({N}, sys.argv[1]); "
+            "model = load_case(case, '900', dtype='float64', device='cpu'); "
+            "st = model.step(model.cold_start(seed=43)); "
+            "assert bool(torch.isfinite(st.c.u).all()) and float(st.dt) > 0; "
+            "assert not any(m.split('.')[0] in ('jax', 'udales_tpu') "
             "for m in sys.modules if sys.modules[m] is not None)")
     res = subprocess.run([sys.executable, "-c", code, str(root / "port")],
                          cwd=REPO, capture_output=True, text=True,
@@ -79,7 +87,7 @@ def models(staged):
     """(udales_tpu model, port model) of the staged case, float64, CPU."""
     from udales_tpu.run import load_case as jload_case
     return (jload_case(staged, "900", dtype="float64"),
-            load_case(staged, "900", dtype="float64"))
+            load_case(staged, "900", dtype="float64", device="cpu"))
 
 
 def numpy_fields(seed, nx=N, ny=N, nz=N):
@@ -129,8 +137,10 @@ def jax_state_to_numpy(st):
 # --- (a) staging without JAX ------------------------------------------------
 
 def test_staging_is_jax_free_and_matches_bench(staged, tmp_path, monkeypatch):
-    """cases.stage_urban, run where JAX cannot be imported, writes the same
-    bytes as bench._stage_urban (which runs the prep with the JAX grid)."""
+    """cases.stage_urban, run where neither JAX nor udales_tpu can be
+    imported (the `staged` fixture, which there also loads the case and
+    steps it on the CPU), writes the same bytes as bench._stage_urban (which
+    runs the JAX package's prep)."""
     import bench
     monkeypatch.setattr(bench, "CACHE", tmp_path)
     ref = bench._stage_urban(N)
@@ -140,29 +150,6 @@ def test_staging_is_jax_free_and_matches_bench(staged, tmp_path, monkeypatch):
     match, mismatch, errors = filecmp.cmpfiles(ref, staged, names,
                                                shallow=False)
     assert not mismatch and not errors, (mismatch, errors)
-
-
-def test_numpy_grid_binding_is_scoped():
-    """Inside the block the JAX package's grid module name is the port's;
-    after it the previous binding is back and the modules the block first
-    imported (which hold the port's grid) are gone, so the next import of
-    the preprocessing sees the JAX grid (a fresh interpreter, so that the
-    block is the first to import it)."""
-    code = """if True:
-        import sys
-        import udales_tpu.grid as jgrid
-        from udales_tpu_torch import cases
-        with cases.numpy_grid():
-            import udales_tpu.prep.ibmprep as inside
-            assert sys.modules["udales_tpu.grid"] is cases._torch_grid
-            assert inside.Grid is cases._torch_grid.Grid
-        assert sys.modules["udales_tpu.grid"] is jgrid
-        from udales_tpu.prep import ibmprep
-        assert ibmprep is not inside and ibmprep.Grid is jgrid.Grid
-        """
-    res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
-                         capture_output=True, text=True, timeout=300)
-    assert res.returncode == 0, res.stderr
 
 
 # --- (b) static geometry ------------------------------------------------------
@@ -339,7 +326,8 @@ def test_cold_start_and_run_on_the_port_alone(models):
     assert float(div.abs().max()) < 1e-10
     # built without case inputs, the start is the reference's fallback
     # profile: at rest, thl = 288 K, noise only in u, v, w
-    bare = Model(tmodel.cfg, grid, tmodel.ibm).cold_start(seed=2)
+    bare = Model(tmodel.cfg, grid, tmodel.ibm,
+                 device="cpu").cold_start(seed=2)
     assert torch.equal(bare.c.thl, torch.full_like(bare.c.thl, 288.0))
     assert 0 < float(bare.c.u.abs().max()) <= 2 * tmodel.cfg.run.randu
 
@@ -381,7 +369,7 @@ def test_unported_urban_configurations_raise(models, change):
             cfg = dataclasses.replace(cfg, **{group: dataclasses.replace(
                 getattr(cfg, group), **kw)})
     with pytest.raises(NotImplementedError, match="not ported"):
-        Model(cfg, tmodel.grid, ibm)
+        Model(cfg, tmodel.grid, ibm, device="cpu")
 
 
 @pytest.fixture(scope="module")

@@ -1,0 +1,222 @@
+"""The port's own host-side modules against the JAX package's (CPU).
+
+``udales_tpu_torch`` keeps copies of the JAX-free host code it needs:
+``config.py``, ``io/inputs.py`` and the ``prep`` modules that stage the urban
+case.  The port imports nothing of ``udales_tpu``, so these tests are what
+keeps the copies from drifting: the same inputs go through both packages and
+the results must be identical (files byte for byte, parsed configurations
+and arrays exactly equal; no tolerance, since it is the same NumPy code).
+"""
+import ast
+import dataclasses
+import filecmp
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+import udales_tpu.config as jconfig
+import udales_tpu.io.inputs as jinputs
+from udales_tpu.prep.udgeom import create_cubes as jcreate_cubes
+
+import udales_tpu_torch.config as tconfig
+import udales_tpu_torch.io.inputs as tinputs
+from udales_tpu_torch import cases
+from udales_tpu_torch.prep.udgeom import create_cubes as tcreate_cubes
+
+REPO = Path(__file__).resolve().parents[1]
+SIZES = (16, 32)
+
+
+@pytest.fixture(scope="module")
+def staged(tmp_path_factory):
+    """{n: (reference case dir, port case dir)} of the urban case, staged by
+    bench._stage_urban (udales_tpu.prep) and by cases.stage_urban
+    (udales_tpu_torch.prep)."""
+    import bench
+    root = tmp_path_factory.mktemp("prep")
+    out = {}
+    old = bench.CACHE
+    bench.CACHE = root / "ref"
+    try:
+        for n in SIZES:
+            out[n] = (bench._stage_urban(n),
+                      cases.stage_urban(n, root / "port"))
+    finally:
+        bench.CACHE = old
+    return out
+
+
+@pytest.mark.parametrize("n", SIZES)
+def test_staged_files_are_byte_identical(staged, n):
+    ref, got = staged[n]
+    names = sorted(p.name for p in ref.iterdir())
+    assert names == sorted(p.name for p in got.iterdir())
+    assert len(names) >= 20
+    match, mismatch, errors = filecmp.cmpfiles(ref, got, names, shallow=False)
+    assert not mismatch and not errors, (mismatch, errors)
+
+
+@pytest.mark.parametrize("n", SIZES)
+def test_create_cubes_stl_is_byte_identical(tmp_path, n):
+    pitch = n / 4.0
+    args = (float(n), float(n), pitch / 2, pitch / 2, pitch, pitch / 2,
+            pitch / 2, "AC")
+    jcreate_cubes(*args, edgelength=pitch / 2).save(tmp_path / "ref.stl")
+    tcreate_cubes(*args, edgelength=pitch / 2).save(tmp_path / "got.stl")
+    assert (tmp_path / "ref.stl").read_bytes() \
+        == (tmp_path / "got.stl").read_bytes()
+
+
+@pytest.mark.parametrize("n", SIZES)
+def test_parse_namelists_matches(staged, n):
+    """The staged namelist through both parsers and both load_namoptions:
+    equal dataclass trees."""
+    nam = staged[n][1] / "namoptions.900"
+    assert tconfig.parse_namelists(nam.read_text()) \
+        == jconfig.parse_namelists(nam.read_text())
+    for dtype in ("float32", "float64"):
+        ref = jconfig.load_namoptions(nam, dtype=dtype)
+        got = tconfig.load_namoptions(nam, dtype=dtype)
+        assert dataclasses.asdict(got) == dataclasses.asdict(ref)
+    assert dataclasses.asdict(tconfig.Config()) \
+        == dataclasses.asdict(jconfig.Config())
+    consts = lambda c: {k: v for k, v in vars(c).items()
+                        if not k.startswith("_")}
+    assert consts(tconfig.const) == consts(jconfig.const)
+
+
+def _same(a, b):
+    if isinstance(a, dict):
+        assert a.keys() == b.keys()
+        for k in a:
+            _same(a[k], b[k])
+    elif isinstance(a, (tuple, list)):
+        assert len(a) == len(b)
+        for x, y in zip(a, b):
+            _same(x, y)
+    elif a is None:
+        assert b is None
+    else:
+        a, b = np.asarray(a), np.asarray(b)
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert np.array_equal(a, b)
+
+
+READERS = {
+    "prof": ("read_prof_inp", "prof.inp.900", lambda n: (n,)),
+    "lscale": ("read_lscale_inp", "lscale.inp.900", lambda n: (n,)),
+    "scalar": ("read_scalar_inp", "lscale.inp.900", lambda n: (n, 2)),
+    "sparse_ijk": ("read_sparse_ijk", "solid_u.txt", lambda n: ()),
+    "facet_sections": ("read_facet_sections", "facet_sections_c.txt",
+                       lambda n: ()),
+    "facets": ("read_facets_inp", "facets.inp.900", lambda n: ()),
+    "column": ("read_column_file", "Tfacinit.inp.900", lambda n: ()),
+}
+
+
+@pytest.mark.parametrize("reader", sorted(READERS))
+def test_input_readers_match(staged, reader):
+    """Each reader of io/inputs.py on a staged file (scalar.inp has the
+    layout of lscale.inp, which stands in for it): exactly equal arrays."""
+    fn, name, extra = READERS[reader]
+    for n in SIZES:
+        path = staged[n][1] / name
+        assert path.exists(), path
+        _same(getattr(tinputs, fn)(path, *extra(n)),
+              getattr(jinputs, fn)(path, *extra(n)))
+
+
+def test_case_inputs_and_pressure_gradient_match(staged):
+    case = staged[32][1]
+    ref = jinputs.CaseInputs.load(case, "900", 32)
+    got = tinputs.CaseInputs.load(case, "900", 32)
+    _same(dataclasses.asdict(got), dataclasses.asdict(ref))
+    cfg = tconfig.load_namoptions(case / "namoptions.900")
+    _same(tinputs.large_scale_pressure_gradient(got.lscale, cfg),
+          jinputs.large_scale_pressure_gradient(ref.lscale, cfg))
+    with pytest.raises(ValueError, match="expected"):
+        tinputs.read_sparse_ijk(case / "solid_u.txt", n_expected=1)
+
+
+COPIES = ["config.py", "io/inputs.py", "prep/stl.py", "prep/geom.py",
+          "prep/zgrid.py", "prep/ibmprep.py", "prep/udgeom.py",
+          "prep/native.py", "prep/radiation.py", "prep/prep.py"]
+
+
+@pytest.mark.parametrize("rel", COPIES)
+def test_copies_hold_the_originals_code(rel):
+    """Apart from docstrings (which may name the package) a copied module
+    has the original's syntax tree; prep.py alone differs, in the three
+    branches whose modules are not ported and raise NotImplementedError."""
+    def tree(path):
+        mod = ast.parse(path.read_text())
+        for node in ast.walk(mod):
+            body = getattr(node, "body", None)
+            if (isinstance(node, (ast.Module, ast.FunctionDef, ast.ClassDef))
+                    and body and isinstance(body[0], ast.Expr)
+                    and isinstance(body[0].value, ast.Constant)
+                    and isinstance(body[0].value.value, str)):
+                node.body = body[1:] or [ast.Pass()]
+        return mod
+    ref = tree(REPO / "udales_tpu" / rel)
+    got = tree(REPO / "udales_tpu_torch" / rel)
+    if rel != "prep/prep.py":
+        assert ast.dump(got) == ast.dump(ref)
+        return
+    names = lambda mod: {n.name: ast.dump(n) for n in mod.body
+                         if isinstance(n, (ast.FunctionDef, ast.ClassDef))}
+    ref_defs, got_defs = names(ref), names(got)
+    assert ref_defs.keys() == got_defs.keys()
+    differing = {k for k in ref_defs if ref_defs[k] != got_defs[k]}
+    assert differing == {"prepare_case"}
+    raised = [n for n in ast.walk(got) if isinstance(n, ast.Raise)
+              and "NotImplementedError" in ast.dump(n)]
+    assert len(raised) == 3
+
+
+@pytest.mark.parametrize("kw", [dict(weather_file="w.csv"),
+                                dict(solar_datetime="2011-09-30T11:00"),
+                                dict(with_radiation=False, trees_file="t")],
+                         ids=["weather", "solar", "trees"])
+def test_unported_prep_branches_raise(tmp_path, kw):
+    from udales_tpu_torch.prep.prep import PrepConfig, prepare_case
+    n = 8
+    tcreate_cubes(float(n), float(n), 2.0, 2.0, 2.0, 2.0, 2.0, "AC",
+                  edgelength=2.0).save(tmp_path / "geom.stl")
+    cfg = PrepConfig(itot=n, jtot=n, ktot=n, xlen=float(n), ylen=float(n),
+                     zsize=float(n), expnr="900",
+                     **{"with_radiation": True, "vf_exact_close": False,
+                        **kw})
+    with pytest.raises(NotImplementedError, match="not ported"):
+        prepare_case(tmp_path / "geom.stl", tmp_path / "case", cfg)
+
+
+def _imports(tree):
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield node.lineno, a.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.lineno, node.module or ""
+        elif (isinstance(node, ast.Call)
+              and getattr(node.func, "id", getattr(node.func, "attr", ""))
+              in ("import_module", "__import__")
+              and node.args and isinstance(node.args[0], ast.Constant)):
+            yield node.lineno, str(node.args[0].value)
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    """Every import statement (any depth, also inside functions) of every
+    module of the port and of chip_smoke.py: none names ``jax`` or
+    ``udales_tpu``."""
+    files = sorted((REPO / "udales_tpu_torch").rglob("*.py")) \
+        + [REPO / "chip_smoke.py"]
+    assert len(files) > 30
+    bad = []
+    for path in files:
+        for lineno, name in _imports(ast.parse(path.read_text())):
+            if name.split(".")[0] in ("jax", "jaxlib", "udales_tpu"):
+                bad.append(f"{path.relative_to(REPO)}:{lineno}: {name}")
+    assert not bad, bad
+    assert not hasattr(cases, "numpy_grid")

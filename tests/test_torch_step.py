@@ -40,7 +40,7 @@ def rel_err(got, ref):
 @pytest.fixture(scope="module")
 def both_models():
     jmodel = ref_entry._build(16, 16, 16, "float64")
-    tmodel = entry._build(16, 16, 16, "float64")
+    tmodel = entry._build(16, 16, 16, "float64", device="cpu")
     load_profiles(tmodel, {k: np.asarray(getattr(jmodel, k))
                            for k in PROFILE_NAMES})
     return jmodel, tmodel
@@ -92,18 +92,19 @@ def test_new_dt_matches_reference(both_models):
     ref = float(jmodel.new_dt(jst, jek[0], jek[1]))
     got = float(tmodel.new_dt(tst, tek[0], tek[1]))
     assert ref < cfg.run.dtmax and abs(got - ref) <= 1e-12 * ref
-    fixed = entry._build(8, 8, 8, "float64", ladaptive=False)
+    fixed = entry._build(8, 8, 8, "float64", ladaptive=False,
+                         device="cpu")
     assert float(fixed.new_dt(entry._init_state(fixed))) == 0.5
 
 
 def test_state_roundtrip_and_entry():
-    model = entry._build(8, 6, 4, "float32")
+    model = entry._build(8, 6, 4, "float32", device="cpu")
     st = entry._init_state(model, seed=5)
     back = state_from_numpy(state_to_numpy(st))
     for name in FIELD_NAMES:
         assert torch.equal(getattr(back.c, name), getattr(st.c, name))
     assert back.dt.dtype == torch.float32
-    step, (state,) = entry.entry()
+    step, (state,) = entry.entry(device="cpu")
     assert state.c.u.shape == (64, 64, 64) and callable(step)
 
 
@@ -115,15 +116,37 @@ def test_state_roundtrip_and_entry():
     dict(scalars=ScalarsConfig(nsv=1)),
 ], ids=["open-x", "moist", "sponge", "fixuinf", "scalars"])
 def test_unported_configurations_raise(cfg_change):
-    base = entry._build(8, 8, 8, "float64")
+    base = entry._build(8, 8, 8, "float64", device="cpu")
     with pytest.raises(NotImplementedError, match="not ported"):
-        Model(dataclasses.replace(base.cfg, **cfg_change), base.grid)
+        Model(dataclasses.replace(base.cfg, **cfg_change), base.grid,
+              device="cpu")
 
 
 def test_run_is_repeated_step():
-    model = entry._build(8, 8, 8, "float64", ladaptive=False)
+    model = entry._build(8, 8, 8, "float64", ladaptive=False, device="cpu")
     st0 = entry._init_state(model, seed=2)
     a = model.run(st0, 2)
     b = model.step(model.step(st0))
     assert torch.equal(a.c.u, b.c.u) and torch.equal(a.pres, b.pres)
     assert float(a.timee) == pytest.approx(1.0)
+
+
+@pytest.mark.parametrize("name", ["_build", "entry", "Model", "load_case"])
+def test_entry_points_default_to_the_card(name):
+    import inspect
+    from udales_tpu_torch import run
+    fn = {"_build": entry._build, "entry": entry.entry,
+          "Model": Model.__init__, "load_case": run.load_case}[name]
+    assert inspect.signature(fn).parameters["device"].default == "cuda"
+
+
+def test_default_device_raises_without_a_card():
+    """With no card the default raises what torch raises for a CUDA tensor;
+    nothing continues on the CPU unasked.  With one, the model is on it."""
+    if torch.cuda.is_available():
+        assert entry._build(8, 8, 8).device.type == "cuda"
+        return
+    with pytest.raises((RuntimeError, AssertionError), match="(?i)cuda"):
+        entry._build(8, 8, 8)
+    with pytest.raises((RuntimeError, AssertionError), match="(?i)cuda"):
+        entry.entry()

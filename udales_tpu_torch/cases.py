@@ -1,53 +1,17 @@
-"""Case staging without JAX: the urban building-array case of ``bench.py``.
+"""Case staging: the urban building-array case of ``bench.py``.
 
 ``stage_urban(n, root)`` writes the same case directory as
 ``bench._stage_urban(n)`` (``root/urban{n}v2``, experiment ``900``): a 4x4
 aligned cube array at lambda_p = 0.25 with H = n/4 m, generated by the
-JAX package's own preprocessing (``udales_tpu.prep``), plus the namelist.
-
-The preprocessing is host-side NumPy, but ``udales_tpu.prep.prep`` and
-``udales_tpu.prep.ibmprep`` import ``udales_tpu.grid``, which imports
-``jax.numpy`` (udales_tpu/grid.py:21) while they read only its NumPy
-attributes (itot/jtot/ktot, xlen/ylen, zf, dzf).  ``numpy_grid`` binds that
-module name to this package's grid, which computes the same NumPy metrics,
-for as long as the preprocessing is imported and run, so staging works
-where JAX is not installed.
+port's own host-side NumPy preprocessing (``udales_tpu_torch.prep``), plus
+the namelist.  The files are byte-identical to the JAX package's.
 """
 from __future__ import annotations
 
-import contextlib
-import sys
 from pathlib import Path
 
-from . import grid as _torch_grid
-
-
-@contextlib.contextmanager
-def numpy_grid():
-    """Bind ``udales_tpu.grid`` to ``udales_tpu_torch.grid`` inside the
-    block and undo it after: the previous binding is restored, and every
-    ``udales_tpu`` module first imported inside the block (which holds this
-    package's Grid) is dropped again, so later imports of the JAX package
-    in the same process see its own grid."""
-    key = "udales_tpu.grid"
-    missing = object()
-    old = sys.modules.get(key, missing)
-    before = set(sys.modules)
-    sys.modules[key] = _torch_grid
-    try:
-        yield
-    finally:
-        if old is missing:
-            sys.modules.pop(key, None)
-        else:
-            sys.modules[key] = old
-        for name in set(sys.modules) - before:
-            if name.startswith("udales_tpu."):
-                mod = sys.modules.pop(name)
-                parent, _, child = name.rpartition(".")
-                if getattr(sys.modules.get(parent), child, None) is mod:
-                    delattr(sys.modules[parent], child)
-
+from .prep.prep import PrepConfig, prepare_case
+from .prep.udgeom import create_cubes
 
 _NAMELIST = """&RUN
 iexpnr = 900
@@ -93,17 +57,14 @@ def stage_urban(n: int, root) -> Path:
     nam = case / "namoptions.900"
     if nam.exists():
         return case
-    with numpy_grid():
-        from udales_tpu.prep.prep import PrepConfig, prepare_case
-        from udales_tpu.prep.udgeom import create_cubes
-        case.mkdir(parents=True, exist_ok=True)
-        pitch = n / 4.0
-        create_cubes(float(n), float(n), pitch / 2, pitch / 2, pitch,
-                     pitch / 2, pitch / 2, "AC",
-                     edgelength=pitch / 2).save(case / "geom.stl")
-        counts = prepare_case(case / "geom.stl", case, PrepConfig(
-            itot=n, jtot=n, ktot=n, xlen=float(n), ylen=float(n),
-            zsize=float(n), expnr="900", u0=1.5, thl0=290.0, facT0=295.0))
+    case.mkdir(parents=True, exist_ok=True)
+    pitch = n / 4.0
+    create_cubes(float(n), float(n), pitch / 2, pitch / 2, pitch,
+                 pitch / 2, pitch / 2, "AC",
+                 edgelength=pitch / 2).save(case / "geom.stl")
+    counts = prepare_case(case / "geom.stl", case, PrepConfig(
+        itot=n, jtot=n, ktot=n, xlen=float(n), ylen=float(n),
+        zsize=float(n), expnr="900", u0=1.5, thl0=290.0, facT0=295.0))
     walls = "\n".join(
         [f"nfcts = {counts['nfcts']}"]
         + [f"nsolpts_{w} = {counts[f'nsolpts_{w}']}" for w in "uvwc"]

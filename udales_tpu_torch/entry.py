@@ -6,7 +6,8 @@
 
 The case: periodic x/y, rough floor (wall function), Vreman closure, cd2
 advection, a uniform grid of 1 m cells and a -1e-4 large-scale pressure
-gradient driving u.
+gradient driving u.  `device` defaults to the card; a caller that wants
+the CPU says ``device="cpu"``, and without a card the default raises.
 """
 from __future__ import annotations
 
@@ -19,7 +20,7 @@ from .run import Model
 from .state import initial_state, profile_fields, randomize
 
 
-def _build(itot, jtot, ktot, dtype="float32", ladaptive=True, device="cpu"):
+def _build(itot, jtot, ktot, dtype="float32", ladaptive=True, device="cuda"):
     cfg = Config(
         domain=DomainConfig(itot=itot, jtot=jtot, ktot=ktot,
                             xlen=float(itot), ylen=float(jtot)),
@@ -50,7 +51,7 @@ def _init_state(model, seed=43, amp=0.05):
     return initial_state(model.grid, f, dt0=0.1)
 
 
-def entry(device="cpu"):
+def entry(device="cuda"):
     """Single-device forward step on the flagship configuration."""
     model = _build(64, 64, 64, device=device)
     return model.step, (_init_state(model),)

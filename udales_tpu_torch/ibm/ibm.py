@@ -34,11 +34,10 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from udales_tpu.io.inputs import (read_column_file, read_facet_sections,
-                                  read_facets_inp, read_sparse_ijk)
-
 from ..config import IADV_CD2, Config, const
 from ..grid import Grid
+from ..io.inputs import (read_column_file, read_facet_sections,
+                         read_facets_inp, read_sparse_ijk)
 from ..ops.halo import pad_periodic_xy
 from .wallfn import UMIN, _stability_fm_fh
 

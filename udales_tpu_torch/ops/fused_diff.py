@@ -7,9 +7,10 @@ fused_diff_mom`` (pallas_call at :344).  The kernel source is
 beside this package) and bound with ``ctypes``.
 
 What bounds it on the H100 is bytes: per point it reads ~4 ghosted input
-fields and writes 3 outputs, memory-bound at 3.35 TB/s.  The first design is
-one thread per output point with z contiguous across threads, so neighbour
-loads coalesce and repeat reads hit L1/L2; shared-memory tiling comes later.
+fields and writes 3 outputs, memory-bound at 3.35 TB/s.  A block owns a
+(j, k) window and marches along i with a ring of planes in shared memory
+that ``cp.async`` fills ahead of the march, so every input byte crosses
+from L2 to an SM about once (the design notes are in the source).
 
 Two variants share the source: the unmasked kernel of the flat path and
 the masked one of the urban path, which also reads the ghosted IBM fluid
@@ -54,13 +55,54 @@ def _find_nvcc() -> str:
     return found
 
 
+def least_bytes(shape, itemsize: int, masked: bool) -> int:
+    """Bytes the function must move at grid `shape`: each input (the ghosted
+    u, v, ekm, w, and the three pmasks when `masked`) read once and each
+    output (du, dv, dw) written once.  Over the card's memory rate this is
+    the kernel's bound; the metric vectors are left out as negligible."""
+    nx, ny, nz = shape
+    cell = (nx + 2) * (ny + 2) * (nz + 2)
+    face = (nx + 2) * (ny + 2) * (nz + 1)
+    reads = 3 * cell + face + (3 * cell if masked else 0)
+    writes = 2 * nx * ny * nz + nx * ny * (nz + 1)
+    return itemsize * (reads + writes)
+
+
+def compile_library(source: Path, flags=NVCC_FLAGS):
+    """Compile `source` with nvcc into a shared library under ``_build/``
+    unless that was done before; returns (path, nvcc's output, "" when the
+    library was there already).  The file name carries the hash of the
+    source and the flags, so a stale library is never loaded."""
+    tag = hashlib.sha1(source.read_bytes()
+                       + " ".join(flags).encode()).hexdigest()
+    lib = BUILD_DIR / f"lib{source.stem}-{tag[:16]}.so"
+    if lib.exists():
+        return lib, ""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    try:
+        res = subprocess.run([_find_nvcc(), *flags, "-o", tmp, str(source)],
+                             capture_output=True, text=True)
+        log = res.stdout + res.stderr
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {source}:\n{log}")
+        os.replace(tmp, lib)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+    return lib, log
+
+
 class FusedDiffMom:
     """Callable wrapper around the CUDA kernels.
 
     ``launch_count`` counts launches of the unmasked kernel and
     ``masked_launch_count`` those of the masked one (never the CPU path),
-    so a run can show that its main path went through them.  ``build_log``
-    holds nvcc's output (register and spill report) after the build."""
+    so a run can show that its main path went through them.  They count the
+    host's calls: a call captured into a CUDA graph counts once, at capture,
+    and the graph's replays not at all.  ``build_log`` holds nvcc's output
+    (register and spill report) after the build."""
 
     def __init__(self):
         self.launch_count = 0
@@ -71,28 +113,8 @@ class FusedDiffMom:
     # -- build -------------------------------------------------------------
     def build(self) -> Path:
         """Compile the kernel library if this source has not been built;
-        returns its path.  The file name carries the source and flag hash,
-        so a stale library is never loaded."""
-        src = SOURCE.read_bytes()
-        tag = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-        lib = BUILD_DIR / f"libfused_diff_mom-{tag[:16]}.so"
-        if lib.exists():
-            return lib
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        try:
-            res = subprocess.run([_find_nvcc(), *NVCC_FLAGS, "-o", tmp,
-                                  str(SOURCE)], capture_output=True,
-                                 text=True)
-            self.build_log = res.stdout + res.stderr
-            if res.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed on {SOURCE}:\n{self.build_log}")
-            os.replace(tmp, lib)
-        finally:
-            if os.path.exists(tmp):
-                os.remove(tmp)
+        returns its path."""
+        lib, self.build_log = compile_library(SOURCE)
         return lib
 
     def load(self):
@@ -110,6 +132,18 @@ class FusedDiffMom:
                 fn.restype = ctypes.c_int
             self._lib = lib
         return self._lib
+
+    def blocks_per_sm(self, dtype, masked: bool) -> int:
+        """Resident blocks per SM of one instantiation on the current card
+        (the CUDA occupancy calculator's answer)."""
+        fn = self.load().fused_diff_mom_blocks_per_sm
+        fn.argtypes = [ctypes.c_int, ctypes.c_int]
+        fn.restype = ctypes.c_int
+        n = fn(int(dtype == torch.float64), int(masked))
+        if n < 0:
+            raise RuntimeError(f"fused_diff_mom: occupancy query failed "
+                               f"with cudaError {-n}")
+        return n
 
     # -- call --------------------------------------------------------------
     def __call__(self, g, grid: Grid, pmasks=None):

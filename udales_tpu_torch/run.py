@@ -30,12 +30,11 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from udales_tpu.io.inputs import CaseInputs, large_scale_pressure_gradient
-
 from .config import (BCTOPM_PRESSURE, BC_PERIODIC, IADV_KAPPA, SGS_ONEEQN,
                      Config, const, load_namoptions)
 from .convert import load_profiles
 from .grid import Grid
+from .io.inputs import CaseInputs, large_scale_pressure_gradient
 from .state import Fields, State, initial_state, profile_fields, randomize
 from .ops import advection as adv
 from .ops import subgrid as sgs
@@ -81,10 +80,11 @@ class Model:
     """Static configuration and precomputed operators for one case (the
     reference's init* routines, program.f90:63-124); everything mutable
     lives in `State`.  `ibm` is the case's ``ibm.IBM`` on the same device,
-    or None.  The static profiles are zero until set (`load_case` reads
-    them; see also ``convert.load_profiles``)."""
+    or None.  `device` is the card unless the caller asks for "cpu"; with
+    no card the constructor raises.  The static profiles are zero until set
+    (`load_case` reads them; see also ``convert.load_profiles``)."""
 
-    def __init__(self, cfg: Config, grid: Grid, ibm=None, device="cpu"):
+    def __init__(self, cfg: Config, grid: Grid, ibm=None, device="cuda"):
         missing = _unsupported(cfg, ibm)
         if missing:
             raise NotImplementedError(
@@ -338,7 +338,7 @@ def _case_profiles(inputs, cfg: Config, grid: Grid) -> dict:
 
 
 def load_case(case_dir, expnr: str | None = None, dtype: str = "float32",
-              device="cpu") -> Model:
+              device="cuda") -> Model:
     """Build a Model from a case directory (namoptions and inputs), the
     subset of udales_tpu ``load_case`` (run.py:772-791) this port covers:
     grid from prof.inp, profiles from prof.inp and lscale.inp, and the IBM
