@@ -2,10 +2,11 @@
 
     python3 chip_smoke.py
 
-Drives ``udales_tpu_torch`` (never JAX) through its two main paths, the
-adaptive RK3 step of the flat neutral ABL and of the urban building-array
-case (immersed boundary), and checks both variants of the hand-written CUDA
-diffusion kernel on the way.  Phases, one line each; any failure raises and
+Drives ``udales_tpu_torch`` (never JAX) through its main paths, the
+adaptive RK3 step of the flat neutral ABL, of the urban building-array case
+(immersed boundary) and of the same array with the facet surface energy
+balance, and checks both variants of the hand-written CUDA diffusion kernel
+on the way.  Phases, one line each; any failure raises and
 the script exits non-zero without a result line:
 
   1. require a CUDA device (no CPU fallback)
@@ -28,6 +29,16 @@ the script exits non-zero without a result line:
  12. urban main path: 128^3 float32, warm-up then 30 timed steps
  13. masked kernel time against the plain masked sweeps at 128^3 float32,
      beside its bound
+ 14. stage the urban energy-balance case (cases.stage_urban_eb) at 32^3
+     (dtEB = 0.5 s, so that 5 steps see the balance fire) and at 128^3
+ 15. urban-EB step parity: 32^3 float64, 5 steps on CUDA against CPU,
+     fields and facet temperatures
+ 16. urban-EB main path: 128^3 float32 through load_case, cold_start and
+     run, warm-up then 50 timed steps; the balance fired, the facet
+     temperatures stayed physical; one more step under
+     torch.cuda.set_sync_debug_mode("error"): no host synchronisation
+ 17. the Poisson solver's open-boundary (Neumann), BCzp = 2 and POISS_FFT3D
+     paths at 128^3 float32: residual of the discrete Laplacian
 The line before the last is a JSON object describing the kernels and the
 main paths; the last line is {"ok": true, "device": {...}}.
 """
@@ -171,11 +182,11 @@ def max_divergence(model, c):
 
 
 def run_main_path(model, state, warm, steps, smi, fused, label):
-    """Phase 6/7/12 body: warm `model` up on the card, then time `steps`
+    """Phase 6/7/12/16 body: warm `model` up on the card, then time `steps`
     steps between CUDA events with both launch counts set to 0 just before
     and read just after.  The path's own kernel variant (masked when the
     model has an IBM) must launch 3 times a step and the other not at all.
-    Returns the numbers."""
+    Returns the numbers and the final State."""
     n = model.grid.itot
     masked = model.ibm is not None
     state = model.run(state, warm)
@@ -214,14 +225,14 @@ def run_main_path(model, state, warm, steps, smi, fused, label):
           f"(= 3 x {steps}), dt {dt:.6g}, max|div u| {div:.3e}, "
           f"max|u| {out['umax']:.4f}, peak {out['peak_mem_gib']:.3f} GiB",
           flush=True)
-    return out
+    return out, state
 
 
 def flat_main_path(n, warm, steps, smi, fused):
     from udales_tpu_torch import entry
     model = entry._build(n, n, n, "float32")    # the default device: the card
     return run_main_path(model, entry._init_state(model, seed=43), warm,
-                         steps, smi, fused, f"flat {n}^3 float32")
+                         steps, smi, fused, f"flat {n}^3 float32")[0]
 
 
 def check_kernel(fused, g, grid, pmasks, rtol, label, n):
@@ -271,9 +282,12 @@ def time_kernel(fused, g, grid, pmasks, smi, label, n, reps=50):
 
 
 def parity(states, names):
-    """Worst max|got - ref| / max|ref| of CUDA against CPU over `names`."""
-    pick = lambda st, name: getattr(st if name in ("pres", "dt") else st.c,
-                                    name)
+    """Worst max|got - ref| / max|ref| of CUDA against CPU over `names`
+    (fields of State.c, pres, dt, or facT: the facet temperatures)."""
+    def pick(st, name):
+        if name == "facT":
+            return st.fac.T
+        return getattr(st if name in ("pres", "dt") else st.c, name)
     worst = 0.0
     for name in names:
         a, b = pick(states["cpu"], name), pick(states["cuda"], name)
@@ -283,6 +297,69 @@ def parity(states, names):
     return worst
 
 
+def laplacian(p, grid, open_x=False, open_y=False, periodic_z=False):
+    """The discrete Laplacian the Poisson solver inverts, on the card:
+    periodic or zero-gradient (open) ghosts in x and y; in z zero flux
+    through the floor and the top, or periodic on a uniform grid."""
+    def second(f, dim, is_open, inv2):
+        lo = f.narrow(dim, 0, 1) if is_open else f.narrow(dim, -1, 1)
+        hi = f.narrow(dim, -1, 1) if is_open else f.narrow(dim, 0, 1)
+        g = torch.cat([lo, f, hi], dim=dim)
+        n = f.shape[dim]
+        return (g.narrow(dim, 2, n) - 2 * f + g.narrow(dim, 0, n)) * inv2
+    lap = second(p, 0, open_x, grid.dx2i) + second(p, 1, open_y, grid.dy2i)
+    if periodic_z:
+        return lap + second(p, 2, False, float(grid.dzfi[0]) ** 2)
+    dzhi = grid.t("dzhi", p.device)
+    dzfi = grid.t("dzfi", p.device)
+    flux = (p[:, :, 1:] - p[:, :, :-1]) * dzhi[1:-1][None, None, :]
+    zero = torch.zeros_like(p[:, :, :1])
+    flux = torch.cat([zero, flux, zero], dim=2)
+    return lap + (flux[:, :, 1:] - flux[:, :, :-1]) * dzfi[None, None, :]
+
+
+def poisson_paths(grid, n):
+    """Phase 17: each remaining PoissonSolver path on the card, float32:
+    |laplacian(solve(rhs)) - rhs| <= 1e-4 max|rhs| for a zero-mean rhs."""
+    import dataclasses
+    from udales_tpu_torch.config import (BC_PROFILE, POISS_FFT3D, BCConfig,
+                                         Config, DomainConfig,
+                                         DynamicsConfig)
+    from udales_tpu_torch.ops.poisson import PoissonSolver
+    nx, ny, nz = grid.shape
+    base = Config(domain=DomainConfig(itot=nx, jtot=ny, ktot=nz,
+                                      xlen=grid.xlen, ylen=grid.ylen),
+                  dtype="float32")
+    paths = {
+        "open x": (dict(bc=BCConfig(BCxm=BC_PROFILE)), dict(open_x=True)),
+        "open y": (dict(bc=BCConfig(BCym=BC_PROFILE)), dict(open_y=True)),
+        "open x and y": (dict(bc=BCConfig(BCxm=BC_PROFILE, BCym=BC_PROFILE)),
+                         dict(open_x=True, open_y=True)),
+        "BCzp=2": (dict(bc=BCConfig(BCzp=2)), {}),
+        "POISS_FFT3D": (dict(dynamics=DynamicsConfig(ipoiss=POISS_FFT3D)),
+                        dict(periodic_z=True)),
+    }
+    rng = np.random.default_rng(17)
+    rhs = rng.standard_normal(grid.shape)
+    rhs = torch.tensor(rhs - rhs.mean(), dtype=torch.float32, device="cuda")
+    scale = float(rhs.abs().max())
+    out = {}
+    for name, (change, lap_kw) in paths.items():
+        pois = PoissonSolver(grid, dataclasses.replace(base, **change),
+                             device="cuda")
+        p = pois.solve(rhs)
+        torch.cuda.synchronize()
+        res = float((laplacian(p, grid, **lap_kw) - rhs).abs().max()) / scale
+        ms = cuda_ms(lambda: pois.solve(rhs), 10)
+        out[name] = dict(residual=res, ms=ms)
+        phase(n, f"Poisson {name}, {grid.shape} float32: residual "
+                 f"{res:.3e} of max|rhs| (tolerance 1e-4), solve {ms:.4f} ms")
+        if not (bool(torch.isfinite(p).all()) and res <= 1e-4):
+            raise RuntimeError(f"Poisson path {name} does not invert the "
+                               f"Laplacian")
+    return out
+
+
 def main():
     # 1. a CUDA device, or nothing
     if not torch.cuda.is_available():
@@ -290,7 +367,7 @@ def main():
                          "is_available() is False); the port has no CPU "
                          "fallback here")
     from udales_tpu_torch import entry
-    from udales_tpu_torch.cases import stage_urban
+    from udales_tpu_torch.cases import stage_urban, stage_urban_eb
     from udales_tpu_torch.convert import state_from_numpy, state_to_numpy
     from udales_tpu_torch.grid import Grid
     from udales_tpu_torch.ops.fused_diff import SOURCE, fused_diff_mom
@@ -399,9 +476,9 @@ def main():
         raise RuntimeError("urban CUDA step disagrees with the CPU step")
 
     # 12. the urban main path
-    urb = run_main_path(u128, u128.cold_start(seed=43), warm=5, steps=30,
-                        smi=smi, fused=fused_diff_mom,
-                        label="urban 128^3 float32")
+    urb, _ = run_main_path(u128, u128.cold_start(seed=43), warm=5, steps=30,
+                           smi=smi, fused=fused_diff_mom,
+                           label="urban 128^3 float32")
     phase(12, f"urban 128^3 main path ok; max|div u| {urb['max_div']:.3e} "
               f"<= {div_bound:g} (float32 bound)")
     if not urb["max_div"] <= div_bound:
@@ -413,6 +490,69 @@ def main():
                                       seed=6),
                         u128.grid, pm128, smi,
                         "masked, urban 128^3 float32", 13)
+
+    # 14. stage the urban energy-balance case
+    t0 = time.perf_counter()
+    eb32 = stage_urban_eb(32, CACHE, dtEB=0.5)
+    eb128 = stage_urban_eb(128, CACHE)
+    phase(14, f"staged urban-EB 32^3 (dtEB 0.5 s) and 128^3 (dtEB 2 s) in "
+              f"{time.perf_counter() - t0:.2f} s under {CACHE.name}/")
+
+    # 15. urban-EB CUDA against CPU over 5 steps, the balance firing
+    states = {}
+    start = None
+    for dev in ("cpu", "cuda"):
+        model = load_case(eb32, "900", dtype="float64", device=dev)
+        if start is None:
+            start = state_to_numpy(model.cold_start(seed=43))
+        states[dev] = model.run(state_from_numpy(start, device=dev), 5)
+    worst = parity(states, ("u", "v", "w", "thl", "pres", "dt", "facT"))
+    fired = float(states["cuda"].fac.tEB_last)
+    moved = float((states["cuda"].fac.T - model.eb.T0).abs().max())
+    phase(15, f"urban-EB 32^3 float64, 5 steps, CUDA vs CPU: max rel err "
+              f"{worst:.3e} over u, v, w, thl, pres, dt, fac.T (tolerance "
+              f"1e-9); last balance at t = {fired:.4f} s, facet "
+              f"temperatures moved by up to {moved:.3e} K")
+    if not (worst <= 1e-9 and fired > 0 and moved > 0):
+        raise RuntimeError("urban-EB CUDA step disagrees with the CPU step, "
+                           "or the balance never fired")
+
+    # 16. the urban-EB main path at full size
+    ue128 = load_case(eb128, "900", dtype="float32")        # on the card
+    if ue128.eb is None:
+        raise RuntimeError("load_case built no FacetEB for the lEB case")
+    ueb, st = run_main_path(ue128, ue128.cold_start(seed=43), warm=5,
+                            steps=50, smi=smi, fused=fused_diff_mom,
+                            label="urban-EB 128^3 float32")
+    fac = st.fac
+    ueb.update(tEB_last=float(fac.tEB_last), facT_min=float(fac.T.min()),
+               facT_max=float(fac.T.max()),
+               facT_moved=float((fac.T - ue128.eb.T0).abs().max()))
+    phase(16, f"urban-EB 128^3 main path: {ue128.eb.nfcts} facets, last "
+              f"balance at t = {ueb['tEB_last']:.3f} s, facet temperatures "
+              f"{ueb['facT_min']:.3f} .. {ueb['facT_max']:.3f} K (moved by "
+              f"up to {ueb['facT_moved']:.3e} K), max|div u| "
+              f"{ueb['max_div']:.3e} <= {div_bound:g}")
+    if not (ueb["tEB_last"] > 0 and ueb["facT_moved"] > 0
+            and bool(torch.isfinite(fac.T).all())
+            and 250.0 <= ueb["facT_min"] and ueb["facT_max"] <= 350.0):
+        raise RuntimeError("the energy balance never fired or left "
+                           "unphysical facet temperatures")
+    if not ueb["max_div"] <= div_bound:
+        raise RuntimeError("projection left a divergent velocity field")
+    # a host synchronisation inside the step raises in this mode
+    st = ue128.cold_start(seed=43)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        st = ue128.step(st)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    phase(16, "one urban-EB step under set_sync_debug_mode('error'): no "
+              "host synchronisation")
+
+    # 17. the remaining Poisson paths on the card
+    pois = poisson_paths(g128, 17)
 
     foreign = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "udales_tpu"))
@@ -432,9 +572,13 @@ def main():
         {"name": "fused_diff_mom_masked", "route": "cuda", "source": src,
          "replaces": "udales_tpu/ops/pallas_stencil.py:191",
          "launches": urb["launches"], "max_abs_err": masked_err,
-         **tm128, "bound_by": "bytes", "library_ms": None}],
+         **tm128, "bound_by": "bytes", "library_ms": None,
+         "launches_urban_eb": ueb["launches"]}],
         "main_path": rates(main), "main_path_256": rates(big),
-        "urban_128": rates(urb)}))
+        "urban_128": rates(urb),
+        "urban_eb_128": {**rates(ueb), **{k: ueb[k] for k in (
+            "tEB_last", "facT_min", "facT_max", "facT_moved")}},
+        "poisson_128": pois}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -2,16 +2,22 @@
 
     python3 prof_torch_step.py [N ...]        (default: 128 256 urban128)
 
-An N is a size n for the flat-ABL case at n^3 float32, or urbann for the
+An N is a size n for the flat-ABL case at n^3 float32, urbann for the
 urban building-array case (``cases.stage_urban``, staged into
-.bench_cache/).  For each N it builds the case on the card, warms
+.bench_cache/), or urbanebn for the same array with the facet energy
+balance (``cases.stage_urban_eb``).  For each N it builds the case on the card, warms
 up, times 10 steps with CUDA events, then traces 3 steps with
 torch.profiler and prints the device-busy share of the traced wall time and
 the kernels that take the most device time.  The full kernel table goes to
 chiprun_out/prof_torch_step_<N>.txt.
 For an urban case it then times each IBM hook of the substep alone (host
 wall clock to a synchronize, and device launches counted by the profiler),
-next to the masked diffusion kernel and the unmasked thermodynamics.  The
+next to the masked diffusion kernel and the unmasked thermodynamics; with
+the energy balance, also the wall functions as the third substep calls them
+(live facet temperatures, per-facet sums) and the balance itself, ungated
+(``FacetEB.update``) and gated (``maybe_update``).  It also runs one step
+under ``torch.cuda.set_sync_debug_mode("error")``, which raises on any host
+synchronisation.  The
 hand-written kernel's launches are read from its wrapper's counters: the
 profiler of a single hook call has missed the ctypes launch before.
 """
@@ -32,10 +38,12 @@ OUT = Path(__file__).resolve().parent / "chiprun_out"
 def build_case(case: str):
     """(model, start state) of a CASE on the card, float32."""
     if case.startswith("urban"):
-        from udales_tpu_torch.cases import stage_urban
+        from udales_tpu_torch.cases import stage_urban, stage_urban_eb
         from udales_tpu_torch.run import load_case
-        n = int(case[len("urban"):])
-        model = load_case(stage_urban(n, ROOT / ".bench_cache"), "900",
+        stage, size = ((stage_urban_eb, case[len("urbaneb"):])
+                       if case.startswith("urbaneb")
+                       else (stage_urban, case[len("urban"):]))
+        model = load_case(stage(int(size), ROOT / ".bench_cache"), "900",
                           dtype="float32")     # device: the card, by default
         return model, model.cold_start(seed=43)
     from udales_tpu_torch import entry
@@ -65,11 +73,20 @@ def hook_table(model, state, smi: str) -> list:
                                                          ibm.masks),
         "thermodynamics, unmasked": lambda: thermodynamics(c, cfg, grid),
         "ibm.wallfun": lambda: ibm.wallfun(g, z(c.u), z(c.v), z(c.w),
-                                           z(c.thl)),
+                                           z(c.thl), fac=state.fac),
         "ibm.ibmnorm": lambda: ibm.ibmnorm(c, m, c.u, c.v, c.w, c.thl,
                                            th.thl0av[0]),
         "fused_diff_mom, masked": lambda: fused_diff_mom(g, grid, pmasks=pm),
     }
+    if model.eb is not None:
+        fac, eb = state.fac, model.eb
+        hooks.update({
+            "ibm.wallfun, substep 3": lambda: ibm.wallfun(
+                g, z(c.u), z(c.v), z(c.w), z(c.thl), fac=fac, need_fac=True),
+            "FacetEB.update": lambda: eb.update(fac, state.timee),
+            "FacetEB.maybe_update": lambda: eb.maybe_update(fac,
+                                                            state.timee),
+        })
     lines = [f"IBM hooks alone, {grid.itot}^3 float32 on {smi} "
              f"(ms per call to a synchronize, 20 calls; device launches "
              f"and device ms per call from the profiler; the hand-written "
@@ -141,6 +158,13 @@ def profile_case(case: str, smi: str) -> None:
         tot, cnt = per_kernel.get(e.name, (0.0, 0))
         per_kernel[e.name] = (tot + e.time_range.elapsed_us(), cnt + 1)
     rows = sorted(per_kernel.items(), key=lambda kv: -kv[1][0])
+    # host synchronisations the traced steps made: runtime calls that wait
+    # for the device, and device-to-host copies (the window's closing
+    # torch.cuda.synchronize() is one cudaDeviceSynchronize)
+    waits = {name: sum(e.name == name for e in prof.events())
+             for name in ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+                          "cudaEventSynchronize")}
+    waits["Memcpy DtoH"] = sum("Memcpy DtoH" in e.name for e in events)
     table = [f"{case} ({n}^3 float32) on {smi}: {ms:.4f} ms/step (CUDA "
              f"events, {steps} steps); traced {traced} steps: wall "
              f"{wall_us:.1f} us, "
@@ -151,10 +175,23 @@ def profile_case(case: str, smi: str) -> None:
         table.append(f"{tot / traced:12.2f} us/step {cnt // traced:6d} "
                      f"calls/step  {tot / busy_us:7.4f}  {name[:110]}")
     hooks = hook_table(model, state, smi) if model.ibm is not None else []
+    # any host synchronisation inside a step raises here
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state = model.step(state)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    table.append("one step under torch.cuda.set_sync_debug_mode('error'): "
+                 "no host synchronisation; in the traced steps: "
+                 + ", ".join(f"{k} {v}" for k, v in waits.items())
+                 + " (the window's closing synchronize is one "
+                   "cudaDeviceSynchronize)")
     OUT.mkdir(exist_ok=True)
     (OUT / f"prof_torch_step_{case}.txt").write_text(
         "\n".join(hooks + table) + "\n")
-    print("\n".join(hooks + table[:26]), flush=True)
+    print("\n".join(hooks + table[:1] + table[-1:] + table[1:26]),
+          flush=True)
 
 
 def main() -> None:

@@ -33,8 +33,9 @@ import pytest
 import torch
 
 from udales_tpu_torch import cases
-from udales_tpu_torch.convert import (FIELD_NAMES, ibm_static_to_numpy,
-                                      state_from_numpy, state_to_numpy)
+from udales_tpu_torch.convert import (FACET_STATE_NAMES, FIELD_NAMES,
+                                      ibm_static_to_numpy, state_from_numpy,
+                                      state_to_numpy)
 from udales_tpu_torch.ibm.ibm import IBM
 from udales_tpu_torch.ops import forces as tforces, thermo as tthermo
 from udales_tpu_torch.ops.boundary import Ghosts
@@ -62,7 +63,8 @@ def staged(tmp_path_factory):
     """The urban 32^3 case, staged by the port in a subprocess that blocks
     JAX and the JAX package (a None entry in sys.modules makes any import
     of that name fail); the same subprocess loads the case on the CPU and
-    takes one step."""
+    takes one step, then does the same with the energy-balance case of
+    ``cases.stage_urban_eb``."""
     root = tmp_path_factory.mktemp("urban")
     code = ("import sys; sys.modules['jax'] = None; "
             "sys.modules['udales_tpu'] = None; "
@@ -73,6 +75,11 @@ def staged(tmp_path_factory):
             "model = load_case(case, '900', dtype='float64', device='cpu'); "
             "st = model.step(model.cold_start(seed=43)); "
             "assert bool(torch.isfinite(st.c.u).all()) and float(st.dt) > 0; "
+            f"eb = load_case(cases.stage_urban_eb({N}, sys.argv[1]), '900', "
+            "dtype='float64', device='cpu'); "
+            "st = eb.step(eb.cold_start(seed=43)); "
+            "assert eb.eb is not None and float(st.fac.hfi.abs().max()) > 0; "
+            "assert bool(torch.isfinite(st.c.thl).all()); "
             "assert not any(m.split('.')[0] in ('jax', 'udales_tpu') "
             "for m in sys.modules if sys.modules[m] is not None)")
     res = subprocess.run([sys.executable, "-c", code, str(root / "port")],
@@ -216,6 +223,38 @@ def test_wallfun_matches_dense_reference(models, staged, iwallmom, iwalltemp):
 
 # --- (d) ibmnorm, solid fill, cd2 corrections -----------------------------
 
+@pytest.mark.parametrize("conservative", [False, True],
+                         ids=["liberal", "conservative"])
+def test_ibmnorm_fills_and_corrects_qt(models, staged, conservative):
+    """With lmoist, ibmnorm fills the solid qt cells (enclosed ones with 0)
+    and adds the cd2 correction to the qt tendency, as udales_tpu's
+    (ibm.py:1574-1579)."""
+    import jax.numpy as jnp
+    jmodel, tmodel = models
+    cfg = dataclasses.replace(tmodel.cfg, physics=dataclasses.replace(
+        tmodel.cfg.physics, lmoist=True, lconservativeibm=conservative))
+    tibm = IBM.load(staged, "900", cfg, tmodel.grid)
+    arr_c, arr_m = numpy_fields(seed=15), numpy_fields(seed=16)
+    rng = np.random.default_rng(17)
+    for arr in (arr_c, arr_m):
+        arr["qt"] = 0.008 + 0.002 * rng.standard_normal((N, N, N))
+    jc, tc = both_fields(arr_c)
+    jm, tm = both_fields(arr_m)
+    tend = [rng.standard_normal(s) for s in ((N, N, N), (N, N, N),
+                                             (N, N, N + 1), (N, N, N),
+                                             (N, N, N))]
+    ref = jmodel.ibm.ibmnorm(jc, jm, jmodel.grid, cfg,
+                             *[jnp.asarray(a) for a in tend], jc.sv, 0.1,
+                             jnp.asarray(291.5))
+    got = tibm.ibmnorm(tc, tm, *[torch.tensor(a) for a in tend[:4]],
+                       torch.tensor(291.5), torch.tensor(tend[4]))
+    for a, b in list(zip(got[:5], ref[:5])) + [
+            (got[5].qt, ref[6].qt), (got[5].thl, ref[6].thl)]:
+        assert rel_err(a, b) <= RTOL
+    assert not torch.equal(got[4], torch.tensor(tend[4]))
+    assert not torch.equal(got[5].qt, tm.qt)
+
+
 @pytest.mark.parametrize("part", ["ibmnorm", "solid_fill", "liberal",
                                   "conservative"])
 def test_ibmnorm_parts_match_reference(models, part):
@@ -235,8 +274,9 @@ def test_ibmnorm_parts_match_reference(models, part):
                            jnp.asarray(291.5))
         got = tibm.ibmnorm(tc, tm, *[torch.tensor(a) for a in tend],
                            torch.tensor(291.5))
+        assert got[4] is None       # dqt: the case is dry
         pairs = list(zip(got[:4], ref[:4])) + [
-            (getattr(got[4], k), getattr(ref[6], k)) for k in
+            (getattr(got[5], k), getattr(ref[6], k)) for k in
             ("u", "v", "w", "thl")]
     elif part == "solid_fill":
         ref = jibm._solid_fill_full(jm.thl, jnp.asarray(tend[3]), 291.5)
@@ -355,10 +395,9 @@ def test_masked_fused_diff_matches_reference(models):
 # --- what the slice does not take ----------------------------------------
 
 @pytest.mark.parametrize("change", [
-    dict(eb=dict(lEB=True)), dict(eb=dict(lperiodicEBcorr=True)),
-    dict(walls=dict(lwritefac=True)), dict(physics=dict(lmoist=True)),
-    dict(ibm=None)],
-    ids=["lEB", "lperiodicEBcorr", "lwritefac", "moist-ibm", "ibm-missing"])
+    dict(eb=dict(lEB=True, lwriteEBfiles=True)),
+    dict(physics=dict(lnudge=True, nnudge=4)), dict(ibm=None)],
+    ids=["lwriteEBfiles", "lnudge", "ibm-missing"])
 def test_unported_urban_configurations_raise(models, change):
     _, tmodel = models
     cfg, ibm = tmodel.cfg, tmodel.ibm
@@ -498,6 +537,47 @@ def test_urban_steps_on_card_match_cpu(cuda, staged_here):
     for name in ("u", "v", "w", "thl"):
         assert rel_err(got["c"][name], ref["c"][name]) <= 1e-9, name
     assert rel_err(got["pres"], ref["pres"]) <= 1e-9
+
+
+@pytest.mark.cuda
+def test_urban_eb_steps_on_card_match_cpu(cuda, tmp_path):
+    """5 urban-EB steps at 32^3 float64, the balance firing: CUDA == CPU to
+    1e-9 relative in the fields and the facet temperatures."""
+    case = cases.stage_urban_eb(32, tmp_path, dtEB=0.5)
+    out, start = {}, None
+    for dev in ("cpu", cuda):
+        model = load_case(case, "900", dtype="float64", device=dev)
+        if start is None:
+            start = state_to_numpy(model.cold_start(seed=43))
+        out[str(dev)] = state_to_numpy(
+            model.run(state_from_numpy(start, device=dev), 5))
+    ref, got = out["cpu"], out[str(cuda)]
+    assert float(ref["fac"]["tEB_last"]) > 0
+    for name in ("u", "v", "w", "thl"):
+        assert rel_err(got["c"][name], ref["c"][name]) <= 1e-9, name
+    for k in FACET_STATE_NAMES:
+        assert rel_err(got["fac"][k], ref["fac"][k]) <= 1e-9, k
+
+
+@pytest.mark.cuda
+def test_step_with_the_balance_makes_no_host_sync(cuda, tmp_path):
+    """Model.step with the energy balance (and lwritefac) on: any host
+    synchronisation raises under set_sync_debug_mode("error")."""
+    case = cases.stage_urban_eb(32, tmp_path, dtEB=0.5)
+    base = load_case(case, "900", dtype="float32", device=cuda)
+    cfg = dataclasses.replace(base.cfg, walls=dataclasses.replace(
+        base.cfg.walls, lwritefac=True))
+    model = Model(cfg, base.grid, base.ibm, device=cuda)
+    model.eb, model.inputs = base.eb, base.inputs
+    st = model.step(model.cold_start(seed=43))      # warm-up: builds, plans
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(3):
+            st = model.step(st)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert float(st.fac.tEB_last) > 0 and float(st.facstats.htc.max()) > 0
 
 
 def numpy_state_for(model):

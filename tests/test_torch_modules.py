@@ -296,9 +296,6 @@ def test_unported_branches_raise():
         tbnd.ghost_u(e["tf"].u, e["cfg"], openx={"inlet": {}})
     with pytest.raises(NotImplementedError):
         tbnd.ghost_scalar_kappa(e["tf"].thl, e["cfg"])
-    moist = dataclasses.replace(e["cfg"], physics=PhysicsConfig(lmoist=True))
-    with pytest.raises(NotImplementedError):
-        tthermo.thermodynamics(e["tf"], moist, e["tgrid"])
 
 
 def test_randomize_statistics():

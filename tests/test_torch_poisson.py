@@ -5,7 +5,9 @@ The port transforms x/y with torch.fft where the reference applies dense
 DFT matrices, so agreement is to rounding of those transforms: 1e-10
 relative.  The diagonal (uniform z) path pins the mean mode to zero in both
 packages, so p is compared directly; the tridiagonal path pins it through
-the Dirichlet top row in both, so it is compared directly too.
+the Dirichlet top row in both, so it is compared directly too.  The open
+(Neumann), BCzp=2 and POISS_FFT3D paths are compared after removing the
+mean, and by their gradients.
 """
 import dataclasses
 
@@ -14,8 +16,8 @@ import numpy as np
 import pytest
 import torch
 
-from udales_tpu.config import (BC_PROFILE, POISS_FFT3D, BCConfig, Config,
-                               DomainConfig, DynamicsConfig)
+from udales_tpu.config import (BC_PROFILE, BCTOPM_PRESSURE, POISS_FFT3D,
+                               BCConfig, Config, DomainConfig, DynamicsConfig)
 from udales_tpu.grid import Grid as JGrid
 from udales_tpu.ops.poisson import PoissonSolver as JSolver
 
@@ -68,11 +70,64 @@ def test_solve_inverts_laplacian(kind):
     assert np.abs(ps - p).max() < 1e-8
 
 
-def test_unported_paths_raise():
-    _, tgrid = grids("uniform")
-    for cfg in (dataclasses.replace(CFG, bc=BCConfig(BCxm=BC_PROFILE)),
-                dataclasses.replace(CFG, bc=BCConfig(BCzp=2)),
-                dataclasses.replace(CFG, dynamics=DynamicsConfig(
-                    ipoiss=POISS_FFT3D))):
-        with pytest.raises(NotImplementedError):
+PATHS = {
+    "open_x": dict(bc=BCConfig(BCxm=BC_PROFILE)),
+    "open_y": dict(bc=BCConfig(BCym=BC_PROFILE)),
+    "open_xy": dict(bc=BCConfig(BCxm=BC_PROFILE, BCym=BC_PROFILE)),
+    "bczp2": dict(bc=BCConfig(BCzp=2)),
+    "bczp2_open_x": dict(bc=BCConfig(BCxm=BC_PROFILE, BCzp=2)),
+    "fft3d": dict(dynamics=DynamicsConfig(ipoiss=POISS_FFT3D)),
+    "pressure_top": dict(bc=BCConfig(BCtopm=BCTOPM_PRESSURE)),
+}
+# the fully diagonal z routes assume an equidistant z grid
+UNIFORM_ONLY = {"bczp2", "bczp2_open_x", "fft3d"}
+
+
+def grad(p, grid):
+    """Interior differences of p along the three axes, one flat vector."""
+    return np.concatenate([
+        ((p[1:] - p[:-1]) * grid.dxi).ravel(),
+        ((p[:, 1:] - p[:, :-1]) * grid.dyi).ravel(),
+        ((p[:, :, 1:] - p[:, :, :-1]) * grid.dzhi[1:-1]).ravel()])
+
+
+@pytest.mark.parametrize("kind", ["uniform", "stretched"])
+@pytest.mark.parametrize("path", sorted(PATHS))
+def test_every_path_matches_reference(path, kind):
+    """Open x, open y, both, BCzp=2, POISS_FFT3D and the tridiagonal route a
+    pressure top BC forces: p (mean removed) and grad p to 1e-10."""
+    jgrid, tgrid = grids(kind)
+    cfg = dataclasses.replace(CFG, **PATHS[path])
+    if kind == "stretched" and path in UNIFORM_ONLY:
+        with pytest.raises(ValueError):
+            JSolver(jgrid, cfg)
+        with pytest.raises(ValueError):
             TSolver(tgrid, cfg)
+        return
+    jpois, tpois = JSolver(jgrid, cfg), TSolver(tgrid, cfg)
+    assert (tpois.diag_z, tpois.bczp2, tpois.fft3d) == (
+        jpois.diag_z, jpois.bczp2, jpois.fft3d)
+    rhs = np.random.default_rng(8).standard_normal((NX, NY, NZ))
+    rhs -= rhs.mean()
+    ref = np.asarray(jpois.solve(jnp.asarray(rhs)))
+    got = tpois.solve(torch.tensor(rhs)).numpy()
+    assert got.dtype == np.float64 and got.shape == ref.shape
+    d = (got - got.mean()) - (ref - ref.mean())
+    assert np.abs(d).max() <= 1e-10 * np.abs(ref - ref.mean()).max()
+    gref = grad(ref, tgrid)
+    assert np.abs(grad(got, tgrid) - gref).max() <= 1e-10 * np.abs(gref).max()
+
+
+def test_gradients_agree_across_paths():
+    """The z routes differ in the constant of p only (zeroed mean against
+    the Dirichlet top pin): on one rhs the diagonal, BCzp=2 and tridiagonal
+    routes give one gradient."""
+    _, tgrid = grids("uniform")
+    rhs = np.random.default_rng(9).standard_normal((NX, NY, NZ))
+    rhs -= rhs.mean()
+    ps = [TSolver(tgrid, dataclasses.replace(CFG, **kw))
+          .solve(torch.tensor(rhs)).numpy()
+          for kw in ({}, PATHS["bczp2"], PATHS["pressure_top"])]
+    g0 = grad(ps[0], tgrid)
+    for p in ps[1:]:
+        assert np.abs(grad(p, tgrid) - g0).max() <= 1e-9 * np.abs(g0).max()

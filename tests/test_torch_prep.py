@@ -141,14 +141,15 @@ def test_case_inputs_and_pressure_gradient_match(staged):
 
 COPIES = ["config.py", "io/inputs.py", "prep/stl.py", "prep/geom.py",
           "prep/zgrid.py", "prep/ibmprep.py", "prep/udgeom.py",
-          "prep/native.py", "prep/radiation.py", "prep/prep.py"]
+          "prep/native.py", "prep/radiation.py", "prep/solar.py",
+          "prep/weather.py", "prep/prep.py"]
 
 
 @pytest.mark.parametrize("rel", COPIES)
 def test_copies_hold_the_originals_code(rel):
     """Apart from docstrings (which may name the package) a copied module
-    has the original's syntax tree; prep.py alone differs, in the three
-    branches whose modules are not ported and raise NotImplementedError."""
+    has the original's syntax tree; prep.py alone differs, in the trees
+    branch, whose module is not ported and raises NotImplementedError."""
     def tree(path):
         mod = ast.parse(path.read_text())
         for node in ast.walk(mod):
@@ -172,13 +173,11 @@ def test_copies_hold_the_originals_code(rel):
     assert differing == {"prepare_case"}
     raised = [n for n in ast.walk(got) if isinstance(n, ast.Raise)
               and "NotImplementedError" in ast.dump(n)]
-    assert len(raised) == 3
+    assert len(raised) == 1
 
 
-@pytest.mark.parametrize("kw", [dict(weather_file="w.csv"),
-                                dict(solar_datetime="2011-09-30T11:00"),
-                                dict(with_radiation=False, trees_file="t")],
-                         ids=["weather", "solar", "trees"])
+@pytest.mark.parametrize("kw", [dict(with_radiation=False, trees_file="t")],
+                         ids=["trees"])
 def test_unported_prep_branches_raise(tmp_path, kw):
     from udales_tpu_torch.prep.prep import PrepConfig, prepare_case
     n = 8
@@ -190,6 +189,71 @@ def test_unported_prep_branches_raise(tmp_path, kw):
                         **kw})
     with pytest.raises(NotImplementedError, match="not ported"):
         prepare_case(tmp_path / "geom.stl", tmp_path / "case", cfg)
+
+
+def _weather_table(path):
+    """A synthetic day of hourly records in the reference column layout
+    (as tests/test_weather.py writes it)."""
+    rows = ["date TIME SOLAR SOLAR_1 HELIOM DIFSOLAR"]
+    for h in range(24):
+        if 6 <= h <= 18:
+            zen = 30.0 + 60.0 * abs(h - 12) / 6.0
+            beam, dsky = 800.0 * max(np.cos(np.radians(zen)), 0.0), 120.0
+        else:
+            zen, beam, dsky = 120.0, 0.0, 0.0
+        rows.append(f"300911 {h*3600} {zen:.1f} {180.0 - 15.0*(h-12):.1f} "
+                    f"{beam:.1f} {dsky:.1f}")
+    path.write_text("\n".join(rows) + "\n")
+    return path
+
+
+@pytest.mark.parametrize("pathway", ["fixed-sun", "solar", "weather"])
+def test_radiation_pathways_write_identical_cases(tmp_path, pathway):
+    """prepare_case with the radiation inputs on, by the fixed sun angles,
+    the date/site solar state (prep/solar.py) and a measured weather table
+    (prep/weather.py): both packages write the same bytes."""
+    from udales_tpu.prep import prep as jprep
+    from udales_tpu_torch.prep import prep as tprep
+    kw = {"fixed-sun": {},
+          "solar": dict(solar_datetime="2011-06-21T12:00", latitude=52.0,
+                        longitude=4.4, timezone=1.0, xazimuth=20.0),
+          "weather": dict(solar_datetime="2011-09-30T11:00",
+                          weather_file=str(_weather_table(tmp_path / "wx")))
+          }[pathway]
+    dirs = {}
+    for name, mod in (("ref", jprep), ("got", tprep)):
+        stl = tmp_path / f"{name}.stl"
+        mod.make_box_stl(stl, 4, 8, 4, 8, 6, 12.0, 12.0)
+        cfg = mod.PrepConfig(itot=12, jtot=12, ktot=12, xlen=12.0, ylen=12.0,
+                             zsize=12.0, expnr="001", with_radiation=True,
+                             vf_subdiv=1, **kw)
+        dirs[name] = tmp_path / name
+        mod.prepare_case(stl, dirs[name], cfg)
+    names = sorted(p.name for p in dirs["ref"].iterdir())
+    assert names == sorted(p.name for p in dirs["got"].iterdir())
+    assert {"netsw.inp.001", "svf.inp.001", "vfsparse.inp.001"} <= set(names)
+    match, mismatch, errors = filecmp.cmpfiles(dirs["ref"], dirs["got"],
+                                               names, shallow=False)
+    assert not mismatch and not errors, (mismatch, errors)
+    nsw = np.loadtxt(dirs["got"] / "netsw.inp.001", skiprows=1)
+    assert np.isfinite(nsw).all() and nsw.max() > 0
+
+
+def test_solar_and_weather_functions_match(tmp_path):
+    """solar_state and the weather readers of both packages: equal."""
+    from datetime import datetime
+    from udales_tpu.prep import solar as jsolar, weather as jweather
+    from udales_tpu_torch.prep import solar as tsolar, weather as tweather
+    when = datetime(2011, 6, 21, 10, 30)
+    _same(tsolar.solar_state(when, 51.5, -0.1, 0.0, 35.0),
+          jsolar.solar_state(when, 51.5, -0.1, 0.0, 35.0))
+    wx = _weather_table(tmp_path / "wx")
+    _same(tweather.read_weather_table(wx), jweather.read_weather_table(wx))
+    noon = datetime(2011, 9, 30, 12)
+    _same(tweather.weather_single_shot(wx, noon),
+          jweather.weather_single_shot(wx, noon))
+    _same(tweather.weather_day_series(wx, noon)[:2],
+          jweather.weather_day_series(wx, noon)[:2])
 
 
 def _imports(tree):

@@ -110,11 +110,10 @@ def test_state_roundtrip_and_entry():
 
 @pytest.mark.parametrize("cfg_change", [
     dict(bc=BCConfig(BCxm=BC_PROFILE)),
-    dict(physics=PhysicsConfig(lmoist=True)),
     dict(physics=PhysicsConfig(igrw_damp=1)),
     dict(physics=PhysicsConfig(ifixuinf=1)),
     dict(scalars=ScalarsConfig(nsv=1)),
-], ids=["open-x", "moist", "sponge", "fixuinf", "scalars"])
+], ids=["open-x", "sponge", "fixuinf", "scalars"])
 def test_unported_configurations_raise(cfg_change):
     base = entry._build(8, 8, 8, "float64", device="cpu")
     with pytest.raises(NotImplementedError, match="not ported"):

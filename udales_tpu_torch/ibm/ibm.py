@@ -23,8 +23,13 @@ Sections whose boundary point lies too deep in the roughness layer
 instead (initibmwallfun :384-533, trilinear_interp_var :1609): their
 gather tables hold the 8 trilinear corners, and ``lnorec`` skips them.
 
-Not ported: the facet energy balance and its per-facet sums, the
-``lwritefac`` facet statistics and moist walls.
+With a facet state (``ibm.eb.FacetState``, energy-balance runs) the surface
+temperature of a section is the live ``fac.T[:, 0]`` of its facet, gathered
+per call; `wallfun` then also returns the per-facet flux sums the balance
+integrates (one more ``index_add_`` over the facet id), the domain totals
+for ``periodic_eb_corr``, the latent flux of moist walls (fixed, or the
+green-roof resistances of the facet state) and the ``lwritefac`` facet
+statistics.
 """
 from __future__ import annotations
 
@@ -39,6 +44,7 @@ from ..grid import Grid
 from ..io.inputs import (read_column_file, read_facet_sections,
                          read_facets_inp, read_sparse_ijk)
 from ..ops.halo import pad_periodic_xy
+from ..state import FACSTAT_FIELDS
 from .wallfn import UMIN, _stability_fm_fh
 
 GRIDS = ("u", "v", "w", "c")
@@ -97,10 +103,16 @@ class Sections:
     logdz: torch.Tensor      # log(dist / z0)
     logzh: torch.Tensor      # log(z0 / z0h)
     sqdz: torch.Tensor       # sqrt(dist / z0)
-    tsurf: torch.Tensor      # facet temperature
+    tsurf: torch.Tensor      # static facet temperature (no facet state)
     ctm_neutral: torch.Tensor
     coef: torch.Tensor
-    flux: torch.Tensor | None   # fixed heat flux per section (iwalltemp=1)
+    fid: torch.Tensor        # facet id of each section
+    area: torch.Tensor
+    # c sections only:
+    orient: torch.Tensor | None = None  # index of the section's fixed heat
+                                        # flux in (bctfxm, xp, ym, yp, z, 0)
+    mflux: torch.Tensor | None = None   # fixed moisture flux (iwallmoist=1)
+    lGR: torch.Tensor | None = None     # bool: on a green-roof facet
 
 
 def _alignment(norms: np.ndarray) -> np.ndarray:
@@ -268,7 +280,8 @@ class IBM:
     """Static IBM geometry of one case and its run-time operators."""
 
     def __init__(self, cfg: Config, grid: Grid, masks_np: dict, sec: dict,
-                 facnorm, facz0, facz0h, facT, faca, device="cpu"):
+                 facnorm, facz0, facz0h, facT, faca, faclGR=None,
+                 device="cpu"):
         self.cfg = cfg
         self.grid = grid
         self.device = torch.device(device)
@@ -282,6 +295,9 @@ class IBM:
         self.facT = np.asarray(facT, np.float64)
         self.faca = np.asarray(faca, np.float64)
         self.nfcts = len(self.facz0)
+        self.faclGR = (np.zeros(self.nfcts, bool) if faclGR is None
+                       else np.asarray(faclGR, bool))
+        self.faca_t = torch.as_tensor(self.faca, **kw)
         self._prep_pmasks()
         self.lists = {k: self._sections(k, masks_np["c"]) for k in GRIDS}
 
@@ -319,6 +335,8 @@ class IBM:
         typemap = {int(r[0]): r for r in ft}
         facz0 = np.array([typemap[int(t)][2] for t in walltype])
         facz0h = np.array([typemap[int(t)][3] for t in walltype])
+        faclGR = np.array([abs(typemap[int(t)][1] - 1.0) < 1e-5
+                           for t in walltype])
         faca_p = case_dir / f"facetarea.inp.{expnr}"
         faca = (read_column_file(faca_p) if faca_p.exists()
                 else np.ones(len(facz0)))
@@ -366,7 +384,7 @@ class IBM:
 
         sec = {k: load_sec(k) for k in GRIDS}
         return cls(cfg, grid, masks, sec, facnorm, facz0, facz0h, facT, faca,
-                   device=device)
+                   faclGR=faclGR, device=device)
 
     def _prep_pmasks(self):
         """Ghosted masks for the neighbour logic (udales_tpu ``_prep_pmasks``,
@@ -431,35 +449,79 @@ class IBM:
             kcell = np.minimum(ijk[:, 2], nz - 1)
             coef = s.area[act] / (g.dx * g.dy * g.dzf[kcell])
         norm = self.facnorm[fid]
-        flux = None
-        if which == "c" and cfg.walls.iwalltemp == 1:
-            flux = f(_fixed_heat_flux(norm, cfg))
+        extra = {}
+        if which == "c":
+            b = cfg.bc
+            # the reference assigns bctfxm to -y facets too (kept)
+            extra["orient"] = li(_orientation(norm, (1, 0, 3, 0, 4, 5)))
+            if cfg.physics.lmoist:
+                extra["lGR"] = torch.as_tensor(self.faclGR[fid],
+                                               device=self.device)
+                extra["mflux"] = f(np.array(
+                    [b.bcqfxp, b.bcqfxm, b.bcqfyp, b.bcqfym, b.bcqfz, 0.0])[
+                        _orientation(norm, (0, 1, 2, 3, 4, 5))])
         return Sections(
             flat=li(flat), **tables,
             n0=f(norm[:, 0]), n1=f(norm[:, 1]), n2=f(norm[:, 2]),
             dist=f(dist), logdz=f(logdz), logzh=f(np.log(z0 / z0h)),
             sqdz=f(np.exp(0.5 * logdz)), tsurf=f(self.facT[fid]),
             ctm_neutral=f((const.fkar / logdz) ** 2), coef=f(coef),
-            flux=flux)
+            fid=li(fid), area=f(s.area[act]), **extra)
 
     # ------------------------------------------------------------------
     # Wall functions (ibmwallfun, modibm.f90:1167-1283)
     # ------------------------------------------------------------------
-    def wallfun(self, g, du, dv, dw, dthl):
+    def wallfun(self, g, du, dv, dw, dthl, dqt=None, fac=None, bctf=None,
+                need_fac: bool = False, need_facstats: bool = False,
+                pres=None):
         """Add the facet wall stresses (iwallmom 2: stability-corrected,
-        3: neutral; 1: none) and, with ltempeq, the facet heat fluxes
-        (iwalltemp 1: fixed per orientation, 2: wall function) to the
-        tendencies.  `g` is the substep's Ghosts.  The diffusion
-        corrections are folded into the sweeps (pmask_*), as udales_tpu
-        does by default."""
+        3: neutral; 1: none), with ltempeq the facet heat fluxes (iwalltemp
+        1: fixed per orientation, `bctf` when time-dependent; 2: wall
+        function) and with lmoist the latent fluxes (iwallmoist 1: fixed;
+        2: green roofs, from the facet state) to the tendencies.  `g` is the
+        substep's Ghosts, `fac` the facet state of an energy-balance run.
+        The diffusion corrections are folded into the sweeps (pmask_*), as
+        udales_tpu does by default.
+
+        Returns (du, dv, dw, dthl, dqt, fachf, facef, hf_tot, ef_tot,
+        fstats): the tendencies, the per-facet sensible and latent flux
+        sums ((nfcts,), None unless `need_fac`), their domain totals
+        (always) and the lwritefac diagnostics dict (None unless
+        `need_facstats`; modibm.f90:1416-1430, 1475-1476, 1539-1540)."""
         cfg = self.cfg
+        facT = fac.T[:, 0] if fac is not None else None
+        hf_tot = ef_tot = self.faca_t.new_zeros(())
+        fachf = facef = None
+        fstats = {} if need_facstats else None
         if cfg.walls.iwallmom > 1:
-            du = self._wallfunmom("u", g, du)
-            dv = self._wallfunmom("v", g, dv)
-            dw = self._wallfunmom("w", g, dw)
-        if cfg.physics.ltempeq:
-            dthl = self._wallfunheat(g, dthl)
-        return du, dv, dw, dthl
+            du, tx = self._wallfunmom("u", g, du, facT, need_facstats)
+            dv, ty = self._wallfunmom("v", g, dv, facT, need_facstats)
+            dw, tz = self._wallfunmom("w", g, dw, facT, need_facstats)
+            if need_facstats:
+                fstats.update(tau_x=tx, tau_y=ty, tau_z=tz)
+        if cfg.physics.ltempeq or cfg.physics.lmoist:
+            (dthl, dqt, hf_tot, ef_tot, fachf, facef,
+             hstats) = self._wallfunheat(g, dthl, dqt, fac, bctf, need_fac,
+                                         need_facstats)
+            if need_facstats:
+                fstats.update(hstats)
+        if need_facstats:
+            # fac_pres / fac_pres2: pres0 at the c-section cells
+            zf = torch.zeros_like(self.faca_t)
+            sc = self.lists["c"]
+            if sc is not None and pres is not None:
+                pcell = pres.reshape(-1)[sc.flat]
+                fstats["pres"] = self._facsum(sc, pcell) / self.faca_t
+                fstats["pres2"] = self._facsum(sc, pcell * pcell) \
+                    / self.faca_t
+            for key in FACSTAT_FIELDS:
+                fstats.setdefault(key, zf)
+        return du, dv, dw, dthl, dqt, fachf, facef, hf_tot, ef_tot, fstats
+
+    def _facsum(self, s: Sections, vals):
+        """Per-facet area-weighted sum of per-section values."""
+        return torch.zeros_like(self.faca_t).index_add(0, s.fid,
+                                                       vals * s.area)
 
     @staticmethod
     def _interp(s: Sections, g):
@@ -486,61 +548,128 @@ class IBM:
         tz = sx * n1 - sy * n0
         return (tx, ty, tz), tx * uu + ty * vv + tz * ww, ok
 
-    def _wallfunmom(self, which, g, tend):
-        """wallfunmom (modibm.f90:1286-1433) on one grid, added to `tend`."""
+    def _wallfunmom(self, which, g, tend, facT=None, need_tau=False):
+        """wallfunmom (modibm.f90:1286-1433) on one grid, added to `tend`.
+        With `need_tau` also the per-facet signed stress sums over the facet
+        area (fac_tau_x/y/z), else None."""
         s = self.lists[which]
         if s is None:
-            return tend
+            return tend, (torch.zeros_like(self.faca_t) if need_tau
+                          else None)
         uu, vv, ww, Ta = self._interp(s, g)
         (tx, ty, tz), utan, ok = self._tangent(s, uu, vv, ww)
         if self.cfg.walls.iwallmom == 2:
+            Ts = s.tsurf if facT is None else facT[s.fid]
             ctm = _mom_coef_stability(utan, s.dist, s.logdz, s.logzh, s.sqdz,
-                                      Ta, s.tsurf, self.cfg.walls.prandtlturb)
+                                      Ta, Ts, self.cfg.walls.prandtlturb)
         else:
             ctm = s.ctm_neutral
         stress = ctm * utan * utan
         a, ua = {"u": (tx, uu), "v": (ty, vv), "w": (tz, ww)}[which]
-        stress_dir = torch.sign(ua) * torch.abs(a * stress)
-        contrib = torch.where(ok, -stress_dir * s.coef, 0.0)
-        return tend.reshape(-1).index_add(0, s.flat, contrib).view(tend.shape)
+        stress_dir = torch.where(ok, torch.sign(ua) * torch.abs(a * stress),
+                                 0.0)
+        tend = tend.reshape(-1).index_add(0, s.flat, -stress_dir * s.coef) \
+            .view(tend.shape)
+        tau = (self._facsum(s, stress_dir) / self.faca_t if need_tau
+               else None)
+        return tend, tau
 
-    def _wallfunheat(self, g, dthl):
+    def _wallfunheat(self, g, dthl, dqt, fac=None, bctf=None,
+                     need_fac=False, need_stats=False):
         """wallfunheat (modibm.f90:1436-1606): the sensible heat flux at the
-        c-sections, added to `dthl`."""
+        c-sections added to `dthl` and, on moist walls, the latent flux
+        added to `dqt`.  Returns (dthl, dqt, hf_tot, ef_tot, fachf, facef,
+        stats) as `wallfun` documents them; stats holds htc and cth."""
+        cfg = self.cfg
+        zt = self.faca_t.new_zeros(())
+        nf0 = torch.zeros_like(self.faca_t) if need_fac else None
+        stats = dict(htc=torch.zeros_like(self.faca_t),
+                     cth=torch.zeros_like(self.faca_t)) if need_stats else None
         s = self.lists["c"]
         if s is None:
-            return dthl
+            return dthl, dqt, zt, zt, nf0, nf0, stats
         uu, vv, ww, Ta = self._interp(s, g)
         _, utan, ok = self._tangent(s, uu, vv, ww)
-        if self.cfg.walls.iwalltemp == 1:
-            flux = s.flux
-        else:
-            flux = _heat_coef_flux(utan, s.dist, s.logdz, s.logzh, s.sqdz,
-                                   Ta, s.tsurf, self.cfg.walls.prandtlturb)
-        contrib = -torch.where(ok, flux, 0.0) * s.coef
-        return dthl.reshape(-1).index_add(0, s.flat, contrib).view(
-            dthl.shape)
+        hf_tot = ef_tot = zt
+        fachf = facef = nf0
+        htc = None
+        scatter = lambda tend, fl: tend.reshape(-1).index_add(
+            0, s.flat, -fl * s.coef).view(tend.shape)
+        if cfg.physics.ltempeq:
+            if cfg.walls.iwalltemp == 1:
+                # fixed flux per orientation (modibm.f90:1519-1535), or its
+                # time-interpolated values (modtimedep timedepsurf)
+                b = cfg.bc
+                vals = (torch.stack(list(bctf)).to(utan.dtype)
+                        if bctf is not None else utan.new_tensor(
+                            [b.bctfxm, b.bctfxp, b.bctfym, b.bctfyp,
+                             b.bctfz]))
+                flux = torch.cat([vals, vals.new_zeros(1)])[s.orient]
+            else:
+                Ts = s.tsurf if fac is None else fac.T[:, 0][s.fid]
+                cth, flux, htc = _heat_coef_flux(
+                    utan, s.dist, s.logdz, s.logzh, s.sqdz, Ta, Ts,
+                    cfg.walls.prandtlturb)
+                if need_stats:
+                    stats = dict(
+                        htc=self._facsum(s, torch.where(ok, htc, 0.0))
+                        / self.faca_t,
+                        cth=self._facsum(s, torch.where(ok, cth, 0.0))
+                        / self.faca_t)
+            fl = torch.where(ok, flux, 0.0)
+            dthl = scatter(dthl, fl)
+            hf_tot = torch.sum(fl * s.area)
+            if need_fac:
+                fachf = self._facsum(s, fl)
+        # latent heat on green-roof facets (modibm.f90:1555-1589)
+        mfl = None
+        if cfg.physics.lmoist and cfg.walls.iwallmoist == 1:
+            mfl = torch.where(ok & s.lGR, s.mflux, 0.0)
+        elif (cfg.physics.lmoist and cfg.walls.iwallmoist == 2
+              and fac is not None):
+            exch = (htc * torch.abs(utan) if htc is not None
+                    else torch.zeros_like(utan))
+            qtair = (g.qt.reshape(-1)[s.idx_t] * s.wgt_t).sum(dim=1)
+            qwall, hurel = fac.qsat[s.fid], fac.hurel[s.fid]
+            resa = 1.0 / torch.clamp(exch, min=1e-10)
+            resc, ress = fac.f[:, 3][s.fid], fac.f[:, 4][s.fid]
+            cveg = 0.8
+            mflux = torch.clamp(
+                cveg * (qtair - qwall) / (resa + resc)
+                + (1.0 - cveg) * (qtair - qwall * hurel) / (resa + ress),
+                max=0.0)
+            mfl = torch.where(ok & s.lGR & (exch > 0.0), mflux, 0.0)
+        if mfl is not None:
+            dqt = scatter(dqt, mfl)
+            ef_tot = torch.sum(mfl * s.area)
+            if need_fac:
+                facef = self._facsum(s, mfl)
+        return dthl, dqt, hf_tot, ef_tot, fachf, facef, stats
 
     # ------------------------------------------------------------------
     # ibmnorm: zero solid velocities, fill solid scalar cells
     # ------------------------------------------------------------------
-    def ibmnorm(self, c, m, du, dv, dw, dthl, thl_vmean):
+    def ibmnorm(self, c, m, du, dv, dw, dthl, thl_vmean, dqt=None):
         """ibmnorm (modibm.f90:697-745): zero the solid velocities and
-        their tendencies, fill solid thl cells (value and tendency) and add
-        the cd2 scalar advection correction.  Returns the tendencies and
-        the masked `m` fields."""
+        their tendencies, fill solid thl and qt cells (value and tendency)
+        and add the cd2 scalar advection correction.  Returns the tendencies
+        (du, dv, dw, dthl, dqt) and the masked `m` fields."""
         cfg, M = self.cfg, self.masks
         du, dv, dw = du * M.u, dv * M.v, dw * M.w
         m_new = replace(m, u=m.u * M.u, v=m.v * M.v, w=m.w * M.w)
+        corr = (self.advecc2nd_corr_conservative
+                if cfg.physics.lconservativeibm
+                else self.advecc2nd_corr_liberal)
         if cfg.physics.ltempeq:
             thlm, dthl = self.solid_fill(m.thl, dthl, thl_vmean)
             m_new = replace(m_new, thl=thlm)
             if cfg.iadv_thl == IADV_CD2:
-                corr = (self.advecc2nd_corr_conservative
-                        if cfg.physics.lconservativeibm
-                        else self.advecc2nd_corr_liberal)
                 dthl = dthl + corr(c.thl, c)
-        return du, dv, dw, dthl, m_new
+        if cfg.physics.lmoist:
+            qtm, dqt = self.solid_fill(m.qt, dqt, 0.0)
+            m_new = replace(m_new, qt=qtm)
+            dqt = dqt + corr(c.qt, c)
+        return du, dv, dw, dthl, dqt, m_new
 
     def solid_fill(self, var, rhs, val):
         """`solid` (modibm.f90:748-826): solid cells take the average of
@@ -690,9 +819,9 @@ def _mom_coef_stability(utan, dist, logdz, logzh, sqdz, Tair, Tsurf,
 
 def _heat_coef_flux(utan, dist, logdz, logzh, sqdz, Tair, Tsurf,
                     prandtlturb=const.prandtlmol):
-    """heat_transfer_coef_flux (modibm.f90:1919-1985): the kinematic heat
-    flux |utan| cth dT_rough (udales_tpu ``_heat_coef_flux_pre``; its cth
-    and htc outputs feed only the energy balance and lwritefac)."""
+    """heat_transfer_coef_flux (modibm.f90:1919-1985): (cth, flux, htc), the
+    kinematic heat flux being |utan| cth dT_rough and htc = flux / (|utan|
+    dT), 0 where that denominator is (udales_tpu ``_heat_coef_flux_pre``)."""
     fkar2 = const.fkar ** 2
     dT = Tair - Tsurf
     Ribl0 = _ribl0(utan, dist, Tair, Tsurf)
@@ -703,17 +832,21 @@ def _heat_coef_flux(utan, dist, logdz, logzh, sqdz, Tair, Tsurf,
     M1 = prandtlturb * logdz * torch.sqrt(Fm1) / Fh1
     dTrough = dT / (prandtlturb * logzh / M1 + 1.0)
     cth = fkar2 / (logdz ** 2) * Fh1 / prandtlturb
-    return torch.abs(utan) * cth * dTrough
+    flux = torch.abs(utan) * cth * dTrough
+    denom = torch.abs(utan) * dT
+    nz = torch.abs(denom) > 0
+    htc = torch.where(nz, flux / torch.where(nz, denom, 1.0), 0.0)
+    return cth, flux, htc
 
 
-def _fixed_heat_flux(norm: np.ndarray, cfg: Config) -> np.ndarray:
-    """Fixed facet heat flux by orientation, iwalltemp = 1
-    (modibm.f90:1519-1535; the reference assigns bctfxm to -y facets too,
-    kept)."""
-    b, e = cfg.bc, const.eps1
+def _orientation(norm: np.ndarray, codes) -> np.ndarray:
+    """Per-section code by facet orientation: `codes` = (+x, -x, +y, -y, +z,
+    other), the order of the reference's where-chains (modibm.f90:1519-1535,
+    1556-1568)."""
+    e = const.eps1
     n0, n1, n2 = norm[:, 0], norm[:, 1], norm[:, 2]
-    return np.where(np.abs(n0 - 1) < e, b.bctfxp,
-           np.where(np.abs(n0 + 1) < e, b.bctfxm,
-           np.where(np.abs(n1 - 1) < e, b.bctfyp,
-           np.where(np.abs(n1 + 1) < e, b.bctfxm,
-           np.where(np.abs(n2 - 1) < e, b.bctfz, 0.0)))))
+    return np.where(np.abs(n0 - 1) < e, codes[0],
+           np.where(np.abs(n0 + 1) < e, codes[1],
+           np.where(np.abs(n1 - 1) < e, codes[2],
+           np.where(np.abs(n1 + 1) < e, codes[3],
+           np.where(np.abs(n2 - 1) < e, codes[4], codes[5])))))

@@ -4,6 +4,7 @@
   - forces (:46-133): large-scale pressure gradient + buoyancy on w
   - coriolis / lprofforc (:600-717)
   - masscorr (:328-497): fixed volume-flow-rate correction (luvolflowr)
+  - periodicEBcorr (:861-951): heat-buildup sink of periodic EB runs
 Large-scale tendencies, nudging, sponge damping and the free-stream
 controllers are not ported yet.
 """
@@ -99,3 +100,26 @@ def masscorr_vvol(vp, vm, grid: Grid, cfg: Config, rk3coef, IIv=None):
     vflowrateold = torch.sum(vvolold * dzf) / zh_top
     vdef = cfg.physics.vflowrate - (voutflow + vflowrateold)
     return vp + (vdef / rk3coef).to(vp.dtype)
+
+
+def periodic_eb_corr(grid: Grid, cfg: Config, tot_Tflux, tot_qflux):
+    """Heat-buildup volume sink for periodic energy-balance runs
+    (modforces.f90:861-951, Grylls 2021): the domain-total sensible and
+    latent wall fluxes (0-d tensors) -> (dthl, dqt) profiles (nz,)."""
+    nz = grid.ktot
+    xlen, ylen = grid.xlen, grid.ylen
+    frac = cfg.eb.fraction
+    sinkbase = cfg.eb.sinkbase
+    abl_h = float(grid.zh[-1]) / frac
+    M = nz - (sinkbase + 1) + 1
+    kw = dict(dtype=tot_Tflux.dtype, device=tot_Tflux.device)
+    k = torch.arange(nz, device=tot_Tflux.device)
+    # Fortran k = sinkbase+1 .. ke (1-based) == 0-based k >= sinkbase
+    above = (k >= sinkbase).to(kw["dtype"])
+    top = (k == nz - 1).to(kw["dtype"])
+
+    def profile(tot):
+        R = tot / (xlen * ylen) / abl_h * nz / M
+        phi = (1 - frac) * tot / (xlen * ylen * float(grid.dzf[-1]))
+        return R * above + phi * top
+    return profile(tot_Tflux), profile(tot_qflux)

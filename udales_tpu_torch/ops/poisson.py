@@ -1,21 +1,27 @@
-"""FFT-based pressure-Poisson solver, periodic x/y (port of
-``udales_tpu.ops.poisson``; src/modpois.f90 POISS_FFT2D, :419-712).
+"""FFT-based pressure-Poisson solver (port of ``udales_tpu.ops.poisson``;
+src/modpois.f90 POISS_FFT2D :419-712, POISS_FFT3D :808-882).
 
-  rhs(x,y,z) --rfft(x)--> --fft(y)--> z solve per mode --> inverse path
+  rhs(x,y,z) --x transform--> --y transform--> z solve per mode --> back
 
-The x/y transforms are ``torch.fft`` (cuFFT on the card).  Two z solves:
+A periodic direction is transformed with ``torch.fft`` (cuFFT on the card),
+an open (Neumann) one with a DCT-II applied as a dense matrix product with
+the reference's ``_dctII_matrix`` and its exact inverse (the REDFT branches
+of modpois.f90).  The z direction takes one of four routes:
 
-  - ``diag_z`` (uniform z, Boussinesq, BCzp=1, no pressure top): the z
-    direction is diagonalized by a DCT-II, applied as a dense matrix product
-    with the reference's ``_dctII_matrix`` and its exact inverse, and the
-    modal divide uses the same eigenvalues ``inv_lam3`` with the mean mode
-    pinned to zero (poisson.py:289-322, 444-453);
+  - ``diag_z`` (periodic x/y, uniform z, BCzp=1, no pressure top): a DCT-II
+    in z and a modal divide by ``inv_lam3`` with the mean mode pinned to
+    zero (udales_tpu poisson.py:289-322, 444-453);
+  - ``bczp2`` (BCzp=2, uniform z): the same cosine transform with the
+    reference's zero-mode rule (modpois.f90:179-193, 556-591);
+  - ``fft3d`` (POISS_FFT3D, periodic x/y, uniform z): a plain FFT in z with
+    periodic eigenvalues, zero mode -> 0;
   - otherwise the per-mode tridiagonal Thomas solve, with the reference's
     coefficients and its Dirichlet-across-the-top pin of the singular (0,0)
     mode (modpois.f90:148-220), as a loop over k on (mx, my) tensors.
 
-Open (Neumann) lateral boundaries, POISS_FFT3D and BCzp=2 are not ported
-yet and raise.
+The routes differ in the additive constant of p (zeroed mean against the
+Dirichlet pin); the projection takes only its gradient.  Density is
+Boussinesq (rhobf = rhobh = 1).
 """
 from __future__ import annotations
 
@@ -38,7 +44,7 @@ class PoissonSolver:
     Solver constants live on `device` in the grid dtype."""
 
     def __init__(self, grid: Grid, cfg: Config, device="cpu"):
-        # The z transform is a float32 matmul on the card: keep it in full
+        # The DCTs are float32 matmuls on the card: keep them in full
         # float32 (TF32 keeps ~3 decimal digits, which shows up directly as
         # post-projection divergence).  Both switches are process-wide.
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -49,41 +55,65 @@ class PoissonSolver:
         nx, ny, nz = grid.shape
         self.per_x = cfg.bc.BCxm == BC_PERIODIC
         self.per_y = cfg.bc.BCym == BC_PERIODIC
-        if not (self.per_x and self.per_y):
-            raise NotImplementedError(
-                "Neumann (open) lateral Poisson directions are not ported yet")
-        if cfg.dynamics.ipoiss == POISS_FFT3D:
-            raise NotImplementedError("POISS_FFT3D is not ported yet")
-        if cfg.bc.BCzp == 2:
-            raise NotImplementedError("BCzp=2 is not ported yet")
+        kw = dict(dtype=grid.torch_dtype, device=self.device)
+
+        def const(a):
+            return torch.as_tensor(np.asarray(a).astype(grid.dtype), **kw)
+
+        def dct_pair(n):
+            C = _dctII_matrix(n)
+            return const(C), const(np.linalg.inv(C))
 
         dxi, dyi = grid.dxi, grid.dyi
-        # eigenvalues (modpois.f90:100-146); rfft(x) x fft(y) indexing
-        mx = np.arange(nx // 2 + 1)
-        xrt = -4.0 * dxi * dxi * np.sin(np.pi * mx / nx) ** 2
-        my = np.arange(ny)
-        yrt = -4.0 * dyi * dyi * np.sin(np.pi * my / ny) ** 2
+        # eigenvalues (modpois.f90:100-146): rfft(x) x fft(y) indexing for
+        # periodic directions, DCT-II indexing for open ones
+        if self.per_x:
+            xrt = -4.0 * dxi * dxi * np.sin(
+                np.pi * np.arange(nx // 2 + 1) / nx) ** 2
+        else:
+            xrt = -4.0 * dxi * dxi * np.sin(
+                np.pi * np.arange(nx) / (2 * nx)) ** 2
+            self.Cx, self.iCx = dct_pair(nx)
+        if self.per_y:
+            yrt = -4.0 * dyi * dyi * np.sin(np.pi * np.arange(ny) / ny) ** 2
+        else:
+            yrt = -4.0 * dyi * dyi * np.sin(
+                np.pi * np.arange(ny) / (2 * ny)) ** 2
+            self.Cy, self.iCy = dct_pair(ny)
         lam = xrt[:, None] + yrt[None, :]                   # (mx, my)
 
         dzf = grid.dzf
-        self.diag_z = (np.allclose(dzf, dzf[0], rtol=1e-12)
-                       and cfg.bc.BCtopm != BCTOPM_PRESSURE)
-        tdt = grid.torch_dtype
-        kw = dict(dtype=tdt, device=self.device)
-        if self.diag_z:
+        uniform_z = bool(np.allclose(dzf, dzf[0], rtol=1e-12))
+        self.fft3d = cfg.dynamics.ipoiss == POISS_FFT3D
+        self.bczp2 = (not self.fft3d) and cfg.bc.BCzp == 2
+        self.diag_z = (not self.fft3d and self.per_x and self.per_y
+                       and uniform_z and cfg.bc.BCtopm != BCTOPM_PRESSURE
+                       and cfg.bc.BCzp == 1)
+        if self.fft3d and not (self.per_x and self.per_y):
+            raise ValueError("POISS_FFT3D requires periodic x and y")
+        if self.fft3d and not uniform_z:
+            raise ValueError("POISS_FFT3D assumes an equidistant z grid")
+        if self.bczp2 and not uniform_z:
+            raise ValueError("BCzp=2 assumes an equidistant z grid "
+                             "(modpois.f90:184)")
+
+        if self.fft3d or self.bczp2 or self.diag_z:
+            # fully diagonal: modal divide by xrt + yrt + zrt, zero modes -> 0
             dzi = 1.0 / dzf[0]
             kz = np.arange(nz)
-            zrt = -4.0 * dzi * dzi * np.sin(np.pi * kz / (2 * nz)) ** 2
+            zrt = -4.0 * dzi * dzi * np.sin(
+                np.pi * kz / (nz if self.fft3d else 2 * nz)) ** 2
             lam3 = lam[:, :, None] + zrt[None, None, :]
-            inv = np.where(np.abs(lam3) > 1e-300, 1.0 / np.where(
-                np.abs(lam3) > 1e-300, lam3, 1.0), 0.0)
-            inv[0, 0, 0] = 0.0   # pin the global mean mode
-            self.inv_lam3 = torch.as_tensor(inv.astype(grid.dtype), **kw)
-            C = _dctII_matrix(nz)
-            # x @ M.T applies M along the last (z) axis
-            self.CzT = torch.as_tensor(C.T.astype(grid.dtype), **kw)
-            self.iCzT = torch.as_tensor(np.linalg.inv(C).T.astype(grid.dtype),
-                                        **kw)
+            ok = np.abs(lam3) > 1e-300
+            inv = np.where(ok, 1.0 / np.where(ok, lam3, 1.0), 0.0)
+            if not self.bczp2:
+                inv[0, 0, 0] = 0.0   # pin the global mean mode
+            self.inv_lam3 = const(inv)
+            if not self.fft3d:
+                # x @ M.T applies M along the last (z) axis
+                C = _dctII_matrix(nz)
+                self.CzT = const(C.T)
+                self.iCzT = const(np.linalg.inv(C).T)
             return
 
         # tridiagonal coefficients (modpois.f90:153-177), Boussinesq density
@@ -109,14 +139,13 @@ class PoissonSolver:
         for k in range(1, nz):
             w[..., k] = 1.0 / (D[..., k] - a[k] * cp[..., k - 1])
             cp[..., k] = c[k] * w[..., k]
-        self.w = torch.as_tensor(w.astype(grid.dtype), **kw)
-        self.cp = torch.as_tensor(cp.astype(grid.dtype), **kw)
-        self.Af = torch.as_tensor((-(a[None, None, :] * w)).astype(grid.dtype),
-                                  **kw)
+        self.w = const(w)
+        self.cp = const(cp)
+        self.Af = const(-(a[None, None, :] * w))
 
     def _tridiag(self, rhs):
-        """Per-mode Thomas solve along z of a complex (mx, my, nz) tensor:
-        forward y_k = Af_k y_{k-1} + w_k rhs_k, backward
+        """Per-mode Thomas solve along z of a real or complex (mx, my, nz)
+        tensor: forward y_k = Af_k y_{k-1} + w_k rhs_k, backward
         x_k = y_k - cp_k x_{k+1}."""
         nz = rhs.shape[-1]
         B = rhs * self.w
@@ -129,14 +158,36 @@ class PoissonSolver:
         return torch.stack(xs[::-1], dim=-1)
 
     def solve(self, rhs):
-        """rhs (nx, ny, nz) -> pressure correction p (nx, ny, nz)."""
-        nx = rhs.shape[0]
-        if self.diag_z:
-            G = torch.matmul(rhs, self.CzT)
-            S = torch.fft.fft(torch.fft.rfft(G, dim=0), dim=1)
-            X = torch.fft.ifft(S * self.inv_lam3, dim=1)
-            Gp = torch.fft.irfft(X, n=nx, dim=0)
-            return torch.matmul(Gp, self.iCzT)
-        S = torch.fft.fft(torch.fft.rfft(rhs, dim=0), dim=1)
-        X = torch.fft.ifft(self._tridiag(S), dim=1)
-        return torch.fft.irfft(X, n=nx, dim=0)
+        """rhs (nx, ny, nz) -> pressure correction p (nx, ny, nz).  The real
+        transforms (DCTs) go first and the FFTs of the periodic directions
+        after them, as in the reference's ``_solve_neumann``; the transforms
+        of different axes commute."""
+        nx, ny, nz = rhs.shape
+        zcos = self.diag_z or self.bczp2
+        F = torch.matmul(rhs, self.CzT) if zcos else rhs
+        if not self.per_x:
+            F = torch.einsum("ki,ijz->kjz", self.Cx, F)
+        if not self.per_y:
+            F = torch.einsum("kj,ijz->ikz", self.Cy, F)
+        if self.per_x:
+            F = torch.fft.rfft(F, dim=0)
+        if self.per_y:
+            F = torch.fft.fft(F, dim=1)
+        if self.fft3d:
+            X = torch.fft.ifft(torch.fft.fft(F, dim=2) * self.inv_lam3,
+                               dim=2)
+        elif zcos:
+            X = F * self.inv_lam3
+        else:
+            X = self._tridiag(F)
+        if self.per_y:
+            X = torch.fft.ifft(X, dim=1)
+            if not self.per_x:
+                X = X.real
+        if self.per_x:
+            X = torch.fft.irfft(X, n=nx, dim=0)
+        if not self.per_y:
+            X = torch.einsum("jk,ikz->ijz", self.iCy, X)
+        if not self.per_x:
+            X = torch.einsum("ik,kjz->ijz", self.iCx, X)
+        return torch.matmul(X, self.iCzT) if zcos else X

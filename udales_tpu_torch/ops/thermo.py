@@ -1,9 +1,9 @@
-"""Thermodynamics diagnostics, dry path (port of ``udales_tpu.ops.thermo``).
+"""Thermodynamics diagnostics (port of ``udales_tpu.ops.thermo``).
 
-Re-derivations of src/modthermodynamics.f90: the hydrostatic base profiles
-(diagfld :241-350 / fromztop :364-424), half-level interpolation
-(calc_halflev :508-538) and the dry d(theta_v)/dz of calthv (:202-231).
-The moist saturation adjustment is not ported yet and raises.
+Re-derivations of src/modthermodynamics.f90: the saturation adjustment
+(thermo :434-504, all-or-nothing or Newton-Raphson), the hydrostatic base
+profiles (diagfld :241-350 / fromztop :364-424), half-level interpolation
+(calc_halflev :508-538) and d(theta_v)/dz of calthv (:130-235).
 
 Slab averages follow avexy_ibm (modmpi.f90:621-662): all-solid slabs give
 the sentinel -999.
@@ -26,6 +26,43 @@ def avexy_masked(f, mask=None, sentinel=-999.0):
     cnt = mask.sum(dim=(0, 1))
     s = (f * mask).sum(dim=(0, 1))
     return torch.where(cnt > 0, s / torch.clamp(cnt, min=1), sentinel)
+
+
+def _qsat_tetens(T, pressure):
+    es = const.es0 * torch.exp(const.at * (T - const.tmelt) / (T - const.bt))
+    return const.ep * es / (pressure - (1.0 - const.ep) * es)
+
+
+def ql_sat_adjust(thl, qt, pressure, exner, lqlnr: bool = False):
+    """All-or-nothing liquid water (modthermodynamics.f90:478-501), or the
+    Newton-Raphson temperature iteration when ``lqlnr`` (:449-476)."""
+    tl = torch.clamp(thl * exner, min=100.0)
+    if lqlnr:
+        return _ql_newton_raphson(tl, qt, pressure)
+    qsl = _qsat_tetens(tl, pressure)
+    b1 = const.rlv ** 2 / (tl ** 2 * const.cp * const.rv)
+    qs = qsl * (1.0 + b1 * qt) / (1.0 + b1 * qsl)
+    return torch.clamp(qt - qs, min=0.0)
+
+
+def _ql_newton_raphson(tl, qt, pressure, maxit: int = 50):
+    """Newton-Raphson saturation temperature (modthermodynamics.f90:449-476):
+    iterate T until the largest relative update drops below 1e-5, at most
+    `maxit` times.  The reference package stops a while-loop on that global
+    error; here all `maxit` iterations run and a device-side flag
+    freezes T once the error has dropped, which gives the same T without a
+    host synchronisation per iteration."""
+    T = tl
+    done = torch.zeros((), dtype=torch.bool, device=tl.device)
+    for _ in range(maxit):
+        qs = _qsat_tetens(T, pressure)
+        Tn = T - (T + (const.rlv / const.cp) * qs - tl
+                  - (const.rlv / const.cp) * qt) \
+            / (1.0 + (const.rlv ** 2 * qs) / (const.rv * const.cp * T ** 2))
+        err = torch.max(torch.abs(Tn - T) / Tn)
+        T = torch.where(done, T, Tn)
+        done = done | ~(err > 1e-5)
+    return torch.clamp(qt - _qsat_tetens(T, pressure), min=0.0)
 
 
 @dataclass(frozen=True)
@@ -81,8 +118,8 @@ def hydrostatic_profiles(th0av_e, qt0av_e, ql0av_e, grid: Grid, cfg: Config,
         presh = (ps ** rdocp + _cumsum0(incr_h)) ** (1.0 / rdocp)
         return presf, presh, thvf
 
-    # the reference iterates twice (diagfld:291-318); on the dry path both
-    # passes see the same inputs, so one suffices
+    # the reference iterates twice (diagfld:291-318); both passes see the
+    # same inputs (the caller folds ql into th0av_e), so one suffices
     presf, presh, thvf = one_pass(th0av_e)
     exnf = (presf / const.pref0) ** rdocp
     exnh = (presh / const.pref0) ** rdocp
@@ -90,13 +127,10 @@ def hydrostatic_profiles(th0av_e, qt0av_e, ql0av_e, grid: Grid, cfg: Config,
 
 
 def thermodynamics(c, cfg: Config, grid: Grid, masks=None) -> ThermoDiag:
-    """Thermodynamics pass (modthermodynamics.f90:57-122), dry path.  `c` is
+    """Thermodynamics pass (modthermodynamics.f90:57-122).  `c` is
     a Fields (current substep); `masks` optionally gives the IBM fluid masks
     (``ibm.Masks``: c, u, v and the face mask w) that weight the slab
     averages, as in udales_tpu/ops/thermo.py:150-161; None is all fluid."""
-    if cfg.physics.lmoist:
-        raise NotImplementedError(
-            "moist thermodynamics is not ported to udales_tpu_torch yet")
     nx, ny, nz = grid.shape
     dev, dt = c.thl.device, c.thl.dtype
 
@@ -117,9 +151,18 @@ def thermodynamics(c, cfg: Config, grid: Grid, masks=None) -> ThermoDiag:
     ext = lambda p: torch.cat([p, p[-1:]])
     thl0av_e, qt0av_e = ext(thl0av), ext(qt0av)
 
+    lmoist = cfg.physics.lmoist
     ql0 = torch.zeros((nx, ny, nz), dtype=dt, device=dev)
     ql0av = torch.zeros(nz + 1, dtype=dt, device=dev)
     th0av_e = thl0av_e
+    if lmoist:
+        # saturation needs presf: the dry hydrostatic profile first
+        presf, _, exnf, _, _ = hydrostatic_profiles(
+            thl0av_e, qt0av_e, ql0av, grid, cfg, thvs, ps)
+        ql0 = ql_sat_adjust(c.thl, c.qt, presf[None, None, :nz],
+                            exnf[None, None, :nz], cfg.dynamics.lqlnr)
+        ql0av = ext(avexy_masked(ql0, IIc))
+        th0av_e = thl0av_e + (const.rlv / const.cp) * ql0av / exnf
     presf, presh, exnf, exnh, _ = hydrostatic_profiles(
         th0av_e, qt0av_e, ql0av, grid, cfg, thvs, ps)
 
@@ -136,8 +179,19 @@ def thermodynamics(c, cfg: Config, grid: Grid, masks=None) -> ThermoDiag:
         return torch.cat([torch.full((nx, ny, 1), surf, dtype=dt, device=dev),
                           fh], dim=-1)
 
-    thv0h = halflev(c.thl, thls)
-    dthvdz = _dthvdz_dry(c.thl, grid)
+    thl0h = halflev(c.thl, thls)
+    if lmoist:
+        qt0h = halflev(c.qt, qts)
+        ql0h = ql_sat_adjust(thl0h, qt0h, presh[None, None, :],
+                             exnh[None, None, :], cfg.dynamics.lqlnr)
+        # calthv moist branch (:142-200)
+        thv0h = (thl0h + const.rlv * ql0h / (const.cp * exnh[None, None, :])) \
+            * (1.0 + (const.rv / const.rd - 1.0) * qt0h
+               - const.rv / const.rd * ql0h)
+        dthvdz = _dthvdz_moist(c, ql0, grid, exnf[:nz])
+    else:
+        thv0h = thl0h
+        dthvdz = _dthvdz_dry(c.thl, grid)
 
     # thvh slab average + lowest-level overrides (modthermodynamics:77-93)
     thvh = avexy_masked(thv0h, IIw)
@@ -157,14 +211,50 @@ def thermodynamics(c, cfg: Config, grid: Grid, masks=None) -> ThermoDiag:
     )
 
 
+def _floor_gradient(d):
+    """Zero at the lowest level, floored at +/- eps1 (calthv :226-231)."""
+    d = torch.cat([torch.zeros_like(d[..., :1]), d[..., 1:]], dim=-1)
+    return torch.where(torch.abs(d) < const.eps1,
+                       torch.sign(d) * const.eps1
+                       + (d == 0).to(d.dtype) * const.eps1, d)
+
+
 def _dthvdz_dry(thl, grid: Grid):
     """calthv dry branch (modthermodynamics.f90:202-231): centred gradient,
     zero at the lowest level, floored at +/- eps1."""
     dzh = grid.t("dzh", thl.device)
     thl_e = torch.cat([thl[..., :1], thl, thl[..., -1:]], dim=-1)
     denom = (dzh[1:] + dzh[:-1])[None, None, :]
-    d = (thl_e[..., 2:] - thl_e[..., :-2]) / denom
-    d = torch.cat([torch.zeros_like(d[..., :1]), d[..., 1:]], dim=-1)
-    return torch.where(torch.abs(d) < const.eps1,
-                       torch.sign(d) * const.eps1
-                       + (d == 0).to(d.dtype) * const.eps1, d)
+    return _floor_gradient((thl_e[..., 2:] - thl_e[..., :-2]) / denom)
+
+
+def _dthvdz_moist(c, ql0, grid: Grid, exnf):
+    """calthv moist branch (modthermodynamics.f90:153-200)."""
+    dev = c.thl.device
+    dzh = grid.t("dzh", dev)
+    ext = lambda f: torch.cat([f[..., :1], f, f[..., -1:]], dim=-1)
+    thl_e, qt_e = ext(c.thl), ext(c.qt)
+    dth = thl_e[..., 2:] - thl_e[..., :-2]
+    dq = qt_e[..., 2:] - qt_e[..., :-2]
+    eps_I = 1.0 / const.ep - 1.0
+    a_dry = 1.0 + eps_I * c.qt
+    b_dry = eps_I * c.thl
+    del_dry = a_dry * dth + b_dry * dq
+    temp = c.thl * exnf[None, None, :] + (const.rlv / const.cp) * ql0
+    qs = c.qt - ql0
+    a_moist = ((1.0 - c.qt + qs / const.ep * (1.0 + const.rlv
+                / (const.rv * temp)))
+               / (1.0 + const.rlv ** 2 * qs
+                  / (const.cp * const.rv * temp ** 2)))
+    b_moist = a_moist * const.rlv / const.cp - temp
+    c_liquid = a_dry * const.rlv / const.cp - c.thl / const.ep
+    del_sat = a_moist * dth + b_moist * dq
+    zf = grid.t("zf", dev)
+    zf_e = torch.cat([zf[:1], zf, zf.new_tensor([grid.zf_top])])
+    chi = 2.0 * const.chi_half * (zf_e[1:-1] - zf_e[:-2])[None, None, :] / (
+        dzh[:-1] + dzh[1:])[None, None, :]
+    diff = del_dry - del_sat
+    chi_sat = c_liquid * ql0 / torch.where(
+        torch.abs(diff) < 1e-30, torch.full_like(diff, 1e-30), diff)
+    dthv = torch.where((ql0 > 0) & (chi < chi_sat), del_sat, del_dry)
+    return _floor_gradient(dthv / (dzh[1:] + dzh[:-1])[None, None, :])

@@ -7,9 +7,8 @@ factors, sky view factors, net shortwave), initial profiles, and a
 namoptions file with the &WALLS counts filled in (the reference pipeline:
 tools/python/udprep orchestrating the Fortran kernels, SURVEY.md A.3).
 
-The measured-weather and date/site solar pathways and the vegetation files
-(``weather.py``, ``solar.py``, ``vegetation.py`` of the original) are not in
-the port yet: their branches raise ``NotImplementedError``."""
+The vegetation files (``vegetation.py`` of the original) are not in the
+port yet: the ``trees_file`` branch raises ``NotImplementedError``."""
 from __future__ import annotations
 
 from dataclasses import dataclass, field
@@ -248,14 +247,24 @@ def prepare_case(stl_path: str | Path, outdir: str | Path,
         if cfg.weather_file is not None:
             # measured-weather pathway (udprep isolar=3): exact-row lookup
             # at the case datetime, then the same shading kernel
-            raise NotImplementedError(
-                "weather_file: prep/weather.py is not ported yet")
+            from datetime import datetime
+            from .weather import shortwave_from_weather, weather_single_shot
+            when = datetime.fromisoformat(cfg.solar_datetime
+                                          or "2011-09-30T12:00")
+            wst = weather_single_shot(cfg.weather_file, when)
+            out = shortwave_from_weather(
+                tris, normals, wst, cfg.xazimuth,
+                albedo=np.full(len(tris), cfg.albedo), vf=F, svf=svf)
+            nsw = out["netsw"]
         else:
             if cfg.solar_datetime is not None:
                 # solar position + ASHRAE strength from date/site
                 # (prep/solar.py, the udprep isolar=2 pathway)
-                raise NotImplementedError(
-                    "solar_datetime: prep/solar.py is not ported yet")
+                from datetime import datetime
+                from .solar import solar_state
+                sun, _, _, I_dir, D_diff = solar_state(
+                    datetime.fromisoformat(cfg.solar_datetime),
+                    cfg.latitude, cfg.longitude, cfg.timezone, cfg.xazimuth)
             else:
                 sun = solar_direction(cfg.zenith_deg, cfg.azimuth_deg)
                 I_dir, D_diff = cfg.I_dir, cfg.D_diff

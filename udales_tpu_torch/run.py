@@ -14,17 +14,21 @@ branch on a tensor), so N steps can later be captured as one CUDA graph.
 With an ``ibm.IBM`` the substep takes the IBM hooks where udales_tpu's does
 (run.py:162-535): masked thermodynamics slab averages, the pmask-folded
 diffusion, the facet wall functions after the forces, the masked
-volume-flow correction and ibmnorm before the projection.  `load_case`
-builds a Model from a case directory (udales_tpu ``load_case``).
+volume-flow correction and ibmnorm before the projection.  With an
+``ibm.eb.FacetEB`` (``lEB``) the State carries the facet state: the wall
+functions read its live surface temperatures, the third substep integrates
+the per-facet fluxes, and `step` ends with the device-gated energy-balance
+solve.  `load_case` builds a Model from a case directory (udales_tpu
+``load_case``).
 
-Configuration branches the port does not cover (the facet energy balance,
-facet statistics, open boundaries, physics modules, nudging, large-scale
-tendencies, sponge damping, chemistry, passive scalars, the one-equation
-closure, moist thermodynamics) raise NotImplementedError when the Model is
-built.
+Configuration branches the port does not cover (open boundaries, physics
+modules, nudging, large-scale tendencies, sponge damping, chemistry,
+passive scalars, the one-equation closure) raise NotImplementedError when
+the Model is built.
 """
 from __future__ import annotations
 
+from dataclasses import replace
 from pathlib import Path
 
 import numpy as np
@@ -35,16 +39,20 @@ from .config import (BCTOPM_PRESSURE, BC_PERIODIC, IADV_KAPPA, SGS_ONEEQN,
 from .convert import load_profiles
 from .grid import Grid
 from .io.inputs import CaseInputs, large_scale_pressure_gradient
-from .state import Fields, State, initial_state, profile_fields, randomize
+from .state import (FACSTAT_FIELDS, Fields, State, initial_state,
+                    profile_fields, randomize, zero_facstats)
 from .ops import advection as adv
 from .ops import subgrid as sgs
 from .ops.boundary import Ghosts, ghost_u, ghost_v, ghost_w, make_ghosts
-from .ops.forces import coriolis, forces, masscorr_uvol, masscorr_vvol
+from .ops.forces import (coriolis, forces, masscorr_uvol, masscorr_vvol,
+                         periodic_eb_corr)
 from .ops.fused_diff import fused_diff_mom
 from .ops.halo import pad_periodic_xy
 from .ops.poisson import PoissonSolver
-from .ops.thermo import ThermoDiag, thermodynamics
+from .ops.thermo import ThermoDiag, avexy_masked, thermodynamics
 from .ibm.bottom import bottom_tendencies
+from .ibm.eb import FacetEB
+from .timedep import Timedep
 
 
 def _unsupported(cfg: Config, ibm=None):
@@ -55,8 +63,6 @@ def _unsupported(cfg: Config, ibm=None):
         "open x/y boundaries": (bc.BCxm != BC_PERIODIC
                                 or bc.BCym != BC_PERIODIC),
         "inlet generation / driver replay": cfg.driver.iinletgen != 0,
-        "pressure top BC": bc.BCtopm == BCTOPM_PRESSURE,
-        "moist thermodynamics": ph.lmoist,
         "passive scalars": cfg.scalars.nsv > 0,
         "one-equation TKE closure": cfg.subgrid.model == SGS_ONEEQN,
         "kappa advection of thl": (ph.ltempeq
@@ -65,9 +71,8 @@ def _unsupported(cfg: Config, ibm=None):
         "sponge-layer damping": ph.igrw_damp != 0,
         "nudging": ph.lnudge and ph.nnudge > 0,
         "free-stream controllers": ph.ifixuinf != 0,
-        "facet energy balance": cfg.eb.lEB,
-        "periodic energy-balance correction": cfg.eb.lperiodicEBcorr,
-        "facet statistics (lwritefac)": cfg.walls.lwritefac,
+        "facet energy-balance file output (lwriteEBfiles)": (
+            cfg.eb.lEB and cfg.eb.lwriteEBfiles),
         "an IBM case (libm, nfcts > 0) without its IBM": (
             ibm is None and cfg.run.libm and cfg.walls.nfcts > 0),
         "wall-stress field dumps": bool(
@@ -94,6 +99,8 @@ class Model:
         self.ibm = ibm
         self.device = torch.device(device)
         self.inputs = None   # io.inputs.CaseInputs once load_case reads one
+        self.eb = None       # ibm.eb.FacetEB for energy-balance runs
+        self.timedep = None  # timedep.Timedep
         self.pois = PoissonSolver(grid, cfg, device=self.device)
         nz = grid.ktot
         kw = dict(dtype=grid.torch_dtype, device=self.device)
@@ -130,7 +137,12 @@ class Model:
             gen.manual_seed(seed)
             f = randomize(f, gen, cfg.run.randu, min(cfg.run.krand, nz))
         dt0 = dt0 if dt0 is not None else min(cfg.run.dtmax, 0.1)
-        return initial_state(grid, f, dt0=dt0)
+        fac = self.eb.initial_state() if self.eb is not None else None
+        st = initial_state(grid, f, dt0=dt0, fac=fac)
+        if cfg.walls.lwritefac and self.ibm is not None:
+            st = st.replace(facstats=zero_facstats(
+                self.ibm.nfcts, grid.torch_dtype, self.device))
+        return st
 
     # -- one RK3 substep ---------------------------------------------------
     def substep(self, state: State, rk3step: int, th: ThermoDiag | None = None,
@@ -143,6 +155,7 @@ class Model:
         c, m = state.c, state.m
         rk3coef = state.dt / (4.0 - rk3step)
         ltemp = cfg.physics.ltempeq
+        lmoist = cfg.physics.lmoist
         ibm = self.ibm
 
         if th is None:
@@ -171,6 +184,7 @@ class Model:
         dw[..., 1:nz] -= (state.pres[:, :, 1:] - state.pres[:, :, :-1]) \
             * dzhi[1:nz][None, None, :]
         dthl = adv.adv_c2(g.thl, g, grid) if ltemp else None
+        dqt = adv.adv_c2(g.qt, g, grid) if lmoist else None
 
         # --- subgrid diffusion: the hand-written kernel on CUDA ------------
         # the IBM diffusion corrections (diffu_corr..diffc_corr) are folded
@@ -183,12 +197,16 @@ class Model:
         du, dv, dw = du + xu, dv + xv, dw + xw
         if ltemp:
             dthl = dthl + sgs.diff_c(g.thl, g.ekh, grid, M=Mc)
+        if lmoist:
+            dqt = dqt + sgs.diff_c(g.qt, g.ekh, grid, M=Mc)
 
         # --- floor wall functions (modibm.bottom) --------------------------
-        bu, bv, bthl, _, _ = bottom_tendencies(g, cfg, grid)
+        bu, bv, bthl, bqt, _ = bottom_tendencies(g, cfg, grid)
         du, dv = du + bu, dv + bv
         if ltemp:
             dthl = dthl + bthl
+        if lmoist:
+            dqt = dqt + bqt
 
         # --- coriolis / forces ---------------------------------------------
         cu, cv, cw = coriolis(g, grid, cfg, self.ug, self.vg)
@@ -200,8 +218,35 @@ class Model:
             dthl = dthl + self.thlpcar[None, None, :]
 
         # --- IBM wall functions (modibm.ibmwallfun) ------------------------
+        fac, facstats = state.fac, state.facstats
         if ibm is not None:
-            du, dv, dw, dthl = ibm.wallfun(g, du, dv, dw, dthl)
+            bctf = (self.timedep.surf_fluxes(state.timee)
+                    if self.timedep is not None else None)
+            need_fac = fac is not None and rk3step == 3
+            need_fstats = (cfg.walls.lwritefac and rk3step == 3
+                           and facstats is not None)
+            (du, dv, dw, dthl, dqt, fachf, facef, hf_tot, ef_tot,
+             fstats) = ibm.wallfun(g, du, dv, dw, dthl, dqt, fac, bctf,
+                                   need_fac=need_fac,
+                                   need_facstats=need_fstats,
+                                   pres=state.pres)
+            # intqH (modEB.f90:220-247): the facet fluxes accumulate in time
+            # on the last substep, with the full dt
+            if need_fac:
+                fac = replace(fac, hfi=fac.hfi + state.dt * fachf,
+                              efi=fac.efi + state.dt * facef)
+            # lwritefac dt-weighted accumulation (modibm.f90:1246-1254)
+            if need_fstats:
+                facstats = replace(facstats, **{
+                    k: getattr(facstats, k) + state.dt * fstats[k]
+                    for k in FACSTAT_FIELDS})
+            # periodic heat-buildup sink (modforces.periodicEBcorr)
+            if cfg.eb.lperiodicEBcorr:
+                pthl, pqt = periodic_eb_corr(grid, cfg, hf_tot, ef_tot)
+                if ltemp:
+                    dthl = dthl + pthl[None, None, :]
+                if lmoist:
+                    dqt = dqt + pqt[None, None, :]
 
         # --- mass-flow-rate correction (modforces.masscorr) ----------------
         IIu = IIv = None
@@ -216,14 +261,14 @@ class Model:
         if ibm is not None:
             dzf = grid.t("dzf", self.device)
             thl_vmean = torch.sum(th.thl0av * dzf) / float(grid.zh[-1])
-            du, dv, dw, dthl, m = ibm.ibmnorm(c, m, du, dv, dw, dthl,
-                                              thl_vmean)
+            du, dv, dw, dthl, dqt, m = ibm.ibmnorm(c, m, du, dv, dw, dthl,
+                                                   thl_vmean, dqt)
 
         # --- forces hard-zeroes wp at the floor (modforces.f90:125) --------
         dw[..., 0] = 0.0
 
         # --- pressure projection (modpois.poisson) -------------------------
-        du, dv, dw, p = self._project(du, dv, dw, m, rk3coef)
+        du, dv, dw, p = self._project(du, dv, dw, m, rk3coef, state.pres)
         pres = state.pres + p
 
         # --- integrate (modtstep.tstep_integrate) --------------------------
@@ -234,25 +279,46 @@ class Model:
             v=m.v + rk3coef * dv,
             w=w_new,
             thl=m.thl + rk3coef * dthl if ltemp else m.thl,
-            qt=m.qt,
+            qt=m.qt + rk3coef * dqt if lmoist else m.qt,
             e12=torch.clamp(m.e12, min=const.e12min),
             sv=m.sv,
         )
         m_new = c_new if rk3step == 3 else m
-        return state.replace(c=c_new, m=m_new, pres=pres)
+        return state.replace(c=c_new, m=m_new, pres=pres, fac=fac,
+                             facstats=facstats)
 
-    def _project(self, du, dv, dw, m: Fields, rk3coef):
+    def _project(self, du, dv, dw, m: Fields, rk3coef, pres):
         """fillps + bcpup + poisson + tderive (modpois.f90:911-998, 419-712,
-        1001-1105), periodic x/y with impermeable bottom and top.  Returns
-        the projected tendencies and the pressure correction."""
-        grid = self.grid
+        1001-1105), periodic x/y with an impermeable bottom and an
+        impermeable or pressure (``BCtopm``) top.  `pres` is the accumulated
+        pressure.  Returns the projected tendencies and the pressure
+        correction."""
+        grid, cfg = self.grid, self.cfg
         nz = grid.ktot
         rk3coefi = 1.0 / rk3coef
+        lptop = cfg.bc.BCtopm == BCTOPM_PRESSURE
+        IIc = self.ibm.masks.c if self.ibm is not None else None
+        dzhi_top = 1.0 / float(grid.dzh[-1])
+
+        def top_gradient(p):
+            """2 <p>_ke dzhi(ke+1), the slab mean over the fluid cells."""
+            pij = avexy_masked(p, IIc)
+            pij = torch.where(pij < -900.0, 0.0, pij)
+            return 2.0 * pij[nz - 1] * dzhi_top
+
+        dw = dw.clone()
         pup = du + m.u * rk3coefi
         pvp = dv + m.v * rk3coefi
         pwp = dw + m.w * rk3coefi
         pwp[..., 0] = 0.0
-        pwp[..., nz] = 0.0
+        if lptop:
+            # pwp(ke+1) = wm/rk3coef + 2 <pres0>_ke dzhi(ke+1)
+            # (modboundary.f90:1241); the wp part is folded into dw
+            wtop_t = top_gradient(pres)
+            dw[..., nz] = wtop_t
+            pwp[..., nz] = m.w[..., nz] * rk3coefi + wtop_t
+        else:
+            pwp[..., nz] = 0.0
         dzfi = grid.t("dzfi", self.device)
         gpu = pad_periodic_xy(pup, 1)
         ddx = (gpu[2:, 1:-1, :] - gpu[1:-1, 1:-1, :]) * grid.dxi
@@ -265,9 +331,11 @@ class Model:
         du = du - (gp[1:-1, 1:-1, :] - gp[:-2, 1:-1, :]) * grid.dxi
         dv = dv - (gp[1:-1, 1:-1, :] - gp[1:-1, :-2, :]) * grid.dyi
         dzhi = grid.t("dzhi", self.device)
-        dw = dw.clone()
         dw[..., 1:nz] += -(p[:, :, 1:] - p[:, :, :-1]) \
             * dzhi[1:nz][None, None, :]
+        if lptop:
+            # wp(ke+1) += 2 <p>_ke dzhi(ke+1) (modpois.f90:1058-1069)
+            dw[..., nz] += top_gradient(p)
         return du, dv, dw, p
 
     # -- dt control (modtstep.tstep_update:49-154) --------------------------
@@ -310,6 +378,15 @@ class Model:
         state = self.substep(state, 1, th=th, closure_out=closure_out)
         for rk3step in (2, 3):
             state = self.substep(state, rk3step)
+        # the facet energy balance fires every dtEB (quantized),
+        # modEB.f90:429; gated on the device, see FacetEB.maybe_update
+        if self.eb is not None and state.fac is not None:
+            skyLW = netsw = None
+            if self.timedep is not None:
+                skyLW = self.timedep.sky_lw(state.timee)
+                netsw = self.timedep.net_sw(state.timee)
+            state = state.replace(fac=self.eb.maybe_update(
+                state.fac, state.timee, skyLW=skyLW, netsw=netsw))
         return state
 
     def run(self, state: State, nsteps: int) -> State:
@@ -341,22 +418,22 @@ def load_case(case_dir, expnr: str | None = None, dtype: str = "float32",
               device="cuda") -> Model:
     """Build a Model from a case directory (namoptions and inputs), the
     subset of udales_tpu ``load_case`` (run.py:772-791) this port covers:
-    grid from prof.inp, profiles from prof.inp and lscale.inp, and the IBM
-    when ``libm`` and ``nfcts > 0``.  Inputs that would switch on a
-    subsystem the port lacks raise NotImplementedError."""
+    grid from prof.inp, profiles from prof.inp and lscale.inp, the IBM when
+    ``libm`` and ``nfcts > 0``, with ``lEB`` its facet energy balance, and
+    the time-dependent series whose switches are on and whose files exist.
+    Inputs that would switch on a subsystem the port lacks raise
+    NotImplementedError."""
     case_dir = Path(case_dir)
     if expnr is None:
         expnr = sorted(case_dir.glob("namoptions.*"))[0].suffix[1:]
     cfg = load_namoptions(case_dir / f"namoptions.{expnr}", dtype=dtype)
-    dom, ph = cfg.domain, cfg.physics
+    dom = cfg.domain
     np_dt = np.float32 if dtype == "float32" else np.float64
     grid = Grid.from_prof_inp(case_dir / f"prof.inp.{expnr}", dom.itot,
                               dom.jtot, dom.ktot, dom.xlen, dom.ylen,
                               dtype=np_dt)
     inputs = CaseInputs.load(case_dir, expnr, dom.ktot, cfg.scalars.nsv)
     lacking = {
-        "time-dependent forcings": (ph.ltimedepsurf or ph.ltimedepnudge
-                                    or ph.ltimedeplw or ph.ltimedepsw),
         "large-scale tendencies": bool(np.any(inputs.lscale["wfls"] != 0)
                                        or np.any(inputs.lscale["dqtdt"] != 0)),
         "trees": cfg.trees.ltrees,
@@ -374,6 +451,10 @@ def load_case(case_dir, expnr: str | None = None, dtype: str = "float32",
     model = Model(cfg, grid, ibm, device=device)
     load_profiles(model, _case_profiles(inputs, cfg, grid))
     model.inputs = inputs
+    if cfg.eb.lEB and ibm is not None:
+        model.eb = FacetEB.load(case_dir, expnr, cfg, ibm, device=device)
+    model.timedep = Timedep.load(case_dir, expnr, cfg, dom.ktot,
+                                 dtype=grid.torch_dtype, device=device)
     return model
 
 

@@ -8,11 +8,14 @@
       sv  (nsv, nx, ny, nz) passive scalars
   - ``State``: the RK3 carry: start-of-step fields ``m``, current substep
       fields ``c``, accumulated pressure ``pres``, timestep ``dt`` and
-      elapsed time ``timee`` (both 0-d tensors on the field device).
+      elapsed time ``timee`` (both 0-d tensors on the field device), the
+      facet state ``fac`` of energy-balance runs (``ibm.eb.FacetState``) and
+      the ``FacStats`` accumulators of lwritefac runs.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
+from typing import Any
 
 import torch
 
@@ -37,9 +40,35 @@ class State:
     pres: torch.Tensor
     dt: torch.Tensor
     timee: torch.Tensor
+    fac: Any = None       # ibm.eb.FacetState for energy-balance runs
+    facstats: Any = None  # FacStats accumulators for lwritefac runs
 
     def replace(self, **kw) -> "State":
         return replace(self, **kw)
+
+
+FACSTAT_FIELDS = ("tau_x", "tau_y", "tau_z", "pres", "pres2", "htc", "cth")
+
+
+@dataclass(frozen=True)
+class FacStats:
+    """lwritefac facet-diagnostic accumulators (modibm.f90:114-127,
+    1246-1280): dt-weighted running sums of facet-area-averaged wall stress,
+    pressure and heat-transfer coefficients, each (nfcts,)."""
+    tau_x: torch.Tensor
+    tau_y: torch.Tensor
+    tau_z: torch.Tensor
+    pres: torch.Tensor
+    pres2: torch.Tensor
+    htc: torch.Tensor
+    cth: torch.Tensor
+    tlast: torch.Tensor   # scalar: time of the last fac write
+
+
+def zero_facstats(nfcts: int, dtype, device="cpu") -> FacStats:
+    z = lambda: torch.zeros(nfcts, dtype=dtype, device=device)
+    return FacStats(**{k: z() for k in FACSTAT_FIELDS},
+                    tlast=torch.zeros((), dtype=dtype, device=device))
 
 
 def zero_fields(grid: Grid, nsv: int = 0, device="cpu") -> Fields:
@@ -87,10 +116,11 @@ def randomize(fields: Fields, generator: torch.Generator, amplitude: float,
                    w=perturb(fields.w))
 
 
-def initial_state(grid: Grid, fields: Fields, dt0: float = 1.0) -> State:
+def initial_state(grid: Grid, fields: Fields, dt0: float = 1.0,
+                  fac=None) -> State:
     nx, ny, nz = grid.shape
     kw = dict(dtype=grid.torch_dtype, device=fields.u.device)
     return State(m=fields, c=fields,
                  pres=torch.zeros((nx, ny, nz), **kw),
                  dt=torch.tensor(dt0, **kw),
-                 timee=torch.tensor(0.0, **kw))
+                 timee=torch.tensor(0.0, **kw), fac=fac)
