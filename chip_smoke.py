@@ -4,9 +4,10 @@
 
 Drives ``udales_tpu_torch`` (never JAX) through its main paths, the
 adaptive RK3 step of the flat neutral ABL, of the urban building-array case
-(immersed boundary) and of the same array with the facet surface energy
-balance, and checks both variants of the hand-written CUDA diffusion kernel
-on the way.  Phases, one line each; any failure raises and
+(immersed boundary), of the same array with the facet surface energy
+balance, and of the same array driven through an open x boundary by
+precursor planes, and checks both variants of the hand-written CUDA
+diffusion kernel on the way.  Phases, one line each; any failure raises and
 the script exits non-zero without a result line:
 
   1. require a CUDA device (no CPU fallback)
@@ -16,7 +17,7 @@ the script exits non-zero without a result line:
      sweep of ragged shapes on a stretched grid (float32 and float64), then
      the main paths' shapes 128^3 and 256^3 in float32
   5. flat step parity: 32^3 float64, 5 steps on CUDA (kernel) against CPU
-  6. flat main path: 128^3 float32, warm-up then 50 timed steps
+  6. flat main path: 128^3 float32, warm-up then 20 timed steps
   7. the same at 256^3 float32, 20 timed steps
   8. unmasked kernel time (eager calls, and the same in a CUDA graph)
      against the plain sweeps at 128^3 and 256^3 float32, beside its bound
@@ -26,7 +27,7 @@ the script exits non-zero without a result line:
  10. masked kernel against the plain masked sweeps: the urban 128^3 masks
      in float32, and random {0,1} masks over the sweep of ragged shapes
  11. urban step parity: 32^3 float64, 5 steps on CUDA against CPU
- 12. urban main path: 128^3 float32, warm-up then 30 timed steps
+ 12. urban main path: 128^3 float32, warm-up then 20 timed steps
  13. masked kernel time against the plain masked sweeps at 128^3 float32,
      beside its bound
  14. stage the urban energy-balance case (cases.stage_urban_eb) at 32^3
@@ -34,11 +35,30 @@ the script exits non-zero without a result line:
  15. urban-EB step parity: 32^3 float64, 5 steps on CUDA against CPU,
      fields and facet temperatures
  16. urban-EB main path: 128^3 float32 through load_case, cold_start and
-     run, warm-up then 50 timed steps; the balance fired, the facet
+     run, warm-up then 30 timed steps; the balance fired, the facet
      temperatures stayed physical; one more step under
      torch.cuda.set_sync_debug_mode("error"): no host synchronisation
  17. the Poisson solver's open-boundary (Neumann), BCzp = 2 and POISS_FFT3D
      paths at 128^3 float32: residual of the discrete Laplacian
+ 18. stage the precursor-driven urban case (cases.stage_urban_driven) at
+     32^3 and at 128^3 (120 driver records 0.1 s apart, read 16 at a time)
+ 19. driven urban step parity: 32^3 float64, 5 steps on CUDA against CPU,
+     fields, outlet planes and pressure
+ 20. driven urban main path: 128^3 float32 through load_case, cold_start and
+     run (which refills the rolling window before each step), warm-up then
+     50 timed steps; the inlet face equals the interpolated driver plane,
+     the interior is divergence-free with the outlet face counted, the
+     window was refilled
+ 21. one driven step and one rescale-recycle step under
+     torch.cuda.set_sync_debug_mode("error") (the window refill stays
+     outside the guarded region)
+ 22. flat open-x 128^3 float32 with the rescale-recycle inlet generator
+     (iinletgen = 1), 20 steps
+ 23. precursor to driven at 64^3 float32: 30 periodic steps recorded by
+     sim.DriverRecorder, saved as ?driver_* files, replayed by load_case for
+     10 steps
+ 24. both kernel variants against their plain versions on ghosts built by
+     the open-boundary assembly (non-periodic planes, zero-gradient ekm)
 The line before the last is a JSON object describing the kernels and the
 main paths; the last line is {"ok": true, "device": {...}}.
 """
@@ -171,19 +191,27 @@ def numpy_state(grid, seed):
 
 
 def max_divergence(model, c):
-    """max|div u| of the projected velocity (verify-skill oracle 1)."""
+    """(max|div u| of the projected velocity, the same over the top level
+    alone).  Periodic directions wrap; an open x takes its outlet face from
+    the prognostic plane c.bx.u, and the inflow/outflow defect of the mean
+    pressure mode then sits in the top level, which the first number leaves
+    out."""
     grid = model.grid
-    gu = torch.cat([c.u, c.u[:1]], dim=0)
-    gv = torch.cat([c.v, c.v[:, :1]], dim=1)
+    gu = torch.cat([c.u, c.u[:1] if c.bx is None else c.bx.u[None]], dim=0)
+    gv = torch.cat([c.v, c.v[:, :1] if c.by is None else c.by.v[:, None]],
+                   dim=1)
     dzfi = grid.t("dzfi", c.u.device)
     div = ((gu[1:] - gu[:-1]) * grid.dxi + (gv[:, 1:] - gv[:, :-1]) * grid.dyi
-           + (c.w[:, :, 1:] - c.w[:, :, :-1]) * dzfi[None, None, :])
-    return float(div.abs().max())
+           + (c.w[:, :, 1:] - c.w[:, :, :-1]) * dzfi[None, None, :]).abs()
+    top = float(div[:, :, -1].max())
+    if c.bx is None and c.by is None:
+        return float(div.max()), top
+    return float(div[:, :, :-1].max()), top
 
 
 def run_main_path(model, state, warm, steps, smi, fused, label):
-    """Phase 6/7/12/16 body: warm `model` up on the card, then time `steps`
-    steps between CUDA events with both launch counts set to 0 just before
+    """Phase 6/7/12/16/20/22 body: warm `model` up on the card, then time
+    `steps` steps between CUDA events with both launch counts set to 0 just before
     and read just after.  The path's own kernel variant (masked when the
     model has an IBM) must launch 3 times a step and the other not at all.
     Returns the numbers and the final State."""
@@ -214,10 +242,10 @@ def run_main_path(model, state, warm, steps, smi, fused, label):
     dt = float(state.dt)
     if not dt > 0:
         raise RuntimeError(f"{label}: dt = {dt}")
-    div = max_divergence(model, c)
+    div, top_div = max_divergence(model, c)
     out = dict(n=n, steps=steps, ms_per_step=ms,
                points_per_s=n ** 3 / (ms * 1e-3), launches=launches, dt=dt,
-               max_div=div, umax=float(c.u.abs().max()),
+               max_div=div, top_div=top_div, umax=float(c.u.abs().max()),
                peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
     print(f"  {label} on {smi}: {ms:.4f} ms/step, "
           f"{out['points_per_s']:.6g} grid-points/s, "
@@ -360,6 +388,273 @@ def poisson_paths(grid, n):
     return out
 
 
+def recycle_model(n, device="cuda"):
+    """The flat open-x case with the rescale-recycle inlet generator
+    (iinletgen = 1): the configuration of tests/test_inletgen.py at n^3
+    float32 with ``BCxm = 2`` (what a generator case's namelist carries, so
+    that the Poisson solve is open in x like the boundary), with its start
+    State (the inlet profiles plus noise)."""
+    import dataclasses
+    from udales_tpu_torch.config import (BC_PROFILE, BCConfig, Config,
+                                         DomainConfig, DriverConfig,
+                                         PhysicsConfig, RunConfig, const)
+    from udales_tpu_torch.grid import Grid
+    from udales_tpu_torch.ops.inletgen import InletGenParams, init_inletgen
+    from udales_tpu_torch.ops.openbc import BC_RECYCLE, Inlet, init_xplanes
+    from udales_tpu_torch.run import Model
+    from udales_tpu_torch.state import (initial_state, profile_fields,
+                                        randomize)
+    cfg = Config(
+        domain=DomainConfig(itot=n, jtot=n, ktot=n, xlen=float(n),
+                            ylen=float(n)),
+        run=RunConfig(ladaptive=False, dtmax=0.02, lrandomize=False),
+        physics=PhysicsConfig(ltempeq=True, inletav=5.0),
+        bc=BCConfig(BCxm=BC_PROFILE, BCxT=BC_PROFILE, Uinf=2.0, thls=288.0,
+                    thl_top=290.0, z0=0.03, z0h=0.003),
+        driver=DriverConfig(iinletgen=1, iplane=n - 8, di=n / 2, dti=n / 2),
+        dtype="float32")
+    grid = Grid.uniform(n, n, n, float(n), float(n), float(n),
+                        dtype=np.float32)
+    model = Model(cfg, grid, device=device)
+    zf = grid.zf
+    uprof = 2.0 * np.minimum(zf / (0.8 * zf[-1]), 1.0) ** 0.25
+    thlprof = 288.0 + 2.0 * zf / zf[-1]
+    t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=model.device)
+    model.inlet = Inlet(
+        mode=BC_RECYCLE, uprof=t(uprof), vprof=t(np.zeros(n)),
+        thlprof=t(thlprof), qtprof=t(np.zeros(n)),
+        e12prof=t(np.full(n, const.e12min)),
+        svprof=torch.zeros((0, n), dtype=torch.float32, device=model.device),
+        irecy=n - 8)
+    model.igparams = InletGenParams(cfg, grid)
+    f = profile_fields(grid, uprof, np.zeros(n), thlprof, np.zeros(n),
+                       np.full(n, const.e12min), device=model.device)
+    gen = torch.Generator(device=model.device)
+    gen.manual_seed(5)
+    f = randomize(f, gen, 0.05, n)
+    f = dataclasses.replace(f, bx=init_xplanes(f, grid))
+    st = initial_state(grid, f, dt0=0.02)
+    return model, st.replace(ig=init_inletgen(cfg, grid, f, model.igparams))
+
+
+def open_boundary_phases(smi, fused, div_bound, pm128):
+    """Phases 18 to 24: the precursor-driven urban case, the rescale-recycle
+    generator, record and replay, and the kernels on open-boundary ghosts.
+    Any failed check raises."""
+    import dataclasses
+    from udales_tpu_torch import cases
+    from udales_tpu_torch.convert import state_from_numpy, state_to_numpy
+    from udales_tpu_torch.ops import subgrid as sgs
+    from udales_tpu_torch.ops.boundary import make_ghosts
+    from udales_tpu_torch.ops.openbc import driver_window_planes
+    from udales_tpu_torch.ops.thermo import thermodynamics
+    from udales_tpu_torch.run import _velocity_ghosts, load_case
+    from udales_tpu_torch.sim import DriverRecorder
+
+    # 18. stage the driven cases
+    t0 = time.perf_counter()
+    d32 = cases.stage_urban_driven(32, CACHE)
+    d128 = cases.stage_urban_driven(128, CACHE, dtdriver=0.1)
+    sizes = {p.name: p.stat().st_size for p in sorted(d128.iterdir())
+             if "driver_" in p.name}
+    phase(18, f"staged driven urban 32^3 and 128^3 in "
+              f"{time.perf_counter() - t0:.2f} s under {CACHE.name}/; driver "
+              f"files of {d128.name} (bytes): {sizes}")
+
+    # 19. CUDA against CPU over 5 driven steps
+    states, start = {}, None
+    for dev in ("cpu", "cuda"):
+        model = load_case(d32, "900", dtype="float64", device=dev)
+        if start is None:
+            start = state_to_numpy(model.cold_start(seed=43))
+        states[dev] = model.run(state_from_numpy(start, device=dev), 5)
+    worst = parity(states, ("u", "v", "w", "thl", "pres", "dt"))
+    for name in ("u", "v", "w", "thl", "e12"):
+        a = getattr(states["cpu"].c.bx, name)
+        b = getattr(states["cuda"].c.bx, name).cpu()
+        worst = max(worst, float((b - a).abs().max()
+                                 / a.abs().max().clamp(min=1e-30)))
+    phase(19, f"driven urban 32^3 float64, 5 steps, CUDA vs CPU: max rel err "
+              f"{worst:.3e} over u, v, w, thl, pres, dt and the outlet "
+              f"planes (tolerance 1e-9)")
+    if not worst <= 1e-9:
+        raise RuntimeError("driven CUDA step disagrees with the CPU step")
+    m32 = model                               # float64, on the card
+
+    # 20. the driven main path at full size
+    dm = load_case(d128, "900", dtype="float32")            # on the card
+    stream = dm.driver_stream
+    if stream is None or dm.inlet is None or dm.ibm is None:
+        raise RuntimeError("load_case built no streaming driver inlet")
+    st = dm.run(dm.cold_start(seed=43), 5)
+    before = stream.refills
+    driven, st = run_main_path(dm, st, warm=0, steps=50, smi=smi, fused=fused,
+                               label="driven urban 128^3 float32")
+    want = driver_window_planes(st.drv, st.timee)["u"]
+    driven.update(refills=stream.refills - before,
+                  inlet_err=float((st.c.u[0] - want).abs().max()),
+                  timee=float(st.timee))
+    # the host wait of ensure alone, and a refill alone
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        stream.ensure(st)
+    driven["ensure_ms"] = (time.perf_counter() - t0) * 1e3 / 20
+    t0 = time.perf_counter()
+    stream._window(stream.n0)
+    torch.cuda.synchronize()
+    driven["refill_ms"] = (time.perf_counter() - t0) * 1e3
+    phase(20, f"driven urban 128^3 main path on {smi}: t = "
+              f"{driven['timee']:.3f} s, {driven['refills']} window refills "
+              f"in 50 steps (window of {stream.chunk} of {stream.nt} "
+              f"records), inlet face within {driven['inlet_err']:.3e} of the "
+              f"interpolated driver plane (tolerance 1e-5), interior max|div "
+              f"u| {driven['max_div']:.3e} <= {div_bound:g}, top level "
+              f"{driven['top_div']:.3e} <= 1e-2; ensure without a refill "
+              f"{driven['ensure_ms']:.4f} ms, one refill "
+              f"{driven['refill_ms']:.3f} ms (host clock)")
+    if not (driven["refills"] >= 1 and driven["inlet_err"] <= 1e-5
+            and driven["max_div"] <= div_bound and driven["top_div"] <= 1e-2):
+        raise RuntimeError("the driven main path failed a check")
+
+    # 21. no host synchronisation inside a driven or a recycle step
+    rm, rst = recycle_model(128)
+    rst = rm.step(rst)                              # warm-up
+    st = stream.ensure(st)                          # outside the guard
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        st = dm.step(st)
+        rst = rm.step(rst)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    phase(21, "one driven step and one rescale-recycle step under "
+              "set_sync_debug_mode('error'): no host synchronisation")
+
+    # 22. the rescale-recycle generator at full size
+    recycle, rst = run_main_path(rm, rst, warm=2, steps=20, smi=smi,
+                                 fused=fused,
+                                 label="rescale-recycle 128^3 float32")
+    ig = rst.ig
+    slab = float(rst.c.u[0].mean())
+    gen_mean = float(ig.u0.mean())
+    uinl = float(ig.Uinl.mean())
+    recycle.update(inlet_mean=slab, uinl_mean=uinl)
+    phase(22, f"rescale-recycle 128^3: inlet slab mean of u {slab:.6f} m/s, "
+              f"of the generated plane {gen_mean:.6f}, of the running inlet "
+              f"profile Uinl {uinl:.6f} (the inner/outer rescaling moves the "
+              f"plane off its slow running mean: relative tolerance 0.2); "
+              f"utau at the inlet {float(ig.utaui):.5f} m/s; interior "
+              f"max|div u| {recycle['max_div']:.3e} <= {div_bound:g}, top "
+              f"level {recycle['top_div']:.3e}")
+    if not (all(bool(torch.isfinite(getattr(ig, k)).all())
+                for k in ("u0", "v0", "w0", "t0", "Urec", "Uinl"))
+            and abs(slab - gen_mean) <= 1e-6 * abs(gen_mean)
+            and abs(slab - uinl) <= 0.2 * abs(uinl)
+            and recycle["max_div"] <= div_bound):
+        raise RuntimeError("the rescale-recycle inlet left its profile")
+
+    # 23. record a precursor, replay it
+    pdir = cases.stage_precursor(64, CACHE)
+    pre = load_case(pdir, cases.PRECURSOR_EXPNR, dtype="float32")
+    rec = DriverRecorder(pre.cfg, pre.grid, pdir)
+    pst = pre.cold_start(seed=43)
+    for _ in range(30):
+        pst = pre.step(pst)
+        rec.maybe_record(pst)
+    rec.save()
+    rp = load_case(pdir, cases.REPLAY_EXPNR, dtype="float32")
+    pst = rp.cold_start(seed=44).replace(timee=torch.tensor(
+        rec.times[0], dtype=torch.float32, device="cuda"))
+    pst = rp.run(pst, 10)
+    want = rp.inlet.planes(pst.timee, 64, 64)["u"]
+    replay = dict(records=len(rec.times),
+                  inlet_err=float((pst.c.u[0] - want).abs().max()),
+                  max_div=max_divergence(rp, pst.c)[0],
+                  timee=float(pst.timee))
+    finite = all(bool(torch.isfinite(getattr(pst.c, k)).all())
+                 for k in ("u", "v", "w", "thl"))
+    phase(23, f"precursor 64^3: {replay['records']} planes recorded in 30 "
+              f"steps and written as ?driver_* files; replay of 10 steps to "
+              f"t = {replay['timee']:.3f} s: inlet face within "
+              f"{replay['inlet_err']:.3e} of the interpolated recorded plane "
+              f"(tolerance 1e-5), interior max|div u| {replay['max_div']:.3e}")
+    if not (finite and replay["records"] >= 10 and rp.inlet.u.shape[0]
+            == replay["records"] and replay["inlet_err"] <= 1e-5
+            and replay["max_div"] <= div_bound):
+        raise RuntimeError("record and replay failed a check")
+
+    # 24. the kernels on open-boundary ghosts
+    def open_ghosts(model, state):
+        c, cfg, grid = state.c, model.cfg, model.grid
+        openx = openy = None
+        if model.inlet is not None:
+            openx = {"inlet": model._inlet_planes(state, c, state.ig),
+                     "bx": c.bx}
+        masks = model.ibm.masks if model.ibm is not None else None
+        th = thermodynamics(c, cfg, grid, masks)
+        ekm, ekh, _ = sgs.closure(
+            _velocity_ghosts(c, cfg, grid, openx, openy), grid, cfg,
+            dthvdz=th.dthvdz, thl=c.thl, thvs=cfg.bc.thls)
+        return make_ghosts(c, ekm, ekh, cfg, grid, openx=openx, openy=openy)
+    pm32 = dict(u=m32.ibm.pmask_u, v=m32.ibm.pmask_v, w=m32.ibm.pmask_w)
+    open_err = {
+        "masked": check_kernel(fused, open_ghosts(dm, st), dm.grid, pm128,
+                               1e-5, "masked, driven urban 128^3 ghosts, "
+                               "float32", 24),
+        "unmasked": check_kernel(fused, open_ghosts(rm, rst), rm.grid, None,
+                                 1e-5, "rescale-recycle 128^3 ghosts, "
+                                 "float32", 24)}
+    check_kernel(fused, open_ghosts(m32, states["cuda"]), m32.grid, pm32,
+                 1e-12, "masked, driven urban 32^3 ghosts, float64", 24)
+    open_xy_ghost_check(fused)
+    return dict(driven=driven, recycle=recycle, replay=replay,
+                open_err=open_err)
+
+
+def open_xy_ghost_check(fused):
+    """The unmasked kernel on ghosts assembled with both directions open
+    (x planes first, y planes across the corners), float64 and float32, at a
+    ragged size."""
+    import dataclasses
+    from udales_tpu_torch.config import (BC_PROFILE, BCConfig, Config,
+                                         DomainConfig)
+    from udales_tpu_torch.grid import Grid
+    from udales_tpu_torch.ops.boundary import make_ghosts
+    from udales_tpu_torch.ops.openbc import (Inlet, init_xplanes,
+                                             init_yplanes)
+    from udales_tpu_torch.state import Fields
+    nx, ny, nz = 33, 17, 65
+    rng = np.random.default_rng(24)
+    for np_dt, dtype, rtol in ((np.float64, torch.float64, 1e-12),
+                               (np.float32, torch.float32, 1e-5)):
+        grid = Grid.uniform(nx, ny, nz, float(nx), float(ny), float(nz),
+                            dtype=np_dt)
+        cfg = Config(domain=DomainConfig(itot=nx, jtot=ny, ktot=nz,
+                                         xlen=float(nx), ylen=float(ny)),
+                     bc=BCConfig(BCxm=BC_PROFILE, BCym=BC_PROFILE),
+                     dtype=np_dt.__name__)
+        t = lambda a: torch.tensor(a, dtype=dtype, device="cuda")
+        cell = lambda: t(rng.standard_normal((nx, ny, nz)))
+        f = Fields(u=cell(), v=cell(),
+                   w=t(rng.standard_normal((nx, ny, nz + 1))), thl=cell(),
+                   qt=cell(), e12=cell(), sv=t(np.zeros((0, nx, ny, nz))))
+        f = dataclasses.replace(f, bx=init_xplanes(f, grid),
+                                by=init_yplanes(f, grid))
+        prof = t(rng.standard_normal(nz))
+        inlet = Inlet(mode=BC_PROFILE, uprof=prof, vprof=prof, thlprof=prof,
+                      qtprof=prof, e12prof=prof, svprof=t(np.zeros((0, nz))))
+        zero = torch.zeros((), dtype=dtype, device="cuda")
+        g = make_ghosts(
+            f, t(rng.uniform(0.5, 1.5, (nx, ny, nz))),
+            t(rng.uniform(0.5, 1.5, (nx, ny, nz))), cfg, grid,
+            openx={"inlet": inlet.planes(zero, ny, nz), "bx": f.bx},
+            openy={"inlet": inlet.planes(zero, nx, nz), "by": f.by})
+        check_kernel(fused, g, grid, None, rtol,
+                     f"open x and y ghosts {grid.shape} {np_dt.__name__}", 24)
+
+
 def main():
     # 1. a CUDA device, or nothing
     if not torch.cuda.is_available():
@@ -367,7 +662,8 @@ def main():
                          "is_available() is False); the port has no CPU "
                          "fallback here")
     from udales_tpu_torch import entry
-    from udales_tpu_torch.cases import stage_urban, stage_urban_eb
+    from udales_tpu_torch.cases import (stage_urban, stage_urban_driven,
+                                        stage_urban_eb)
     from udales_tpu_torch.convert import state_from_numpy, state_to_numpy
     from udales_tpu_torch.grid import Grid
     from udales_tpu_torch.ops.fused_diff import SOURCE, fused_diff_mom
@@ -422,7 +718,7 @@ def main():
 
     # 6./7. the flat main path
     div_bound = 1e-5
-    main = flat_main_path(128, warm=5, steps=50, smi=smi,
+    main = flat_main_path(128, warm=5, steps=20, smi=smi,
                           fused=fused_diff_mom)
     phase(6, f"128^3 main path ok; max|div u| {main['max_div']:.3e} "
              f"<= {div_bound:g} (float32 bound)")
@@ -476,7 +772,7 @@ def main():
         raise RuntimeError("urban CUDA step disagrees with the CPU step")
 
     # 12. the urban main path
-    urb, _ = run_main_path(u128, u128.cold_start(seed=43), warm=5, steps=30,
+    urb, _ = run_main_path(u128, u128.cold_start(seed=43), warm=5, steps=20,
                            smi=smi, fused=fused_diff_mom,
                            label="urban 128^3 float32")
     phase(12, f"urban 128^3 main path ok; max|div u| {urb['max_div']:.3e} "
@@ -522,7 +818,7 @@ def main():
     if ue128.eb is None:
         raise RuntimeError("load_case built no FacetEB for the lEB case")
     ueb, st = run_main_path(ue128, ue128.cold_start(seed=43), warm=5,
-                            steps=50, smi=smi, fused=fused_diff_mom,
+                            steps=30, smi=smi, fused=fused_diff_mom,
                             label="urban-EB 128^3 float32")
     fac = st.fac
     ueb.update(tEB_last=float(fac.tEB_last), facT_min=float(fac.T.min()),
@@ -554,6 +850,9 @@ def main():
     # 17. the remaining Poisson paths on the card
     pois = poisson_paths(g128, 17)
 
+    # 18.-24. the open-boundary slice
+    drv = open_boundary_phases(smi, fused_diff_mom, div_bound, pm128)
+
     foreign = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "udales_tpu"))
     if foreign:
@@ -568,17 +867,27 @@ def main():
          "launches": main["launches"], "max_abs_err": kernel_err,
          **t128, "bound_by": "bytes", "library_ms": None,
          "launches_256": big["launches"],
+         "launches_recycle_128": drv["recycle"]["launches"],
+         "max_abs_err_open_ghosts": drv["open_err"]["unmasked"],
          **{f"{k}_256": v for k, v in t256.items()}},
         {"name": "fused_diff_mom_masked", "route": "cuda", "source": src,
          "replaces": "udales_tpu/ops/pallas_stencil.py:191",
          "launches": urb["launches"], "max_abs_err": masked_err,
          **tm128, "bound_by": "bytes", "library_ms": None,
-         "launches_urban_eb": ueb["launches"]}],
+         "launches_urban_eb": ueb["launches"],
+         "launches_urban_driven": drv["driven"]["launches"],
+         "max_abs_err_open_ghosts": drv["open_err"]["masked"]}],
         "main_path": rates(main), "main_path_256": rates(big),
         "urban_128": rates(urb),
         "urban_eb_128": {**rates(ueb), **{k: ueb[k] for k in (
             "tEB_last", "facT_min", "facT_max", "facT_moved")}},
-        "poisson_128": pois}))
+        "poisson_128": pois,
+        "urban_driven_128": {**rates(drv["driven"]), **{
+            k: drv["driven"][k] for k in ("refills", "inlet_err", "max_div",
+                                          "top_div", "dt", "ensure_ms",
+                                          "refill_ms")}},
+        "recycle_128": rates(drv["recycle"]),
+        "precursor_replay_64": drv["replay"]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

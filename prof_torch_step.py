@@ -4,8 +4,11 @@
 
 An N is a size n for the flat-ABL case at n^3 float32, urbann for the
 urban building-array case (``cases.stage_urban``, staged into
-.bench_cache/), or urbanebn for the same array with the facet energy
-balance (``cases.stage_urban_eb``).  For each N it builds the case on the card, warms
+.bench_cache/), urbanebn for the same array with the facet energy
+balance (``cases.stage_urban_eb``), or urbandrvn for the same array driven
+through an open x boundary by precursor planes
+(``cases.stage_urban_driven``, records 0.1 s apart read 16 at a time).  For
+each N it builds the case on the card, warms
 up, times 10 steps with CUDA events, then traces 3 steps with
 torch.profiler and prints the device-busy share of the traced wall time and
 the kernels that take the most device time.  The full kernel table goes to
@@ -15,7 +18,10 @@ wall clock to a synchronize, and device launches counted by the profiler),
 next to the masked diffusion kernel and the unmasked thermodynamics; with
 the energy balance, also the wall functions as the third substep calls them
 (live facet temperatures, per-facet sums) and the balance itself, ungated
-(``FacetEB.update``) and gated (``maybe_update``).  It also runs one step
+(``FacetEB.update``) and gated (``maybe_update``); with a driver inlet,
+also the window interpolation, the ghosts with the open-x context, the
+open-x Poisson solve, the convective plane update and
+``DriverStream.ensure`` with and without a refill.  It also runs one step
 under ``torch.cuda.set_sync_debug_mode("error")``, which raises on any host
 synchronisation.  The
 hand-written kernel's launches are read from its wrapper's counters: the
@@ -38,13 +44,18 @@ OUT = Path(__file__).resolve().parent / "chiprun_out"
 def build_case(case: str):
     """(model, start state) of a CASE on the card, float32."""
     if case.startswith("urban"):
-        from udales_tpu_torch.cases import stage_urban, stage_urban_eb
+        from udales_tpu_torch.cases import (stage_urban, stage_urban_driven,
+                                            stage_urban_eb)
         from udales_tpu_torch.run import load_case
-        stage, size = ((stage_urban_eb, case[len("urbaneb"):])
-                       if case.startswith("urbaneb")
-                       else (stage_urban, case[len("urban"):]))
-        model = load_case(stage(int(size), ROOT / ".bench_cache"), "900",
-                          dtype="float32")     # device: the card, by default
+        cache = ROOT / ".bench_cache"
+        if case.startswith("urbandrv"):
+            path = stage_urban_driven(int(case[len("urbandrv"):]), cache,
+                                      dtdriver=0.1)
+        elif case.startswith("urbaneb"):
+            path = stage_urban_eb(int(case[len("urbaneb"):]), cache)
+        else:
+            path = stage_urban(int(case[len("urban"):]), cache)
+        model = load_case(path, "900", dtype="float32")   # on the card
         return model, model.cold_start(seed=43)
     from udales_tpu_torch import entry
     n = int(case)
@@ -63,9 +74,14 @@ def hook_table(model, state, smi: str) -> list:
     cfg, grid, ibm = model.cfg, model.grid, model.ibm
     c, m = state.c, state.m
     th = thermodynamics(c, cfg, grid, ibm.masks)
-    ekm, ekh, _ = sgs.closure(_velocity_ghosts(c, cfg, grid), grid, cfg,
-                              dthvdz=th.dthvdz, thl=c.thl, thvs=cfg.bc.thls)
-    g = make_ghosts(c, ekm, ekh, cfg, grid)
+    openx = None
+    if model.inlet is not None:
+        openx = {"inlet": model._inlet_planes(state, c, state.ig),
+                 "bx": c.bx}
+    ekm, ekh, _ = sgs.closure(_velocity_ghosts(c, cfg, grid, openx), grid,
+                              cfg, dthvdz=th.dthvdz, thl=c.thl,
+                              thvs=cfg.bc.thls)
+    g = make_ghosts(c, ekm, ekh, cfg, grid, openx=openx)
     pm = dict(u=ibm.pmask_u, v=ibm.pmask_v, w=ibm.pmask_w)
     z = torch.zeros_like
     hooks = {
@@ -86,6 +102,28 @@ def hook_table(model, state, smi: str) -> list:
             "FacetEB.update": lambda: eb.update(fac, state.timee),
             "FacetEB.maybe_update": lambda: eb.maybe_update(fac,
                                                             state.timee),
+        })
+    if model.driver_stream is not None:
+        from udales_tpu_torch.ops.openbc import (convect_planes,
+                                                 driver_window_planes)
+        stream = model.driver_stream
+        rhs = torch.randn_like(c.u)
+        rhs -= rhs.mean()
+        rk3coef, uout = state.dt / 3.0, th.u0av.sum() * 0.0 + 1.5
+
+        def refill():
+            stream.n0 = None        # forget the window: the next call reads
+            return stream.ensure(state)
+        hooks.update({
+            "driver_window_planes": lambda: driver_window_planes(
+                state.drv, state.timee),
+            "make_ghosts, openx": lambda: make_ghosts(c, ekm, ekh, cfg, grid,
+                                                      openx=openx),
+            "PoissonSolver.solve, open x": lambda: model.pois.solve(rhs),
+            "convect_planes": lambda: convect_planes(
+                c.bx, c, grid, rk3coef, uout, openx["inlet"]),
+            "DriverStream.ensure": lambda: stream.ensure(state),
+            "DriverStream.ensure, refill": refill,
         })
     lines = [f"IBM hooks alone, {grid.itot}^3 float32 on {smi} "
              f"(ms per call to a synchronize, 20 calls; device launches "

@@ -64,7 +64,9 @@ def staged(tmp_path_factory):
     JAX and the JAX package (a None entry in sys.modules makes any import
     of that name fail); the same subprocess loads the case on the CPU and
     takes one step, then does the same with the energy-balance case of
-    ``cases.stage_urban_eb``."""
+    ``cases.stage_urban_eb`` and with the precursor-driven case of
+    ``cases.stage_urban_driven`` (16^3, through ``Model.run``, which fills
+    the rolling window)."""
     root = tmp_path_factory.mktemp("urban")
     code = ("import sys; sys.modules['jax'] = None; "
             "sys.modules['udales_tpu'] = None; "
@@ -80,6 +82,12 @@ def staged(tmp_path_factory):
             "st = eb.step(eb.cold_start(seed=43)); "
             "assert eb.eb is not None and float(st.fac.hfi.abs().max()) > 0; "
             "assert bool(torch.isfinite(st.c.thl).all()); "
+            "drv = load_case(cases.stage_urban_driven(16, sys.argv[1], nt=8, "
+            "chunk=4), '900', dtype='float64', device='cpu'); "
+            "st = drv.run(drv.cold_start(seed=43), 1); "
+            "assert drv.driver_stream.refills == 1 and st.drv is not None; "
+            "assert bool(torch.isfinite(st.c.u).all()) and float(st.dt) > 0; "
+            "assert bool((st.c.bx.u != 0).any()); "
             "assert not any(m.split('.')[0] in ('jax', 'udales_tpu') "
             "for m in sys.modules if sys.modules[m] is not None)")
     res = subprocess.run([sys.executable, "-c", code, str(root / "port")],
@@ -394,10 +402,35 @@ def test_masked_fused_diff_matches_reference(models):
 
 # --- what the slice does not take ----------------------------------------
 
+def test_nudged_urban_steps_match_reference(models):
+    """Nudging of the slab means (masked averages) on the urban case, which
+    used to raise: 3 steps from one State agree to 1e-8."""
+    import jax
+    from udales_tpu.run import Model as JModel
+    jmodel, tmodel = models
+    nudged = lambda cfg: dataclasses.replace(cfg, physics=dataclasses.replace(
+        cfg.physics, lnudge=True, nnudge=4, tnudge=20.0))
+    jm = JModel(nudged(jmodel.cfg), jmodel.grid, jmodel.inputs, jmodel.ibm)
+    tm = Model(nudged(tmodel.cfg), tmodel.grid, tmodel.ibm, device="cpu")
+    tm.inputs = tmodel.inputs
+    for k in ("dpdxl", "dpdyl", "ug", "vg", "thlpcar", "whls", "dqtdtls"):
+        setattr(tm, k, getattr(tmodel, k))
+    jst = jm.cold_start(seed=43)
+    tst = state_from_numpy(jax_state_to_numpy(jst))
+    jst = jax.jit(lambda s: jm.run(s, 3))(jst)
+    tst = tm.run(tst, 3)
+    ref, got = jax_state_to_numpy(jst), state_to_numpy(tst)
+    for name in ("u", "v", "w", "thl"):
+        assert rel_err(got["c"][name], ref["c"][name]) <= STEP_RTOL, name
+    plain = state_to_numpy(tmodel.run(state_from_numpy(
+        jax_state_to_numpy(jm.cold_start(seed=43))), 3))
+    assert not np.array_equal(plain["c"]["u"], got["c"]["u"])
+
+
 @pytest.mark.parametrize("change", [
     dict(eb=dict(lEB=True, lwriteEBfiles=True)),
-    dict(physics=dict(lnudge=True, nnudge=4)), dict(ibm=None)],
-    ids=["lwriteEBfiles", "lnudge", "ibm-missing"])
+    dict(scalars=dict(nsv=1)), dict(ibm=None)],
+    ids=["lwriteEBfiles", "scalars", "ibm-missing"])
 def test_unported_urban_configurations_raise(models, change):
     _, tmodel = models
     cfg, ibm = tmodel.cfg, tmodel.ibm

@@ -290,12 +290,20 @@ def test_module_matches_reference(config, case):
 
 
 def test_unported_branches_raise():
-    """Branches outside the slice raise instead of being skipped."""
+    """The branch outside the slice raises instead of being skipped:
+    passive scalars in make_ghosts.  The open ghosts and the kappa ghosts,
+    which used to raise, are held against the reference here (periodic) and
+    in test_torch_openbc.py (open)."""
     e = env("flat")
-    with pytest.raises(NotImplementedError):
-        tbnd.ghost_u(e["tf"].u, e["cfg"], openx={"inlet": {}})
-    with pytest.raises(NotImplementedError):
-        tbnd.ghost_scalar_kappa(e["tf"].thl, e["cfg"])
+    nx, ny, nz = e["tf"].u.shape
+    with_sv = dataclasses.replace(e["tf"], sv=torch.zeros((1, nx, ny, nz),
+                                                          dtype=torch.float64))
+    ek = torch.ones((nx, ny, nz), dtype=torch.float64)
+    with pytest.raises(NotImplementedError, match="passive scalars"):
+        tbnd.make_ghosts(with_sv, ek, ek, e["cfg"], e["tgrid"])
+    assert_close(tbnd.ghost_scalar_kappa(e["tf"].thl, e["cfg"]),
+                 jbnd.ghost_scalar_kappa(e["jf"].thl, e["cfg"]),
+                 what="ghost_scalar_kappa")
 
 
 def test_randomize_statistics():

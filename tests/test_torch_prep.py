@@ -142,7 +142,8 @@ def test_case_inputs_and_pressure_gradient_match(staged):
 COPIES = ["config.py", "io/inputs.py", "prep/stl.py", "prep/geom.py",
           "prep/zgrid.py", "prep/ibmprep.py", "prep/udgeom.py",
           "prep/native.py", "prep/radiation.py", "prep/solar.py",
-          "prep/weather.py", "prep/prep.py"]
+          "prep/weather.py", "prep/prep.py", "io/driverfiles.py",
+          "prep/syntheticinflow.py", "prep/harmonie.py"]
 
 
 @pytest.mark.parametrize("rel", COPIES)
@@ -254,6 +255,73 @@ def test_solar_and_weather_functions_match(tmp_path):
           jweather.weather_single_shot(wx, noon))
     _same(tweather.weather_day_series(wx, noon)[:2],
           jweather.weather_day_series(wx, noon)[:2])
+
+
+def test_synthetic_inflow_outputs_match(tmp_path):
+    """generate_synthetic_inflow of both packages from one seed: the same
+    times, the same ``?driver_*`` files byte for byte, the same h5 series."""
+    import h5py
+    from udales_tpu.prep import syntheticinflow as jsyn
+    from udales_tpu_torch.prep import syntheticinflow as tsyn
+    ny, nz = 10, 8
+    z = np.arange(nz) + 0.5
+    kw = dict(ny=ny, nz=nz, dy=1.0, dzf=np.ones(nz), t_end=1.0, dt=0.1,
+              u_mean=1.0 + 0.1 * z, uu=np.full(nz, 0.04), vv=np.full(nz, 0.02),
+              ww=np.full(nz, 0.01), uw=np.full(nz, -0.005), Ly=2.0, Lz=2.0,
+              Tscale=0.5, thl_mean=288.0 + 0.0 * z, tt=np.full(nz, 0.01),
+              wth=np.full(nz, 0.001), expnr="123", seed=11)
+    out = {}
+    for name, mod in (("ref", jsyn), ("got", tsyn)):
+        d = tmp_path / name
+        d.mkdir()
+        out[name] = mod.generate_synthetic_inflow(d / "driverdata.123.h5",
+                                                  fortran_dir=d, **kw)
+    _same(out["got"], out["ref"])
+    names = sorted(p.name for p in (tmp_path / "ref").iterdir())
+    assert names == sorted(p.name for p in (tmp_path / "got").iterdir())
+    assert {"udriver_000.123", "hdriver_000.123", "tdriver_000.123"} \
+        <= set(names)
+    for name in names:
+        a, b = tmp_path / "ref" / name, tmp_path / "got" / name
+        if name.endswith(".h5"):
+            with h5py.File(a) as fa, h5py.File(b) as fb:
+                assert sorted(fa) == sorted(fb)
+                for k in fa:
+                    _same(fb[k][()], fa[k][()])
+        else:
+            assert a.read_bytes() == b.read_bytes(), name
+
+
+def test_harmonie_outputs_match(tmp_path):
+    """The HARMONIE radiation coupling of both packages on one accumulated
+    series: the same flux decomposition, atmosphere and written files."""
+    from datetime import datetime
+    from udales_tpu.prep import harmonie as jhm
+    from udales_tpu_torch.prep import harmonie as thm
+    start = datetime(2023, 8, 2, 8, 0)
+    offsets = np.arange(6 * 3600 - 900, 9 * 3600 + 901, 900)
+    accum = 2.0e5 * (offsets / 3600.0) ** 1.5
+    strd = 3.0e5 * offsets / 900.0
+    res = {}
+    for name, mod in (("ref", jhm), ("got", thm)):
+        atmos = mod.harmonie_shortwave_atmosphere(
+            offsets, accum, start, 3 * 3600.0, 1800.0, 48.0, 2.0, 2.0)
+        lw = mod.harmonie_longwave_series(offsets, strd, 3 * 3600.0, 1800.0)
+        d = tmp_path / name
+        d.mkdir()
+        mod.write_weather_table(d / "weather.txt", atmos, start)
+        mod.write_timedeplw(d / "timedeplw.inp.001", *lw)
+        mod.write_timedepsw(d / "timedepsw.inp.001", atmos.times,
+                            np.outer(atmos.ghi, np.arange(1.0, 4.0)))
+        res[name] = (mod.accumulated_to_flux(offsets, accum),
+                     dataclasses.asdict(atmos), lw,
+                     mod.erbs_diffuse_fraction(0.5))
+    _same(res["got"], res["ref"])
+    assert res["ref"][1]["ghi"].max() > 0
+    names = sorted(p.name for p in (tmp_path / "ref").iterdir())
+    match, mismatch, errors = filecmp.cmpfiles(
+        tmp_path / "ref", tmp_path / "got", names, shallow=False)
+    assert len(match) == 3 and not mismatch and not errors
 
 
 def _imports(tree):

@@ -6,15 +6,21 @@ example with ``np.asarray`` on each leaf) and hands them here.
 """
 from __future__ import annotations
 
-from dataclasses import fields as dc_fields
-
 import numpy as np
 import torch
 
 from .ibm.eb import FACET_STATE_NAMES, FacetState
-from .state import FACSTAT_FIELDS, FacStats, Fields, State
+from .ops.inletgen import INLETGEN_NAMES, InletGen
+from .ops.openbc import DriverWindow, Inlet, XPlanes, YPlanes
+from .state import FACSTAT_FIELDS, Ctl, FacStats, Fields, State
 
-FIELD_NAMES = tuple(f.name for f in dc_fields(Fields))
+# the tensor leaves of a Fields; bx / by are nested outlet planes
+FIELD_NAMES = ("u", "v", "w", "thl", "qt", "e12", "sv")
+PLANE_NAMES = FIELD_NAMES                    # XPlanes, YPlanes
+DRIVER_WINDOW_NAMES = ("t", "u", "v", "w", "thl", "qt", "sv")
+CTL_NAMES = ("freestreamav", "dgdt", "dpdx_shift")
+INLET_NAMES = ("uprof", "vprof", "thlprof", "qtprof", "e12prof", "svprof",
+               "t", "u", "v", "w", "thl", "qt", "sv")
 # the Model's static vertical profiles (run.Model.__init__)
 PROFILE_NAMES = ("dpdxl", "dpdyl", "ug", "vg", "thlpcar", "whls", "dqtdtls")
 
@@ -44,37 +50,63 @@ def facet_state_to_numpy(fac: FacetState) -> dict:
     return _leaves_to_numpy(fac, FACET_STATE_NAMES)
 
 
+# optional State entries: name -> (dataclass, leaf names)
+_STATE_PARTS = {"facstats": (FacStats, FACSTAT_NAMES),
+                "ctl": (Ctl, CTL_NAMES), "ig": (InletGen, INLETGEN_NAMES),
+                "drv": (DriverWindow, DRIVER_WINDOW_NAMES)}
+_FIELD_PARTS = {"bx": XPlanes, "by": YPlanes}
+
+
 def state_from_numpy(d: dict, device="cpu") -> State:
-    """{"m": {u, v, w, thl, qt, e12, sv}, "c": {...}, "pres", "dt", "timee"}
-    of NumPy arrays, with the optional "fac" (see `facet_state_from_numpy`)
-    and "facstats" ({tau_x, ..., cth, tlast}) -> State of tensors on
-    `device`."""
+    """{"m": {u, v, w, thl, qt, e12, sv[, bx, by]}, "c": {...}, "pres",
+    "dt", "timee"} of NumPy arrays -> State of tensors on `device`.  The
+    optional entries are dicts of arrays too: "bx" / "by" (the outlet planes
+    of a Fields, leaves as `PLANE_NAMES`), "fac" (see
+    `facet_state_from_numpy`), "facstats", "ctl", "ig" and "drv" (the leaves
+    of ``FacStats``, ``Ctl``, ``InletGen`` and ``DriverWindow``)."""
     def fields(fd):
-        return Fields(**{k: t(fd[k]) for k in FIELD_NAMES})
+        planes = {k: _leaves_from_numpy(cls, PLANE_NAMES, fd[k], device)
+                  for k, cls in _FIELD_PARTS.items()
+                  if fd.get(k) is not None}
+        return Fields(**{k: t(fd[k]) for k in FIELD_NAMES}, **planes)
     t = lambda a: torch.tensor(np.asarray(a), device=device)
-    fac = facstats = None
+    parts = {k: _leaves_from_numpy(cls, names, d[k], device)
+             for k, (cls, names) in _STATE_PARTS.items()
+             if d.get(k) is not None}
     if d.get("fac") is not None:
-        fac = facet_state_from_numpy(d["fac"], device)
-    if d.get("facstats") is not None:
-        facstats = _leaves_from_numpy(FacStats, FACSTAT_NAMES, d["facstats"],
-                                      device)
+        parts["fac"] = facet_state_from_numpy(d["fac"], device)
     return State(m=fields(d["m"]), c=fields(d["c"]), pres=t(d["pres"]),
-                 dt=t(d["dt"]), timee=t(d["timee"]), fac=fac,
-                 facstats=facstats)
+                 dt=t(d["dt"]), timee=t(d["timee"]), **parts)
 
 
 def state_to_numpy(state: State) -> dict:
     """Inverse of `state_from_numpy` (host copies)."""
     n = lambda x: x.detach().cpu().numpy()
-    fields = lambda f: {k: n(getattr(f, k)) for k in FIELD_NAMES}
+
+    def fields(f):
+        out = {k: n(getattr(f, k)) for k in FIELD_NAMES}
+        for k in _FIELD_PARTS:
+            if getattr(f, k) is not None:
+                out[k] = _leaves_to_numpy(getattr(f, k), PLANE_NAMES)
+        return out
     out = {"m": fields(state.m), "c": fields(state.c),
            "pres": n(state.pres), "dt": n(state.dt),
            "timee": n(state.timee)}
     if state.fac is not None:
         out["fac"] = facet_state_to_numpy(state.fac)
-    if state.facstats is not None:
-        out["facstats"] = _leaves_to_numpy(state.facstats, FACSTAT_NAMES)
+    for k, (_, names) in _STATE_PARTS.items():
+        if getattr(state, k) is not None:
+            out[k] = _leaves_to_numpy(getattr(state, k), names)
     return out
+
+
+def inlet_from_numpy(d: dict, dtype=torch.float64, device="cpu") -> Inlet:
+    """{"mode", "irecy" and whichever of `INLET_NAMES` are set} (the fields
+    of a ``udales_tpu`` Inlet as NumPy arrays; absent or None stay None) ->
+    ``ops.openbc.Inlet`` of `dtype` tensors on `device`."""
+    arrays = {k: torch.tensor(np.asarray(d[k]), dtype=dtype, device=device)
+              for k in INLET_NAMES if d.get(k) is not None}
+    return Inlet(mode=int(d["mode"]), irecy=int(d.get("irecy", 0)), **arrays)
 
 
 def load_profiles(model, arrays: dict) -> None:

@@ -89,6 +89,15 @@ class Grid:
         self.dzhiq = 0.25 * self.dzhi
         self.dzh2i = self.dzhi ** 2
 
+        # --- extended (khc=2) metrics for the kappa scheme -----------------
+        # (modglobal.f90:842-866, edge-replicated ghosts)
+        # dzfc_g[k+2] == dzf[k]; dzhci_g[kf+1] == 1/dzh[kf] (kf = face index)
+        self.dzfc_g = np.concatenate([[dzf[0], dzf[0]], dzf,
+                                      [dzf[-1], dzf[-1]]])
+        self.dzfci_g = 1.0 / self.dzfc_g
+        self.dzhci_g = np.concatenate([[1.0 / dzh[0]], 1.0 / dzh,
+                                       [1.0 / dzh[-1]]])
+
         self._tensor_cache: dict = {}
 
     # -- constructors -----------------------------------------------------

@@ -1,10 +1,10 @@
-"""Second-order central advection (port of ``udales_tpu.ops.advection``).
+"""Advection schemes (port of ``udales_tpu.ops.advection``).
 
 Vectorized re-derivations of the reference stencils:
   - advecu_2nd / advecv_2nd / advecw_2nd: src/modadvection.f90:158-314
     (the embedded -grad(pres0) term is applied in the step assembly)
   - advecc_2nd: src/modadvection.f90:103-155
-The kappa and upwind scalar schemes are not ported yet.
+  - advecc_kappa (flux-limited) and advecc_upw: src/modadvection.f90:316-503
 
 All functions take ghosted tensors (see ops/stencil.py) and return the
 interior tendency contribution.
@@ -137,3 +137,86 @@ def adv_c2(gc, g, grid: Grid):
         - Sw(w, 0, 0, 0) * (S(gc, 0, 0, -1) * dzf_k + c * dzf_km) * dzhi_k
     ) * dzfi5
     return -(horiz + vert)
+
+
+def _rlim(d1, d2, eps1=1.0e-10):
+    """Kappa-scheme flux limiter (modadvection.f90:410-421)."""
+    ri = (d2 + eps1) / (d1 + eps1)
+    phir = torch.clamp(torch.minimum(
+        2.0 * ri, torch.clamp(1.0 / 3.0 + 2.0 / 3.0 * ri, max=2.0)), min=0.0)
+    return 0.5 * phir * d1
+
+
+def adv_kappa(gc, g, grid: Grid):
+    """Flux-limited kappa scheme for scalars (modadvection.f90:316-407).
+
+    `gc` has halo 2 in x/y and 2 k-ghosts (``ghost_scalar_kappa`` layout):
+    gc[2+i, 2+j, 2+k] == c[i,j,k].  Velocities from `g` (halo 1)."""
+    nx, ny, nz = grid.shape
+    dev = gc.device
+    h, hk = 2, 2
+
+    def limited_flux(C, vel, metric_m=None, metric_0=None, metric_p=None,
+                     width=None):
+        """Upwind value plus the limited correction, times the face
+        velocity.  C(d) is the cell slab d cells upwind-right of the face."""
+        d1p = C(0) - C(-1)
+        d2p = C(1) - C(0)
+        d1m = C(1) - C(2)
+        d2m = C(0) - C(1)
+        if metric_0 is not None:
+            d1p, d2p = d1p * metric_m, d2p * metric_0
+            d1m, d2m = d1m * metric_p, d2m * metric_0
+        pos = vel > 0
+        cf = torch.where(pos, C(0), C(1))
+        lim = _rlim(torch.where(pos, d1p, d1m), torch.where(pos, d2p, d2m))
+        return (cf + (lim if width is None else width * lim)) * vel
+
+    # --- x faces: i = 0..nx (face i between cells i-1 and i) ---------------
+    Cx = lambda di: gc[h + di - 1: h + di + nx, h: h + ny, hk: hk + nz]
+    ux = g.u[1: 2 + nx, 1: 1 + ny, 1: 1 + nz]  # u at faces 0..nx
+    Fx = limited_flux(Cx, ux, grid.dxi, grid.dxi, grid.dxi, grid.dx)
+    tend = (Fx[:-1] - Fx[1:]) * grid.dxi
+
+    # --- y faces ----------------------------------------------------------
+    Cy = lambda dj: gc[h: h + nx, h + dj - 1: h + dj + ny, hk: hk + nz]
+    vy = g.v[1: 1 + nx, 1: 2 + ny, 1: 1 + nz]
+    Fy = limited_flux(Cy, vy)
+    tend = tend + (Fy[:, :-1] - Fy[:, 1:]) * grid.dyi
+
+    # --- z faces (stretched; modadvection.f90:383-404) --------------------
+    # faces kf = 1..nz (bottom face kb flux not formed; w=0 there).
+    nf = nz
+    Cz = lambda dk: gc[h: h + nx, h: h + ny, hk + dk: hk + dk + nf]
+    wz = g.w[1: 1 + nx, 1: 1 + ny, 1: 1 + nz]  # faces 1..nz
+    dzhci = grid.t("dzhci_g", dev)   # face metric, index map: face kf -> kf+1
+    dzfc = grid.t("dzfc_g", dev)     # cell metric, index map: cell k -> k+2
+    fhm = kvec(dzhci, 1, nf)     # dzhci(k-1) at face kf -> index kf
+    fh0 = kvec(dzhci, 2, nf)     # dzhci(k)
+    fhp = kvec(dzhci, 3, nf)     # dzhci(k+1)
+    fc = kvec(dzfc, 3, nf)       # dzfc(k): cell above face kf (cell kf)
+    Fz = limited_flux(Cz, wz, fhm, fh0, fhp, fc)   # faces 1..nz
+    Fz = torch.cat([torch.zeros_like(Fz[..., :1]), Fz], dim=2)  # face 0
+    dzfci_k = kvec(grid.t("dzfci_g", dev), 2, nz)
+    return tend + (Fz[..., :-1] - Fz[..., 1:]) * dzfci_k
+
+
+def adv_upw(gc, g, grid: Grid):
+    """First-order upwind for scalars (modadvection.f90:423-503); `gc` in
+    the kappa layout (halo 2, 2 k-ghosts)."""
+    nx, ny, nz = grid.shape
+    h, hk = 2, 2
+    Cx = lambda di: gc[h + di - 1: h + di + nx, h: h + ny, hk: hk + nz]
+    ux = g.u[1: 2 + nx, 1: 1 + ny, 1: 1 + nz]
+    Fx = torch.where(ux > 0, Cx(0), Cx(1)) * ux
+    tend = (Fx[:-1] - Fx[1:]) * grid.dxi
+    Cy = lambda dj: gc[h: h + nx, h + dj - 1: h + dj + ny, hk: hk + nz]
+    vy = g.v[1: 1 + nx, 1: 2 + ny, 1: 1 + nz]
+    Fy = torch.where(vy > 0, Cy(0), Cy(1)) * vy
+    tend = tend + (Fy[:, :-1] - Fy[:, 1:]) * grid.dyi
+    Cz = lambda dk: gc[h: h + nx, h: h + ny, hk + dk: hk + dk + nz]
+    wz = g.w[1: 1 + nx, 1: 1 + ny, 1: 1 + nz]
+    Fz = torch.where(wz > 0, Cz(0), Cz(1)) * wz
+    Fz = torch.cat([torch.zeros_like(Fz[..., :1]), Fz], dim=2)
+    return tend + (Fz[..., :-1] - Fz[..., 1:]) \
+        * kvec(grid.t("dzfci_g", gc.device), 2, nz)

@@ -1,10 +1,14 @@
 """Boundary conditions as ghost-cell construction (port of
-``udales_tpu.ops.boundary``, closed-domain branches).
+``udales_tpu.ops.boundary``).
 
-Lateral directions are periodic; the k ghosts follow the reference's bottom
-and top rules (modboundary.f90:115-389 `boundary`, :434 `closurebc`, :1494
-`fluxtop`, :1509 `valuetop`).  Open x/y boundaries (inflow/outflow, driver
-planes) and the kappa-scheme scalar ghosts are not ported yet and raise.
+The k ghosts follow the reference's bottom and top rules
+(modboundary.f90:115-389 `boundary`, :434 `closurebc`, :1494 `fluxtop`,
+:1509 `valuetop`).  Laterally each direction is periodic (the wrap doubles
+as the halo exchange, see ops/halo.py) or open: profile/driver inlet and
+convective outlet (modboundary.f90:688-996 in x, :1017-1190 in y).  For an
+open direction the ghost planes come from a context dict built per substep
+(see ops/openbc.py): ``openx = {"inlet": {...interior-k planes...}, "bx":
+XPlanes}``, ``openy = {"inlet": {...}, "by": YPlanes}``.
 """
 from __future__ import annotations
 
@@ -14,17 +18,56 @@ from typing import Optional
 import torch
 
 from ..config import (BCTOPM_FREESLIP, BCTOPM_NOSLIP, BCTOPM_PRESSURE,
-                      BCTOP_VALUE, Config, const)
+                      BCTOP_VALUE, BC_PROFILE, Config, const)
 from ..grid import Grid
 from ..state import Fields
-from .halo import pad_axis, pad_periodic_xy, take_k
+from .halo import pad_axis, pad_edge, pad_periodic_xy, pad_wrap, take_k
 
 
-def _closed(openx, openy):
-    if openx is not None or openy is not None:
-        raise NotImplementedError(
-            "open x/y boundaries are not ported to udales_tpu_torch yet")
+def _assemble(gk, h, lo_plane, hi_plane):
+    """Pad y periodically, then attach explicit x ghost planes (already
+    k-ghosted, shape (ny, nzg))."""
+    gy = pad_wrap(gk, 1, h)
+    lo = pad_wrap(lo_plane, 0, h)
+    hi = pad_wrap(hi_plane, 0, h)
+    return torch.cat([*([lo[None]] * h), gy, *([hi[None]] * h)], dim=0)
 
+
+def _assemble_y(gk, h, lo_plane, hi_plane):
+    """Pad x periodically, then attach explicit y ghost planes (already
+    k-ghosted, shape (nx, nzg)): the open-y mirror of _assemble."""
+    gx = pad_wrap(gk, 0, h)
+    lo = pad_wrap(lo_plane, 0, h)
+    hi = pad_wrap(hi_plane, 0, h)
+    return torch.cat([*([lo[:, None]] * h), gx, *([hi[:, None]] * h)], dim=1)
+
+
+def _assemble_xy(gk, h, xlo, xhi, ylo, yhi):
+    """Both directions open: attach the x ghost planes first, then the y
+    planes (edge-extended across the new x ghosts) fill the y ghosts
+    including the corners, the reference's ordering (modboundary.f90:96-103
+    applies the x BC before the y BC, and the y loops run over the full x
+    extent including ghosts)."""
+    gx = torch.cat([*([xlo[None]] * h), gk, *([xhi[None]] * h)], dim=0)
+    ylo_e = pad_edge(ylo, 0, h)
+    yhi_e = pad_edge(yhi, 0, h)
+    return torch.cat([*([ylo_e[:, None]] * h), gx, *([yhi_e[:, None]] * h)],
+                     dim=1)
+
+
+def _dispatch(gk, h, cfg, xlo=None, xhi=None, ylo=None, yhi=None):
+    """Assemble ghosts from whichever open-boundary planes exist; periodic
+    wrap in any direction without planes."""
+    if xlo is not None and ylo is not None:
+        return _assemble_xy(gk, h, xlo, xhi, ylo, yhi)
+    if xlo is not None:
+        return _assemble(gk, h, xlo, xhi)
+    if ylo is not None:
+        return _assemble_y(gk, h, ylo, yhi)
+    return pad_periodic_xy(gk, h)
+
+
+# --- per-field k-ghost rules (shared by interior tensors and planes) -------
 
 def _kg_u(u, cfg):
     if cfg.bc.BCtopm == BCTOPM_NOSLIP:
@@ -48,25 +91,62 @@ def _kg_scalar(f, top):
 
 def ghost_u(u, cfg: Config, h: int = 1, openx=None, openy=None):
     """u ghosts: bottom ghost 0 (the molecular no-slip stress with the
-    mirrored ekm of closurebc); top per BCtopm; periodic x/y."""
-    _closed(openx, openy)
-    return pad_periodic_xy(_kg_u(u, cfg), h)
+    mirrored ekm of closurebc); top per BCtopm; x per BCxm (profile inlet
+    ghost 2u(ib)-u(ib+1), modboundary.f90:699; driver ghost = driver plane
+    :732; outlet face from the prognostic XPlanes).  Open-y: ymi_profile
+    (:1017-1045)."""
+    gk = _kg_u(u, cfg)
+    xlo = xhi = ylo = yhi = None
+    if openx is not None:
+        if cfg.bc.BCxm == BC_PROFILE:
+            xlo = 2.0 * gk[0] - gk[1]
+        else:  # driver: ghost = inlet plane (== u[0], which is hard-set)
+            xlo = gk[0]
+        xhi = _kg_u(openx["bx"].u, cfg)
+    if openy is not None:
+        uprof_k = _kg_u(openy["inlet"]["u"].expand(u.shape[0], u.shape[2]),
+                        cfg)
+        ylo = 2.0 * uprof_k - gk[:, 0]
+        yhi = _kg_u(openy["by"].u, cfg)
+    return _dispatch(gk, h, cfg, xlo, xhi, ylo, yhi)
 
 
 def ghost_v(v, cfg: Config, h: int = 1, openx=None, openy=None):
-    _closed(openx, openy)
-    return pad_periodic_xy(_kg_v(v, cfg), h)
+    gk = _kg_v(v, cfg)
+    xlo = xhi = ylo = yhi = None
+    if openx is not None:
+        if cfg.bc.BCxm == BC_PROFILE:
+            vprof_k = _kg_v(openx["inlet"]["v"].expand(v.shape[1:]), cfg)
+            xlo = 2.0 * vprof_k - gk[0]
+        else:
+            xlo = _kg_v(openx["inlet"]["v"], cfg)
+        xhi = _kg_v(openx["bx"].v, cfg)
+    if openy is not None:
+        # ymi_profile: v(jb)=vprof pinned in the update; ghost extrapolates
+        ylo = 2.0 * gk[:, 0] - gk[:, 1]
+        yhi = _kg_v(openy["by"].v, cfg)
+    return _dispatch(gk, h, cfg, xlo, xhi, ylo, yhi)
 
 
 def ghost_w(w, cfg: Config, h: int = 1, openx=None, openy=None):
     """w is a face tensor (nx, ny, nz+1); bottom/top faces impermeable
-    (modboundary.f90:165-166, 177) except under the pressure top BC."""
-    _closed(openx, openy)
+    (modboundary.f90:165-166, 177) except under the pressure top BC, where
+    the top face is prognostic."""
     w = w.clone()
     w[..., 0] = 0.0
     if cfg.bc.BCtopm != BCTOPM_PRESSURE:
         w[..., -1] = 0.0
-    return pad_periodic_xy(w, h)
+    xlo = xhi = ylo = yhi = None
+    if openx is not None:
+        if cfg.bc.BCxm == BC_PROFILE:
+            xlo = -w[0]           # modboundary.f90:703
+        else:
+            xlo = openx["inlet"]["w"]
+        xhi = openx["bx"].w
+    if openy is not None:
+        ylo = -w[:, 0]
+        yhi = openy["by"].w
+    return _dispatch(w, h, cfg, xlo, xhi, ylo, yhi)
 
 
 def _scalar_top_ghost(f, ekh, grid: Grid, flux: float, value: float,
@@ -82,42 +162,103 @@ def _scalar_top_ghost(f, ekh, grid: Grid, flux: float, value: float,
     return take_k(f, -1) + flux * (dzh_top ** 2) / denom
 
 
+def _kg_plane(p):
+    """(n, nz) plane -> (n, nz+2) with its own edge values as k ghosts."""
+    return _kg_scalar(p, p[..., -1:])
+
+
 def ghost_thl(thl, ekh, cfg: Config, grid: Grid, h: int = 1, openx=None,
               openy=None):
-    _closed(openx, openy)
     top = _scalar_top_ghost(thl, ekh, grid, cfg.bc.wttop, cfg.bc.thl_top,
                             cfg.bc.BCtopT)
-    return pad_periodic_xy(_kg_scalar(thl, top), h)
+    gk = _kg_scalar(thl, top)
+    xlo = xhi = ylo = yhi = None
+    if openx is not None:
+        # profile inlet: ghost = thlprof (modboundary.f90:778-783);
+        # driver: plane
+        xlo = _kg_plane(openx["inlet"]["thl"])
+        xhi = _kg_plane(openx["bx"].thl)
+    if openy is not None:
+        # yTi_profile (modboundary.f90:1048-1062): ghost = 2 prof - thl(jb)
+        prof_k = _kg_plane(openy["inlet"]["thl"].expand(thl.shape[0],
+                                                        thl.shape[2]))
+        ylo = 2.0 * prof_k - gk[:, 0]
+        yhi = _kg_plane(openy["by"].thl)
+    return _dispatch(gk, h, cfg, xlo, xhi, ylo, yhi)
 
 
 def ghost_qt(qt, ekh, cfg: Config, grid: Grid, h: int = 1, openx=None,
              openy=None):
-    _closed(openx, openy)
     top = _scalar_top_ghost(qt, ekh, grid, cfg.bc.wqtop, cfg.bc.qt_top,
                             cfg.bc.BCtopq)
-    return pad_periodic_xy(_kg_scalar(qt, top), h)
+    gk = _kg_scalar(qt, top)
+    xlo = xhi = ylo = yhi = None
+    if openx is not None:
+        if cfg.bc.BCxq == BC_PROFILE:
+            prof_k = _kg_plane(openx["inlet"]["qt"].expand(qt.shape[1:]))
+            xlo = 2.0 * prof_k - gk[0]
+        else:
+            xlo = _kg_plane(openx["inlet"]["qt"])
+        xhi = _kg_plane(openx["bx"].qt)
+    if openy is not None:
+        prof_k = _kg_plane(openy["inlet"]["qt"].expand(qt.shape[0],
+                                                       qt.shape[2]))
+        ylo = 2.0 * prof_k - gk[:, 0]
+        yhi = _kg_plane(openy["by"].qt)
+    return _dispatch(gk, h, cfg, xlo, xhi, ylo, yhi)
 
 
 def ghost_e12(e12, cfg: Config, h: int = 1, openx=None, openy=None):
-    _closed(openx, openy)
     if cfg.bc.BCtopm in (BCTOPM_FREESLIP, BCTOPM_PRESSURE):
         top = torch.full_like(take_k(e12, -1), const.e12min)
     else:
         top = take_k(e12, -1)
-    return pad_periodic_xy(_kg_scalar(e12, top), h)
+    gk = _kg_scalar(e12, top)
+    xlo = xhi = ylo = yhi = None
+    if openx is not None:
+        xlo = gk[0]   # driver: extrapolate from interior (modboundary:757)
+        xhi = _kg_plane(openx["bx"].e12)
+    if openy is not None:
+        ylo = gk[:, 0]
+        yhi = _kg_plane(openy["by"].e12)
+    return _dispatch(gk, h, cfg, xlo, xhi, ylo, yhi)
 
 
 def ghost_scalar_kappa(c, cfg: Config, h: int = 2, hk: int = 2, openx=None,
                        openy=None, sv_index: int = 0):
-    raise NotImplementedError(
-        "kappa-scheme scalar ghosts are not ported to udales_tpu_torch yet")
+    """Scalar ghosts for the kappa scheme: halo 2 in x/y and 2 ghost cells
+    in k (reference ihc=jhc=khc=2).  The open-boundary planes are read from
+    the ``sv`` slot of the contexts at `sv_index`."""
+    bot = take_k(c, 0)
+    top = take_k(c, -1)
+    g = c
+    for _ in range(hk):
+        g = pad_axis(g, 2, bot, top)
+
+    def kg2(p):
+        """(n, nz) plane -> (n, nz+2*hk) with replicated k ghosts."""
+        return pad_edge(p, p.dim() - 1, hk)
+    xlo = xhi = ylo = yhi = None
+    if openx is not None:
+        inl = openx["inlet"]["sv"][sv_index]
+        if cfg.bc.BCxs == BC_PROFILE:
+            xlo = 2.0 * kg2(inl) - kg2(c[0])
+        else:
+            xlo = kg2(inl)
+        xhi = kg2(openx["bx"].sv[sv_index])
+    if openy is not None:
+        # ysi_profile (modboundary.f90:1065-1097)
+        inl = openy["inlet"]["sv"][sv_index]
+        ylo = 2.0 * kg2(inl) - kg2(c[:, 0])
+        yhi = kg2(openy["by"].sv[sv_index])
+    return _dispatch(g, h, cfg, xlo, xhi, ylo, yhi)
 
 
 def ghost_ek(ekm, ekh, cfg: Config, grid: Grid, h: int = 1, openx=None,
              openy=None):
     """closurebc (modboundary.f90:434-505).  The bottom ghost mirrors about
-    the molecular value, 2*numol - ekm (bottom.py reads it at k=0)."""
-    _closed(openx, openy)
+    the molecular value, 2*numol - ekm (bottom.py reads it at k=0); zero
+    gradient at any inflow/outflow face (:467-475)."""
     numol = const.numol
     numolh = const.numol * const.prandtlmoli
     bot_m = 2.0 * numol - take_k(ekm, 0)
@@ -128,8 +269,15 @@ def ghost_ek(ekm, ekh, cfg: Config, grid: Grid, h: int = 1, openx=None,
     else:
         top_m = take_k(ekm, -1)
         top_h = take_k(ekh, -1)
-    return (pad_periodic_xy(pad_axis(ekm, 2, bot_m, top_m), h),
-            pad_periodic_xy(pad_axis(ekh, 2, bot_h, top_h), h))
+
+    def mk(gk):
+        xlo = gk[0] if openx is not None else None
+        xhi = gk[-1] if openx is not None else None
+        ylo = gk[:, 0] if openy is not None else None
+        yhi = gk[:, -1] if openy is not None else None
+        return _dispatch(gk, h, cfg, xlo, xhi, ylo, yhi)
+    return (mk(pad_axis(ekm, 2, bot_m, top_m)),
+            mk(pad_axis(ekh, 2, bot_h, top_h)))
 
 
 @dataclass(frozen=True)

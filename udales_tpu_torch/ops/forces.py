@@ -5,14 +5,15 @@
   - coriolis / lprofforc (:600-717)
   - masscorr (:328-497): fixed volume-flow-rate correction (luvolflowr)
   - periodicEBcorr (:861-951): heat-buildup sink of periodic EB runs
-Large-scale tendencies, nudging, sponge damping and the free-stream
-controllers are not ported yet.
+  - lstend (:719-824), nudge (:826-859), fixuinf1 (:220-288), shiftedPBCs
+    (:953-980), and modboundary.f90 grwdamp (:1447-1491)
 """
 from __future__ import annotations
 
 import math
 from functools import partial
 
+import numpy as np
 import torch
 
 from ..config import Config, const
@@ -123,3 +124,125 @@ def periodic_eb_corr(grid: Grid, cfg: Config, tot_Tflux, tot_qflux):
         phi = (1 - frac) * tot / (xlen * ylen * float(grid.dzf[-1]))
         return R * above + phi * top
     return profile(tot_Tflux), profile(tot_qflux)
+
+
+def grwdamp(c, grid: Grid, cfg: Config, u0av, v0av, thl0av, qt0av,
+            ug=None, vg=None):
+    """Sponge-layer gravity-wave damping (modboundary.f90:38-62, 1447-1491).
+    Returns tendencies for (u, v, w, thl, qt)."""
+    nx, ny, nz = grid.shape
+    kw = dict(dtype=c.u.dtype, device=c.u.device)
+    igrw = cfg.physics.igrw_damp
+    if igrw == 0:
+        z3 = torch.zeros((nx, ny, nz), **kw)
+        return z3, z3, torch.zeros((nx, ny, nz + 1), **kw), z3, z3
+    # tsc profile (initboundary:45-59), rnu0 = 2.75e-3
+    rnu0 = 2.75e-3
+    # lowest sponge level: &DOMAIN ksp (1-based as in the reference) or the
+    # default ksp = kb-1 + max(min(3*kmax/4, kmax-15), 1) (modboundary.f90:47)
+    ksp1 = cfg.domain.ksp if cfg.domain.ksp > 0 else \
+        max(min(3 * nz // 4, nz - 15), 1)
+    ksp = max(ksp1 - 1, 0)  # 0-based
+    zf = grid.zf
+    zspb, zspt = zf[ksp], zf[nz - 1]
+    tsc = np.zeros(nz)
+    tsc[ksp:] = rnu0 * np.sin(
+        0.5 * np.pi * (zf[ksp:] - zspb) / (zspt - zspb)) ** 2
+    tsc = torch.as_tensor(tsc, **kw)[None, None, :]
+    tscw = torch.cat([tsc[..., :1] * 0, tsc], dim=2)
+
+    if igrw == 2:
+        uref, vref = ug[None, None, :], vg[None, None, :]
+    else:
+        uref, vref = u0av[None, None, :], v0av[None, None, :]
+    du = -(c.u - uref) * tsc
+    dv = -(c.v - vref) * tsc
+    dw = -c.w * tscw
+    dthl = -(c.thl - thl0av[None, None, :]) * tsc
+    dqt = -(c.qt - qt0av[None, None, :]) * tsc
+    if igrw == 1 and cfg.physics.lcoriol:
+        fac = (1.0 / (cfg.physics.geodamptime * rnu0)) * tsc
+        du = du - (c.u - ug[None, None, :]) * fac
+        dv = dv - (c.v - vg[None, None, :]) * fac
+    return du, dv, dw, dthl, dqt
+
+
+def nudge_top(c, grid: Grid, cfg: Config, unudge, vnudge, thlnudge, qtnudge,
+              u0av=None, v0av=None, thl0av=None, qt0av=None):
+    """Relax the SLAB MEAN to the profiles for levels k >= nnudge
+    (modforces.f90:826-859): the tendency is uniform across each slab."""
+    nx, ny, nz = grid.shape
+    n = cfg.physics.nnudge
+    z3 = torch.zeros((nx, ny, nz), dtype=c.u.dtype, device=c.u.device)
+    if n <= 0:
+        return z3, z3, z3, z3
+    mask = (torch.arange(nz, device=c.u.device) >= n).to(c.u.dtype)
+    tnudgei = 1.0 / cfg.physics.tnudge
+    prof = lambda av, ref: (-mask * (av - ref) * tnudgei)[None, None, :]
+    return (prof(u0av, unudge) + z3, prof(v0av, vnudge) + z3,
+            prof(thl0av, thlnudge) + z3, prof(qt0av, qtnudge) + z3)
+
+
+def lstend(c, grid: Grid, cfg: Config, whls, u0av, v0av, thl0av, qt0av,
+           sv0av, dqtdtls=None):
+    """Large-scale subsidence tendencies (modforces.f90:719-824): upwinded
+    w_ls d(phi)/dz using slab-average profiles; horizontal LS gradients are
+    zero unless provided.  Returns slab-uniform tendencies
+    (du, dv, dthl, dqt, dsv profiles of shape (nz,) / (nsv, nz))."""
+    nz = grid.ktot
+    dzh = grid.t("dzh", whls.device)
+
+    def subs(av):
+        # downwind scheme (modforces.f90:792-814); lowest level only takes
+        # the downward branch (:769-781)
+        dn = whls[1:] * (torch.cat([av[1:], av[-1:]]) - av) \
+            / dzh[1:]                                  # whls(k+1) branch
+        up_ = whls[:nz] * (av - torch.cat([av[:1], av[:-1]])) \
+            / torch.clamp(dzh[:nz], min=1e-30)         # whls(k) branch
+        s = torch.where(whls[1:] < 0, dn, up_)
+        s0 = torch.where(whls[1] < 0, dn[0], torch.zeros_like(dn[0]))
+        return -torch.cat([s0[None], s[1:]])
+
+    dthl = subs(thl0av)
+    dqt = subs(qt0av)
+    if dqtdtls is not None:
+        dqt = dqt + dqtdtls
+    if cfg.physics.lmomsubs:
+        du = subs(u0av)
+        dv = subs(v0av)
+    else:
+        du = torch.zeros_like(dthl)
+        dv = torch.zeros_like(dthl)
+    dsv = (torch.stack([subs(sv0av[n]) for n in range(sv0av.shape[0])])
+           if sv0av.shape[0]
+           else torch.zeros((0, nz), dtype=dthl.dtype, device=dthl.device))
+    return du, dv, dthl, dqt, dsv
+
+
+def fixuinf1(c, grid: Grid, cfg: Config, dt, u0av, v0av):
+    """Free-stream velocity controller mode 1 (modforces.f90:220-288):
+    uniform correction -(1/dt)(u0av(ke) - Uinf) applied on the last
+    substep."""
+    du = -(u0av[-1] - cfg.bc.Uinf) / dt
+    dv = (-(v0av[-1] - cfg.bc.Vinf) / dt) if cfg.physics.lvinf else 0.0
+    return du, dv
+
+
+def shifted_pbcs(c, grid: Grid, cfg: Config, rk3coef, u0av, ds: float):
+    """Spanwise-shift nudging near the outlet half of the domain
+    (modforces.f90:953-980), used with shifted periodic BCs."""
+    nx, ny, nz = grid.shape
+    ih = nx // 2
+    xh = grid.xh
+    vsx = np.zeros(nx)
+    vsx[ih + 1:] = (0.5 * np.pi * ds / (0.5 * grid.xlen)
+                    * np.sin(np.pi * (xh[ih + 1: nx] - xh[ih])
+                             / (0.5 * grid.xlen)))
+    vs = torch.as_tensor(vsx, dtype=c.u.dtype,
+                         device=c.u.device)[:, None, None] \
+        * u0av[None, None, :]
+    dyj = lambda f: (f - torch.roll(f, 1, dims=1)) * grid.dyi
+    du = -vs * dyj(c.u)
+    dv = -vs * dyj(c.v)
+    dw = -torch.cat([vs, vs[:, :, -1:]], dim=2) * dyj(c.w)
+    return du, dv, dw

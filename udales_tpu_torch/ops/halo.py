@@ -9,14 +9,21 @@ from __future__ import annotations
 import torch
 
 
-def _wrap(f, dim: int, h: int):
+def pad_wrap(f, dim: int, h: int):
+    """Periodic wrap pad of width h along `dim` (any rank)."""
     return torch.cat([f.narrow(dim, f.shape[dim] - h, h), f,
                       f.narrow(dim, 0, h)], dim=dim)
 
 
+def pad_edge(f, dim: int, h: int):
+    """Pad `dim` by `h` copies of its first and of its last slice."""
+    return torch.cat([*([f.narrow(dim, 0, 1)] * h), f,
+                      *([f.narrow(dim, f.shape[dim] - 1, 1)] * h)], dim=dim)
+
+
 def pad_periodic_xy(f, h: int = 1):
     """Periodic wrap pad of width h in axes 0 (x) and 1 (y)."""
-    return _wrap(_wrap(f, 0, h), 1, h)
+    return pad_wrap(pad_wrap(f, 0, h), 1, h)
 
 
 def pad_axis(f, axis: int, lo, hi):

@@ -1,5 +1,4 @@
-"""Model assembly and RK3 time integration (port of ``udales_tpu.run``,
-closed-domain slice, with the immersed boundary).
+"""Model assembly and RK3 time integration (port of ``udales_tpu.run``).
 
 Reference main loop src/program.f90:133-223 and Wicker-Skamarock RK3
 (src/modtstep.f90): one `substep` evaluates every tendency, projects with
@@ -21,10 +20,21 @@ the per-facet fluxes, and `step` ends with the device-gated energy-balance
 solve.  `load_case` builds a Model from a case directory (udales_tpu
 ``load_case``).
 
-Configuration branches the port does not cover (open boundaries, physics
-modules, nudging, large-scale tendencies, sponge damping, chemistry,
-passive scalars, the one-equation closure) raise NotImplementedError when
-the Model is built.
+Open x/y boundaries follow udales_tpu's run.py:183-229, 486-521, 567-607:
+an ``ops.openbc.Inlet`` (profile, driver series, rolling driver window,
+recycle, or the ``ops.inletgen`` generator) supplies the inlet planes of
+each substep, the ghosts are built from them and from the prognostic outlet
+planes ``Fields.bx`` / ``Fields.by``, the projection takes the inlet face
+as given and the outlet face as convective, and the integrate step pins the
+inlet and advects the outlet planes of both `c` and `m`.  With
+``lchunkread`` that window is refilled between steps by
+``Model.driver_stream.ensure`` (``run`` calls it; a caller that steps by
+hand calls it before each ``step``).
+
+Configuration branches the port does not cover (passive scalars, the
+one-equation closure, chemistry, trees, purifiers, heat pumps, the
+energy-balance file output, wall-stress field dumps) raise
+NotImplementedError when the Model is built or the case is loaded.
 """
 from __future__ import annotations
 
@@ -34,20 +44,28 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from .config import (BCTOPM_PRESSURE, BC_PERIODIC, IADV_KAPPA, SGS_ONEEQN,
-                     Config, const, load_namoptions)
+from .config import (BCTOPM_PRESSURE, BC_DRIVER, BC_PROFILE, IADV_KAPPA,
+                     SGS_ONEEQN, Config, const, load_namoptions)
 from .convert import load_profiles
 from .grid import Grid
 from .io.inputs import CaseInputs, large_scale_pressure_gradient
-from .state import (FACSTAT_FIELDS, Fields, State, initial_state,
+from .state import (FACSTAT_FIELDS, Ctl, Fields, State, initial_state,
                     profile_fields, randomize, zero_facstats)
 from .ops import advection as adv
 from .ops import subgrid as sgs
-from .ops.boundary import Ghosts, ghost_u, ghost_v, ghost_w, make_ghosts
-from .ops.forces import (coriolis, forces, masscorr_uvol, masscorr_vvol,
-                         periodic_eb_corr)
+from .ops.boundary import (Ghosts, ghost_scalar_kappa, ghost_u, ghost_v,
+                           ghost_w, make_ghosts)
+from .ops.forces import (coriolis, fixuinf1, forces, grwdamp, lstend,
+                         masscorr_uvol, masscorr_vvol, nudge_top,
+                         periodic_eb_corr, shifted_pbcs)
 from .ops.fused_diff import fused_diff_mom
-from .ops.halo import pad_periodic_xy
+from .ops.halo import pad_edge, pad_periodic_xy, pad_wrap
+from .ops.inletgen import (InletGenParams, init_inletgen, inletgen_planes,
+                           inletgen_update)
+from .ops.openbc import (BC_RECYCLE, Inlet, convect_planes, convect_planes_y,
+                         driver_window_planes, init_xplanes, init_yplanes,
+                         load_driver_inlet, recycle_planes, uouttot_value,
+                         vouttot_value)
 from .ops.poisson import PoissonSolver
 from .ops.thermo import ThermoDiag, avexy_masked, thermodynamics
 from .ibm.bottom import bottom_tendencies
@@ -57,20 +75,11 @@ from .timedep import Timedep
 
 def _unsupported(cfg: Config, ibm=None):
     """Names of the configured features this port does not implement."""
-    ph, bc = cfg.physics, cfg.bc
     codes = {c.strip() for c in cfg.output.fieldvars.split(",")}
     checks = {
-        "open x/y boundaries": (bc.BCxm != BC_PERIODIC
-                                or bc.BCym != BC_PERIODIC),
-        "inlet generation / driver replay": cfg.driver.iinletgen != 0,
         "passive scalars": cfg.scalars.nsv > 0,
         "one-equation TKE closure": cfg.subgrid.model == SGS_ONEEQN,
-        "kappa advection of thl": (ph.ltempeq
-                                   and cfg.iadv_thl == IADV_KAPPA),
-        "shifted periodic BCs": ph.ds > 0,
-        "sponge-layer damping": ph.igrw_damp != 0,
-        "nudging": ph.lnudge and ph.nnudge > 0,
-        "free-stream controllers": ph.ifixuinf != 0,
+        "chemistry": cfg.chem.lchem,
         "facet energy-balance file output (lwriteEBfiles)": (
             cfg.eb.lEB and cfg.eb.lwriteEBfiles),
         "an IBM case (libm, nfcts > 0) without its IBM": (
@@ -101,6 +110,12 @@ class Model:
         self.inputs = None   # io.inputs.CaseInputs once load_case reads one
         self.eb = None       # ibm.eb.FacetEB for energy-balance runs
         self.timedep = None  # timedep.Timedep
+        self.inlet = None    # ops.openbc.Inlet for open-x runs
+        self.inlet_y = None  # ops.openbc.Inlet for open-y runs (profile only)
+        self.igparams = None  # ops.inletgen.InletGenParams (iinletgen=1)
+        self.driver_stream = None  # io.driverstream.DriverStream (lchunkread)
+        self.has_lstend = False    # lscale.inp holds subsidence or dqtdt
+        self._nudge_prof = None
         self.pois = PoissonSolver(grid, cfg, device=self.device)
         nz = grid.ktot
         kw = dict(dtype=grid.torch_dtype, device=self.device)
@@ -137,12 +152,39 @@ class Model:
             gen.manual_seed(seed)
             f = randomize(f, gen, cfg.run.randu, min(cfg.run.krand, nz))
         dt0 = dt0 if dt0 is not None else min(cfg.run.dtmax, 0.1)
+        if self.inlet is not None:
+            f = replace(f, bx=init_xplanes(f, grid))
+        if self.inlet_y is not None:
+            f = replace(f, by=init_yplanes(f, grid))
         fac = self.eb.initial_state() if self.eb is not None else None
         st = initial_state(grid, f, dt0=dt0, fac=fac)
+        if self.igparams is not None:
+            st = st.replace(ig=init_inletgen(cfg, grid, f, self.igparams))
         if cfg.walls.lwritefac and self.ibm is not None:
             st = st.replace(facstats=zero_facstats(
                 self.ibm.nfcts, grid.torch_dtype, self.device))
+        if cfg.physics.ifixuinf == 2:
+            z = torch.zeros((), dtype=grid.torch_dtype, device=self.device)
+            uref = cfg.bc.Vinf if cfg.physics.lvinf else cfg.bc.Uinf
+            st = st.replace(ctl=Ctl(freestreamav=z + uref, dgdt=z,
+                                    dpdx_shift=z))
         return st
+
+    # -- inlet planes of the open-x boundary ---------------------------------
+    def _inlet_planes(self, state: State, f: Fields, ig):
+        """The x-inlet planes at `state.timee`: from the generator state
+        `ig`, recycled from the fields `f`, interpolated in the rolling
+        driver window, or from the Inlet's own profiles or series."""
+        ny, nz = self.grid.jtot, self.grid.ktot
+        if self.igparams is not None:
+            return inletgen_planes(ig, self.inlet, ny, nz)
+        if self.inlet.mode == BC_RECYCLE:
+            return recycle_planes(self.inlet, f, ny, nz)
+        if state.drv is not None:
+            # streaming replay: lerp from the rolling device window
+            # (lchunkread, moddriver.f90:933; io/driverstream.py)
+            return driver_window_planes(state.drv, state.timee)
+        return self.inlet.planes(state.timee, ny, nz)
 
     # -- one RK3 substep ---------------------------------------------------
     def substep(self, state: State, rk3step: int, th: ThermoDiag | None = None,
@@ -151,7 +193,7 @@ class Model:
         already computed on `m` for the adaptive dt; valid only for
         rk3step == 1, where c == m."""
         cfg, grid = self.cfg, self.grid
-        nz = grid.ktot
+        nx, ny, nz = grid.shape
         c, m = state.c, state.m
         rk3coef = state.dt / (4.0 - rk3step)
         ltemp = cfg.physics.ltempeq
@@ -162,19 +204,39 @@ class Model:
             th = thermodynamics(c, cfg, grid,
                                 ibm.masks if ibm is not None else None)
 
+        # --- open-x inlet/outlet context (modboundary.f90:688-996) ---------
+        openx = uouttot = inlet_planes = None
+        ig = state.ig
+        if self.inlet is not None:
+            if self.igparams is not None:
+                # the Lund-1998 rescale-recycle generator (modinlet.f90
+                # inletgen, called per substep as in the legacy time loop)
+                ig = inletgen_update(ig, c, cfg, grid, state.dt, rk3step,
+                                     self.igparams)
+            inlet_planes = self._inlet_planes(state, c, ig)
+            openx = {"inlet": inlet_planes, "bx": c.bx}
+            uouttot = uouttot_value(cfg, th.u0av, grid)
+
+        # --- open-y inlet/outlet context (ymi_profile/ymo_convective) ------
+        openy = vouttot = inlet_y = None
+        if self.inlet_y is not None:
+            inlet_y = self.inlet_y.planes(state.timee, nx, nz)
+            openy = {"inlet": inlet_y, "by": c.by}
+            vouttot = vouttot_value(cfg, th.v0av, grid)
+
         # --- SGS closure (modsubgrid.closure) ------------------------------
         thvs = cfg.bc.thls if cfg.bc.thls > 0 else 288.0
         if closure_out is None:
-            gvel = _velocity_ghosts(c, cfg, grid)
+            gvel = _velocity_ghosts(c, cfg, grid, openx, openy)
             ekm, ekh, _ = sgs.closure(gvel, grid, cfg, e12=c.e12,
                                       dthvdz=th.dthvdz, thl=c.thl, thvs=thvs)
         else:
             ekm, ekh, _ = closure_out
 
-        g = make_ghosts(c, ekm, ekh, cfg, grid)
+        g = make_ghosts(c, ekm, ekh, cfg, grid, openx=openx, openy=openy)
 
         # --- advection (+ pressure-gradient term, modadvection) ------------
-        gp = _pad_pres(state.pres)
+        gp = _pad_pres(state.pres, openx, openy)
         du = adv.adv_u(g, grid) \
             - (gp[1:-1, 1:-1, :] - gp[:-2, 1:-1, :]) * grid.dxi
         dv = adv.adv_v(g, grid) \
@@ -183,8 +245,19 @@ class Model:
         dzhi = grid.t("dzhi", self.device)
         dw[..., 1:nz] -= (state.pres[:, :, 1:] - state.pres[:, :, :-1]) \
             * dzhi[1:nz][None, None, :]
-        dthl = adv.adv_c2(g.thl, g, grid) if ltemp else None
+        dthl = None
+        if ltemp and cfg.iadv_thl == IADV_KAPPA:
+            dthl = adv.adv_kappa(_kappa_ghost_scalar(c.thl, cfg, openx,
+                                                     openy), g, grid)
+        elif ltemp:
+            dthl = adv.adv_c2(g.thl, g, grid)
         dqt = adv.adv_c2(g.qt, g, grid) if lmoist else None
+
+        # --- shifted periodic BCs (modforces.f90:953, after advection) -----
+        if cfg.physics.ds > 0:
+            su, sv, sw = shifted_pbcs(c, grid, cfg, rk3coef, th.u0av,
+                                      cfg.physics.ds)
+            du, dv, dw = du + su, dv + sv, dw + sw
 
         # --- subgrid diffusion: the hand-written kernel on CUDA ------------
         # the IBM diffusion corrections (diffu_corr..diffc_corr) are folded
@@ -211,11 +284,53 @@ class Model:
         # --- coriolis / forces ---------------------------------------------
         cu, cv, cw = coriolis(g, grid, cfg, self.ug, self.vg)
         du, dv, dw = du + cu, dv + cv, dw + cw
-        fu, fv, fw = forces(g, grid, cfg, self.dpdxl, self.dpdyl,
+        dpdxl = self.dpdxl
+        if cfg.physics.ifixuinf == 2 and state.ctl is not None:
+            dpdxl = dpdxl + state.ctl.dpdx_shift
+        fu, fv, fw = forces(g, grid, cfg, dpdxl, self.dpdyl,
                             th.thv0h, th.thvh)
         du, dv, dw = du + fu, dv + fv, dw + fw
+
+        # --- large-scale subsidence/advection (modforces.lstend) -----------
+        if self.has_lstend:
+            lu, lv, lthl, lqt, _ = lstend(
+                c, grid, cfg, self.whls, th.u0av, th.v0av, th.thl0av,
+                th.qt0av, c.sv.new_zeros((0, nz)), self.dqtdtls)
+            du = du + lu[None, None, :]
+            dv = dv + lv[None, None, :]
+            if ltemp:
+                dthl = dthl + lthl[None, None, :]
+            if lmoist:
+                dqt = dqt + lqt[None, None, :]
         if ltemp:
             dthl = dthl + self.thlpcar[None, None, :]
+        if cfg.physics.igrw_damp != 0:
+            gu, gv, gw, gthl, gqt = grwdamp(
+                c, grid, cfg, th.u0av, th.v0av, th.thl0av, th.qt0av,
+                self.ug, self.vg)
+            du, dv, dw = du + gu, dv + gv, dw + gw
+            if ltemp:
+                dthl = dthl + gthl
+            if lmoist:
+                dqt = dqt + gqt
+
+        # --- nudging to (possibly time-dependent) profiles -----------------
+        if cfg.physics.lnudge and cfg.physics.nnudge > 0:
+            nprofs = None
+            if self.timedep is not None:
+                nprofs = self.timedep.nudge_profiles(state.timee)
+            if nprofs is None:
+                nprofs = self._static_nudge_profiles()
+            if nprofs is not None:
+                nu, nv, nthl, nqt = nudge_top(
+                    c, grid, cfg, nprofs["u"], nprofs["v"], nprofs["thl"],
+                    nprofs["qt"], u0av=th.u0av, v0av=th.v0av,
+                    thl0av=th.thl0av, qt0av=th.qt0av)
+                du, dv = du + nu, dv + nv
+                if ltemp:
+                    dthl = dthl + nthl
+                if lmoist:
+                    dqt = dqt + nqt
 
         # --- IBM wall functions (modibm.ibmwallfun) ------------------------
         fac, facstats = state.fac, state.facstats
@@ -248,13 +363,33 @@ class Model:
                 if lmoist:
                     dqt = dqt + pqt[None, None, :]
 
-        # --- mass-flow-rate correction (modforces.masscorr) ----------------
+        # --- free-stream controllers (modforces.fixuinf1/2) ----------------
+        ctl = state.ctl
+        if cfg.physics.ifixuinf == 1 and rk3step == 3:
+            cu1, cv1 = fixuinf1(c, grid, cfg, state.dt, th.u0av, th.v0av)
+            du = du + cu1
+            dv = dv + cv1
+        if cfg.physics.ifixuinf == 2 and ctl is not None:
+            ctl = replace(ctl,
+                          dpdx_shift=ctl.dpdx_shift + ctl.dgdt * rk3coef)
+            if rk3step == 3:
+                freestream = th.v0av[-1] if cfg.physics.lvinf else th.u0av[-1]
+                inletav = max(cfg.physics.inletav, 1e-9)
+                fav = (freestream * state.dt / inletav
+                       + (1.0 - state.dt / inletav) * ctl.freestreamav)
+                tscale = cfg.physics.tscale if cfg.physics.tscale > 0 else 1.0
+                uref = cfg.bc.Vinf if cfg.physics.lvinf else cfg.bc.Uinf
+                ctl = replace(ctl, freestreamav=fav,
+                              dgdt=(1.0 / tscale) * (fav - uref))
+
+        # --- mass-flow-rate correction (modforces.masscorr; skipped for
+        # inflow/outflow runs, :352/:394) -----------------------------------
         IIu = IIv = None
         if ibm is not None:
             IIu, IIv = ibm.masks.u, ibm.masks.v
-        if cfg.physics.luvolflowr:
+        if cfg.physics.luvolflowr and openx is None:
             du = masscorr_uvol(du, m.u, grid, cfg, rk3coef, IIu)
-        if cfg.physics.lvvolflowr:
+        if cfg.physics.lvvolflowr and openx is None and openy is None:
             dv = masscorr_vvol(dv, m.v, grid, cfg, rk3coef, IIv)
 
         # --- IBM: zero solid velocities, fill solid thl (ibmnorm) ----------
@@ -268,7 +403,9 @@ class Model:
         dw[..., 0] = 0.0
 
         # --- pressure projection (modpois.poisson) -------------------------
-        du, dv, dw, p = self._project(du, dv, dw, m, rk3coef, state.pres)
+        du, dv, dw, p, du_out, dv_out = self._project(
+            du, dv, dw, m, rk3coef, state.pres, c=c, openx=openx,
+            uouttot=uouttot, openy=openy, vouttot=vouttot)
         pres = state.pres + p
 
         # --- integrate (modtstep.tstep_integrate) --------------------------
@@ -282,17 +419,61 @@ class Model:
             qt=m.qt + rk3coef * dqt if lmoist else m.qt,
             e12=torch.clamp(m.e12, min=const.e12min),
             sv=m.sv,
+            bx=c.bx,
+            by=c.by,
         )
-        m_new = c_new if rk3step == 3 else m
+        # u, v, w (and thl, qt when integrated) of c_new are fresh tensors,
+        # so the inlet pins below write in place
+        m_new = m
+        if openy is not None:
+            # pin the inlet plane (ymi_profile) and advance the prognostic
+            # outlet planes (ymo_* convective)
+            c_new.v[:, 0] = inlet_y["v"]
+            if ltemp and cfg.bc.BCyT == BC_PROFILE:
+                c_new.thl[:, 0] = inlet_y["thl"]
+            byc = replace(c.by, v=m.by.v + rk3coef * dv_out)
+            byc = convect_planes_y(byc, c_new, grid, rk3coef, vouttot,
+                                   inlet_y)
+            c_new = replace(c_new, by=byc)
+            m_new = replace(m_new, by=convect_planes_y(
+                m.by, m, grid, rk3coef, vouttot, inlet_y))
+        if openx is not None:
+            # enforce the inlet plane (xmi_*, modboundary.f90:697/730) and
+            # advance the prognostic outlet planes (xmo_* convective)
+            c_new.u[0] = inlet_planes["u"]
+            if ltemp and cfg.bc.BCxT == BC_PROFILE:
+                # xTi_profile also pins the first internal cell
+                # (modboundary.f90:786-791)
+                c_new.thl[0] = inlet_planes["thl"]
+            bxc = replace(c.bx, u=m.bx.u + rk3coef * du_out)
+            bxc = convect_planes(bxc, c_new, grid, rk3coef, uouttot,
+                                 inlet_planes)
+            c_new = replace(c_new, bx=bxc)
+            m_new = replace(m_new, bx=convect_planes(
+                m.bx, m, grid, rk3coef, uouttot, inlet_planes))
+        if rk3step == 3:
+            m_new = c_new
         return state.replace(c=c_new, m=m_new, pres=pres, fac=fac,
-                             facstats=facstats)
+                             facstats=facstats, ctl=ctl, ig=ig)
 
-    def _project(self, du, dv, dw, m: Fields, rk3coef, pres):
+    def _static_nudge_profiles(self):
+        """prof.inp's u, v, thl, qt as the nudging targets (None without
+        case inputs), on the model's device."""
+        if self._nudge_prof is None and self.inputs is not None:
+            p = self.inputs.prof
+            self._nudge_prof = {k: torch.as_tensor(
+                np.asarray(p[k]), dtype=self.grid.torch_dtype,
+                device=self.device) for k in ("u", "v", "thl", "qt")}
+        return self._nudge_prof
+
+    def _project(self, du, dv, dw, m: Fields, rk3coef, pres, c=None,
+                 openx=None, uouttot=None, openy=None, vouttot=None):
         """fillps + bcpup + poisson + tderive (modpois.f90:911-998, 419-712,
-        1001-1105), periodic x/y with an impermeable bottom and an
-        impermeable or pressure (``BCtopm``) top.  `pres` is the accumulated
-        pressure.  Returns the projected tendencies and the pressure
-        correction."""
+        1001-1105; modboundary.f90:1191-1341): periodic or open x/y with an
+        impermeable bottom and an impermeable or pressure (``BCtopm``) top.
+        `pres` is the accumulated pressure.  Returns the projected
+        tendencies, the pressure correction, and the outlet-face u/v
+        tendencies (None for periodic directions)."""
         grid, cfg = self.grid, self.cfg
         nz = grid.ktot
         rk3coefi = 1.0 / rk3coef
@@ -320,14 +501,47 @@ class Model:
         else:
             pwp[..., nz] = 0.0
         dzfi = grid.t("dzfi", self.device)
-        gpu = pad_periodic_xy(pup, 1)
-        ddx = (gpu[2:, 1:-1, :] - gpu[1:-1, 1:-1, :]) * grid.dxi
-        gpv = pad_periodic_xy(pvp, 1)
-        ddy = (gpv[1:-1, 2:, :] - gpv[1:-1, 1:-1, :]) * grid.dyi
+        du_out = dv_out = None
+        # x face divergence term
+        if openx is None:
+            gpu = pad_periodic_xy(pup, 1)
+            ddx = (gpu[2:, 1:-1, :] - gpu[1:-1, 1:-1, :]) * grid.dxi
+        else:
+            # bcpup open-x (modboundary.f90:1247-1305): inlet face fixed to
+            # the inlet plane; outlet face convective.  pup is this
+            # function's own tensor; du is the caller's and is copied
+            du = du.clone()
+            du[0] = 0.0
+            pup[0] = openx["inlet"]["u"] * rk3coefi
+            u_out = openx["bx"].u          # current outlet u (u0(ie+1))
+            u_out_m = m.bx.u
+            pup_out = (u_out_m * rk3coefi
+                       - (u_out - c.u[-1]) * grid.dxi * uouttot)
+            du_out = pup_out - u_out_m * rk3coefi
+            pup_faces = torch.cat([pup, pup_out[None]], dim=0)
+            ddx = (pup_faces[1:] - pup_faces[:-1]) * grid.dxi
+        # y face divergence term
+        if openy is None:
+            gpv = pad_periodic_xy(pvp, 1)
+            ddy = (gpv[1:-1, 2:, :] - gpv[1:-1, 1:-1, :]) * grid.dyi
+        else:
+            # bcpup open-y: inlet v face fixed; outlet v face convective
+            dv = dv.clone()
+            dv[:, 0] = 0.0
+            pvp[:, 0] = openy["inlet"]["v"] * rk3coefi
+            v_out = openy["by"].v
+            v_out_m = m.by.v
+            pvp_out = (v_out_m * rk3coefi
+                       - (v_out - c.v[:, -1]) * grid.dyi * vouttot)
+            dv_out = pvp_out - v_out_m * rk3coefi
+            pvp_faces = torch.cat([pvp, pvp_out[:, None]], dim=1)
+            ddy = (pvp_faces[:, 1:] - pvp_faces[:, :-1]) * grid.dyi
         rhs = (ddx + ddy
                + (pwp[:, :, 1:] - pwp[:, :, :-1]) * dzfi[None, None, :])
         p = self.pois.solve(rhs)
-        gp = _pad_pres(p)
+        # tderive: subtract grad p from the tendencies (Neumann ghosts at
+        # open boundaries leave the inlet face untouched, modpois:1046-1056)
+        gp = _pad_pres(p, openx, openy)
         du = du - (gp[1:-1, 1:-1, :] - gp[:-2, 1:-1, :]) * grid.dxi
         dv = dv - (gp[1:-1, 1:-1, :] - gp[1:-1, :-2, :]) * grid.dyi
         dzhi = grid.t("dzhi", self.device)
@@ -336,7 +550,7 @@ class Model:
         if lptop:
             # wp(ke+1) += 2 <p>_ke dzhi(ke+1) (modpois.f90:1058-1069)
             dw[..., nz] += top_gradient(p)
-        return du, dv, dw, p
+        return du, dv, dw, p, du_out, dv_out
 
     # -- dt control (modtstep.tstep_update:49-154) --------------------------
     def new_dt(self, state: State, ekm=None, ekh=None):
@@ -364,7 +578,16 @@ class Model:
     def step(self, state: State) -> State:
         """One full RK3 timestep (3 substeps) + dt/time bookkeeping."""
         cfg, grid = self.cfg, self.grid
-        gvel = _velocity_ghosts(state.m, cfg, grid)
+        # the closure for the dt limit sees the inlet planes at the old time
+        openx0 = openy0 = None
+        if self.inlet is not None:
+            openx0 = {"inlet": self._inlet_planes(state, state.m, state.ig),
+                      "bx": state.m.bx}
+        if self.inlet_y is not None:
+            openy0 = {"inlet": self.inlet_y.planes(state.timee, grid.itot,
+                                                   grid.ktot),
+                      "by": state.m.by}
+        gvel = _velocity_ghosts(state.m, cfg, grid, openx0, openy0)
         th = thermodynamics(state.m, cfg, grid,
                             self.ibm.masks if self.ibm is not None else None)
         thvs = cfg.bc.thls if cfg.bc.thls > 0 else 288.0
@@ -374,8 +597,12 @@ class Model:
         dt = self.new_dt(state, closure_out[0], closure_out[1])
         state = state.replace(dt=dt, timee=state.timee + dt)
         # c == m at step entry, so substep 1 reuses the diagnostics computed
-        # for the adaptive dt
-        state = self.substep(state, 1, th=th, closure_out=closure_out)
+        # for the adaptive dt.  With open boundaries the velocity ghosts are
+        # time-interpolated inlet planes and timee just advanced, so the
+        # closure is recomputed there (th has no ghosts and stays exact).
+        closed = openx0 is None and openy0 is None
+        state = self.substep(state, 1, th=th,
+                             closure_out=closure_out if closed else None)
         for rk3step in (2, 3):
             state = self.substep(state, rk3step)
         # the facet energy balance fires every dtEB (quantized),
@@ -390,8 +617,11 @@ class Model:
         return state
 
     def run(self, state: State, nsteps: int) -> State:
-        """`nsteps` full steps."""
+        """`nsteps` full steps; a streaming driver replay refills its
+        window between them."""
         for _ in range(nsteps):
+            if self.driver_stream is not None:
+                state = self.driver_stream.ensure(state)
             state = self.step(state)
         return state
 
@@ -434,8 +664,6 @@ def load_case(case_dir, expnr: str | None = None, dtype: str = "float32",
                               dtype=np_dt)
     inputs = CaseInputs.load(case_dir, expnr, dom.ktot, cfg.scalars.nsv)
     lacking = {
-        "large-scale tendencies": bool(np.any(inputs.lscale["wfls"] != 0)
-                                       or np.any(inputs.lscale["dqtdt"] != 0)),
         "trees": cfg.trees.ltrees,
         "purifiers": cfg.purifs.lpurif,
         "heat pumps": cfg.heatpump.lheatpump,
@@ -451,20 +679,128 @@ def load_case(case_dir, expnr: str | None = None, dtype: str = "float32",
     model = Model(cfg, grid, ibm, device=device)
     load_profiles(model, _case_profiles(inputs, cfg, grid))
     model.inputs = inputs
+    model.has_lstend = bool(np.any(inputs.lscale["wfls"] != 0)
+                            or np.any(inputs.lscale["dqtdt"] != 0))
     if cfg.eb.lEB and ibm is not None:
         model.eb = FacetEB.load(case_dir, expnr, cfg, ibm, device=device)
     model.timedep = Timedep.load(case_dir, expnr, cfg, dom.ktot,
                                  dtype=grid.torch_dtype, device=device)
+    _load_inlet(model, case_dir, inputs)
     return model
 
 
-def _velocity_ghosts(f: Fields, cfg: Config, grid: Grid) -> Ghosts:
+def _load_inlet(model: Model, case_dir: Path, inputs) -> None:
+    """The open-boundary inlet of a case (udales_tpu ``load_case``,
+    run.py:811-900): profile inlets in x and/or y, a driver inlet (rolling
+    window over the reference's ``?driver_*`` files with ``lchunkread``, an
+    h5 series, or the whole of the Fortran files), the rescale-recycle
+    generator (iinletgen=1) or the replay of its recorded planes
+    (iinletgen=2)."""
+    cfg, grid, dom = model.cfg, model.grid, model.cfg.domain
+    kw = dict(dtype=grid.torch_dtype, device=model.device)
+    t = lambda a: torch.as_tensor(np.ascontiguousarray(a), **kw)
+    p = inputs.prof
+    nsv = cfg.scalars.nsv
+    profiles = lambda: dict(
+        uprof=t(p["u"]), vprof=t(p["v"]), thlprof=t(p["thl"]),
+        qtprof=t(p["qt"]), e12prof=t(np.maximum(p["e12"], const.e12min)))
+    if cfg.bc.BCxm == BC_PROFILE or cfg.bc.BCym == BC_PROFILE:
+        inl = Inlet(mode=BC_PROFILE, **profiles(),
+                    svprof=(t(inputs.scalar) if inputs.scalar is not None
+                            else torch.zeros((nsv, dom.ktot), **kw)))
+        if cfg.bc.BCxm == BC_PROFILE:
+            model.inlet = inl
+        if cfg.bc.BCym == BC_PROFILE:
+            model.inlet_y = inl
+    if cfg.bc.BCxm == BC_DRIVER:
+        djob = cfg.driver.driverjobnr
+        dpath = case_dir / f"driverdata.{djob:03d}.h5"
+        tdrv = case_dir / f"tdriver_000.{djob:03d}"
+        series = dict(driverstore=cfg.driver.driverstore or None, nsv=nsv,
+                      ltempeq=cfg.physics.ltempeq, lmoist=cfg.physics.lmoist)
+        if cfg.driver.lchunkread and tdrv.exists():
+            # streaming replay (lchunkread, moddriver.f90:933): only
+            # chunkread_size planes live on the device; the window in
+            # State.drv is refilled between steps (io/driverstream.py)
+            from .io.driverstream import DriverStream
+            model.inlet = Inlet(mode=BC_DRIVER)
+            model.driver_stream = DriverStream(
+                case_dir, djob, dom.jtot, dom.ktot, grid.torch_dtype,
+                chunk=cfg.driver.chunkread_size, device=model.device,
+                **series)
+        elif dpath.exists():
+            model.inlet = load_driver_inlet(dpath, grid.torch_dtype,
+                                            model.device)
+        elif tdrv.exists():
+            # reference Fortran ?driver_* files (moddriver.f90:750
+            # readdriverfile): direct-access f8 planes per y-rank
+            from .io.driverfiles import read_driver_files
+            d = read_driver_files(case_dir, djob, dom.jtot, dom.ktot,
+                                  **series)
+            model.inlet = Inlet(mode=BC_DRIVER, **{
+                k: t(d[k]) if k in d else None
+                for k in ("t", "u", "v", "w", "thl", "qt", "sv")})
+        else:
+            raise FileNotFoundError(
+                f"driver-inlet case (idriver=2): neither {dpath.name} nor "
+                f"reference driver files (tdriver_000.{djob:03d} + "
+                f"?driver_*) found in {case_dir}; record them by running "
+                f"the precursor case (idriver=1, experiment {djob:03d}) "
+                f"first (moddriver.f90:515/750)")
+    elif cfg.driver.iinletgen == 1:
+        # the Lund-1998 rescale-recycle generator (modinlet.f90 inletgen):
+        # the Inlet holds the profile context (qt/e12/sv planes); the
+        # generator state itself lives in State.ig (ops/inletgen.py)
+        model.inlet = Inlet(mode=BC_RECYCLE, **profiles(),
+                            svprof=torch.zeros((nsv, dom.ktot), **kw),
+                            irecy=cfg.driver.iplane)
+        model.igparams = InletGenParams(cfg, grid)
+    elif cfg.driver.iinletgen == 2:
+        # replay planes recorded by a previous iinletgen=1 run
+        # (modinlet.f90:860-944 readinletfile analogue; lerp in time)
+        ip = case_dir / f"inletdata.{cfg.driver.driverjobnr:03d}.npz"
+        if not ip.exists():
+            raise FileNotFoundError(
+                f"{ip}: iinletgen=2 needs planes recorded by running the "
+                f"generator case (iinletgen=1, lstoreplane) first")
+        d = np.load(ip)
+        nt = len(d["t"])
+        model.inlet = Inlet(
+            mode=BC_DRIVER, t=t(d["t"]), u=t(d["u"]), v=t(d["v"]),
+            w=t(d["w"]), thl=t(d["thl"]),
+            qt=t(p["qt"])[None, None, :].expand(nt, dom.jtot, dom.ktot),
+            sv=torch.zeros((nt, nsv, dom.jtot, dom.ktot), **kw),
+            e12prof=t(np.maximum(p["e12"], const.e12min)))
+
+
+def _velocity_ghosts(f: Fields, cfg: Config, grid: Grid, openx=None,
+                     openy=None) -> Ghosts:
     """Minimal ghost set (u, v, w only) for closure/dt before ekm exists."""
-    return Ghosts(u=ghost_u(f.u, cfg), v=ghost_v(f.v, cfg),
-                  w=ghost_w(f.w, cfg), thl=None, qt=None, e12=None, sv=None,
-                  ekm=None, ekh=None)
+    return Ghosts(u=ghost_u(f.u, cfg, openx=openx, openy=openy),
+                  v=ghost_v(f.v, cfg, openx=openx, openy=openy),
+                  w=ghost_w(f.w, cfg, openx=openx, openy=openy),
+                  thl=None, qt=None, e12=None, sv=None, ekm=None, ekh=None)
 
 
-def _pad_pres(p):
-    """Pressure ghosts (bcp, modboundary.f90:1344-1430): periodic wrap."""
-    return pad_periodic_xy(p, 1)
+def _kappa_ghost_scalar(cfield, cfg: Config, openx=None, openy=None):
+    """Kappa-layout ghosts of thl, which rides through the sv slot of the
+    open-boundary contexts."""
+    if openx is not None:
+        openx = {**openx,
+                 "inlet": {**openx["inlet"],
+                           "sv": openx["inlet"]["thl"][None]},
+                 "bx": replace(openx["bx"], sv=openx["bx"].thl[None])}
+    if openy is not None:
+        openy = {**openy,
+                 "inlet": {**openy["inlet"],
+                           "sv": openy["inlet"]["thl"][None]},
+                 "by": replace(openy["by"], sv=openy["by"].thl[None])}
+    return ghost_scalar_kappa(cfield, cfg, openx=openx, openy=openy,
+                              sv_index=0)
+
+
+def _pad_pres(p, openx=None, openy=None):
+    """Pressure ghosts (bcp, modboundary.f90:1344-1430): periodic wrap, or
+    zero gradient at open boundaries."""
+    px = pad_edge(p, 0, 1) if openx is not None else pad_wrap(p, 0, 1)
+    return pad_edge(px, 1, 1) if openy is not None else pad_wrap(px, 1, 1)

@@ -1,4 +1,4 @@
-"""Prognostic state (port of ``udales_tpu.state``, closed-domain slice).
+"""Prognostic state (port of ``udales_tpu.state``).
 
   - ``Fields``: one set of prognostic fields at a single time level
       u   (nx, ny, nz)    x-velocity at x-faces
@@ -6,11 +6,14 @@
       w   (nx, ny, nz+1)  z-velocity at z-faces (w[...,0]=bottom, w[...,nz]=top)
       thl, qt, e12 (nx, ny, nz)
       sv  (nsv, nx, ny, nz) passive scalars
+      bx, by  outlet planes of open-x / open-y runs (``ops.openbc``)
   - ``State``: the RK3 carry: start-of-step fields ``m``, current substep
       fields ``c``, accumulated pressure ``pres``, timestep ``dt`` and
       elapsed time ``timee`` (both 0-d tensors on the field device), the
-      facet state ``fac`` of energy-balance runs (``ibm.eb.FacetState``) and
-      the ``FacStats`` accumulators of lwritefac runs.
+      facet state ``fac`` of energy-balance runs (``ibm.eb.FacetState``),
+      the ``FacStats`` accumulators of lwritefac runs, the free-stream
+      controller ``ctl``, the rescale-recycle generator ``ig`` and the
+      rolling driver window ``drv``.
 """
 from __future__ import annotations
 
@@ -31,6 +34,8 @@ class Fields:
     qt: torch.Tensor
     e12: torch.Tensor
     sv: torch.Tensor  # (nsv, nx, ny, nz); nsv may be 0
+    bx: Any = None  # XPlanes outlet state for open-x runs (ops/openbc.py)
+    by: Any = None  # YPlanes outlet state for open-y runs (ops/openbc.py)
 
 
 @dataclass(frozen=True)
@@ -42,6 +47,10 @@ class State:
     timee: torch.Tensor
     fac: Any = None       # ibm.eb.FacetState for energy-balance runs
     facstats: Any = None  # FacStats accumulators for lwritefac runs
+    ctl: Any = None       # Ctl: ifixuinf=2 free-stream controller state
+    ig: Any = None        # InletGen rescale-recycle state (ops/inletgen.py)
+    drv: Any = None       # DriverWindow: rolling precursor-replay chunk
+                          # (lchunkread streaming, io/driverstream.py)
 
     def replace(self, **kw) -> "State":
         return replace(self, **kw)
@@ -63,6 +72,16 @@ class FacStats:
     htc: torch.Tensor
     cth: torch.Tensor
     tlast: torch.Tensor   # scalar: time of the last fac write
+
+
+@dataclass(frozen=True)
+class Ctl:
+    """Free-stream controller state (ifixuinf=2, modforces.fixuinf2 +
+    modtstep.f90:194-200): running-average free stream, its rate dgdt and
+    the accumulated dpdx offset, each a 0-d tensor."""
+    freestreamav: torch.Tensor
+    dgdt: torch.Tensor
+    dpdx_shift: torch.Tensor
 
 
 def zero_facstats(nfcts: int, dtype, device="cpu") -> FacStats:

@@ -20,12 +20,16 @@ import torch
 def _lerp_series(t_arr, v_arr, timee):
     """Clamped piecewise-linear interpolation of `v_arr` (nt, ...) given at
     times `t_arr` (nt,); holds the last value after the series end."""
-    idx = torch.clamp(torch.searchsorted(t_arr, timee, right=True) - 1,
-                      0, t_arr.shape[0] - 2)
-    t0, t1 = t_arr[idx], t_arr[idx + 1]
+    # a 1-element index and index_select: indexing with a 0-d device
+    # tensor would read the index back to the host
+    idx = torch.clamp(
+        torch.searchsorted(t_arr, timee.reshape(1), right=True) - 1,
+        0, t_arr.shape[0] - 2)
+    at = lambda a, i: a.index_select(0, i)[0]
+    t0, t1 = at(t_arr, idx), at(t_arr, idx + 1)
     fac = torch.clamp((timee - t0) / torch.clamp(t1 - t0, min=1e-12),
                       0.0, 1.0)
-    return v_arr[idx] + fac * (v_arr[idx + 1] - v_arr[idx])
+    return at(v_arr, idx) + fac * (at(v_arr, idx + 1) - at(v_arr, idx))
 
 
 class Timedep:
