@@ -5,8 +5,10 @@
 Drives ``udales_tpu_torch`` (never JAX) through its main paths, the
 adaptive RK3 step of the flat neutral ABL, of the urban building-array case
 (immersed boundary), of the same array with the facet surface energy
-balance, and of the same array driven through an open x boundary by
-precursor planes, and checks both variants of the hand-written CUDA
+balance, of the same array driven through an open x boundary by precursor
+planes, and of the same array as a street-canyon dispersion case (passive
+scalars, chemistry, trees, purifiers, heat pumps, the one-equation
+closure), and checks both variants of the hand-written CUDA
 diffusion kernel on the way.  Phases, one line each; any failure raises and
 the script exits non-zero without a result line:
 
@@ -59,6 +61,21 @@ the script exits non-zero without a result line:
      10 steps
  24. both kernel variants against their plain versions on ghosts built by
      the open-boundary assembly (non-periodic planes, zero-gradient ekm)
+ 25. stage the street-canyon dispersion case (cases.stage_urban_dispersion:
+     NO, NO2, O3 from canyon line sources and a rooftop stack, chemistry,
+     trees) at 32^3 and 128^3, plain, with purifiers and heat pumps, and
+     with the one-equation closure
+ 26. dispersion step parity: 32^3 float64, 5 steps on CUDA against CPU,
+     every State leaf, for the three variants
+ 27. dispersion main path: 128^3 float32 through load_case, cold_start and
+     run, 50 timed steps beside the urban path's time; finite scalars, the
+     masked kernel 3 times a step, divergence-free; chem_update alone on
+     the 128^3 scalars keeps the NO + NO2 molar sum
+ 28. the purifier and heat-pump variant at 128^3, 20 steps: the purifier
+     boxes hold Qpu / Apu, the flow outside them is divergence-free
+ 29. the one-equation variant at 128^3, 20 steps: e12 finite and at or
+     above e12min
+ 30. one step of each variant under torch.cuda.set_sync_debug_mode("error")
 The line before the last is a JSON object describing the kernels and the
 main paths; the last line is {"ok": true, "device": {...}}.
 """
@@ -613,6 +630,171 @@ def open_boundary_phases(smi, fused, div_bound, pm128):
                 open_err=open_err)
 
 
+def leaf_parity(states):
+    """Worst max|cuda - cpu| / max|cpu| over every leaf of two States."""
+    from udales_tpu_torch.convert import state_to_numpy
+
+    def leaves(tree, prefix=""):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                yield from leaves(v, f"{prefix}{k}.")
+            else:
+                yield f"{prefix}{k}", v
+    ref = dict(leaves(state_to_numpy(states["cpu"])))
+    worst = 0.0
+    for name, got in leaves(state_to_numpy(states["cuda"])):
+        if got.size:
+            scale = max(float(np.abs(ref[name]).max()), 1e-30)
+            worst = max(worst, float(np.abs(got - ref[name]).max()) / scale)
+    return worst, len(ref)
+
+
+def dispersion_phases(smi, fused, div_bound, urban):
+    """Phases 25 to 30: the street-canyon dispersion case and its purifier /
+    heat-pump and one-equation variants.  `urban` is phase 12's result, the
+    urban path's time in this call.  Any failed check raises."""
+    from udales_tpu_torch import cases
+    from udales_tpu_torch.config import const
+    from udales_tpu_torch.convert import state_from_numpy, state_to_numpy
+    from udales_tpu_torch.physics import M_NO, M_NO2, chem_update
+    from udales_tpu_torch.run import load_case
+
+    variants = {"dispersion": {},
+                "purifiers + heat pumps": dict(purifiers=True,
+                                               heatpumps=True),
+                "one-equation": dict(sgs="oneeqn")}
+    # 25. stage
+    t0 = time.perf_counter()
+    d32 = {k: cases.stage_urban_dispersion(32, CACHE, **v)
+           for k, v in variants.items()}
+    d128 = {k: cases.stage_urban_dispersion(128, CACHE, **v)
+            for k, v in variants.items()}
+    nveg = sum(1 for _ in open(d128["dispersion"] / "veg.inp.900")) - 1
+    phase(25, f"staged dispersion 32^3 and 128^3 (3 variants each) in "
+              f"{time.perf_counter() - t0:.2f} s under {CACHE.name}/: "
+              f"{', '.join(p.name for p in d128.values())}; {nveg} tree "
+              f"cells at 128^3")
+
+    # 26. CUDA against CPU, 5 steps, every leaf
+    for name, case in d32.items():
+        states, start = {}, None
+        for dev in ("cpu", "cuda"):
+            model = load_case(case, "900", dtype="float64", device=dev)
+            if start is None:
+                start = state_to_numpy(model.cold_start(seed=43))
+            states[dev] = model.run(state_from_numpy(start, device=dev), 5)
+        worst, nleaves = leaf_parity(states)
+        phase(26, f"{name} 32^3 float64, 5 steps, CUDA vs CPU: max rel err "
+                  f"{worst:.3e} over {nleaves} State leaves (tolerance 1e-9)")
+        if not worst <= 1e-9:
+            raise RuntimeError(f"{name}: CUDA step disagrees with the CPU")
+
+    # 27. the dispersion main path at full size
+    dm = load_case(d128["dispersion"], "900", dtype="float32")   # the card
+    if (dm.scalsources is None or dm.vegetation is None
+            or not dm.cfg.chem.lchem or dm.ibm is None):
+        raise RuntimeError("load_case built no dispersion physics")
+    disp, st = run_main_path(dm, dm.cold_start(seed=43), warm=5, steps=50,
+                             smi=smi, fused=fused,
+                             label="dispersion 128^3 float32")
+    sv = st.c.sv
+    sv_finite = bool(torch.isfinite(sv).all())
+    # the null cycle alone on the full field: NO + NO2 (molar) is kept
+    after = chem_update(sv, st.dt, dm.cfg, dm.ibm.masks.c)
+    nox = lambda s: s[0].double() / M_NO + s[1].double() / M_NO2
+    nox_err = float((nox(after) - nox(sv)).abs().max()
+                    / nox(sv).abs().max().clamp(min=1e-30))
+    moved = float((after[2] - sv[2]).abs().max())
+    disp.update(sv_max=[float(sv[n].max()) for n in range(3)],
+                o3_min=float(sv[2].min()), nox_err=nox_err,
+                ratio_to_urban=disp["ms_per_step"] / urban["ms_per_step"])
+    phase(27, f"dispersion 128^3 main path on {smi}: "
+              f"{disp['ms_per_step']:.4f} ms/step against urban's "
+              f"{urban['ms_per_step']:.4f} in this call (ratio "
+              f"{disp['ratio_to_urban']:.3f}); max NO, NO2, O3 "
+              f"{', '.join(f'{v:.4g}' for v in disp['sv_max'])}, min O3 "
+              f"{disp['o3_min']:.4f}, scalars finite {sv_finite}; "
+              f"chem_update alone: NO + NO2 molar sum kept to {nox_err:.3e} "
+              f"(tolerance 1e-6), O3 moved by {moved:.3e}; max|div u| "
+              f"{disp['max_div']:.3e} <= {div_bound:g}")
+    if not (sv_finite and nox_err <= 1e-6 and moved > 0
+            and disp["max_div"] <= div_bound):
+        raise RuntimeError("the dispersion main path failed a check")
+
+    # 28. purifiers and heat pumps
+    pm = load_case(d128["purifiers + heat pumps"], "900", dtype="float32")
+    if pm.purifiers is None or pm.heatpumps is None:
+        raise RuntimeError("load_case built no purifiers or heat pumps")
+    pu, pst = run_main_path(pm, pm.cold_start(seed=43), warm=2, steps=20,
+                            smi=smi, fused=fused,
+                            label="dispersion + purifiers + heat pumps "
+                                  "128^3 float32")
+    c = pst.c
+    div = divergence_field(pm, c)
+    keep = torch.ones_like(div, dtype=torch.bool)
+    box_err = 0.0
+    for p in pm.purifiers.purifs:
+        _, _, vel, faces, _, axis = pm.purifiers.geometry(p)
+        face = getattr(c, "uvw"[axis])[faces]
+        box_err = max(box_err, float((face - vel).abs().max()) / abs(vel))
+        keep[max(p.il - 1, 0):p.iu + 2, max(p.jl - 1, 0):p.ju + 2,
+             max(p.kl - 1, 0):p.ku + 2] = False
+    i, j, k = (torch.as_tensor(a, device="cuda")
+               for a in pm.heatpumps.ijk.T)
+    fan = float(c.w[i, j, k + 1].mean())
+    pu.update(box_err=box_err, div_outside=float(div[keep].max()),
+              fan_w=fan)
+    phase(28, f"purifiers + heat pumps 128^3: {len(pm.purifiers.purifs)} "
+              f"boxes hold Qpu/Apu to {box_err:.3e} (relative, tolerance "
+              f"1e-6), max|div u| outside the boxes and their neighbours "
+              f"{pu['div_outside']:.3e} <= {div_bound:g}, mean w above the "
+              f"{len(pm.heatpumps.ijk)} heat pumps {fan:.4f} m/s (fan "
+              f"{pm.heatpumps.w_exhaust:.4f})")
+    if not (box_err <= 1e-6 and pu["div_outside"] <= div_bound
+            and bool(torch.isfinite(c.sv).all())):
+        raise RuntimeError("the purifier / heat-pump path failed a check")
+
+    # 29. the one-equation closure
+    om = load_case(d128["one-equation"], "900", dtype="float32")
+    one, ost = run_main_path(om, om.cold_start(seed=43), warm=2, steps=20,
+                             smi=smi, fused=fused,
+                             label="dispersion one-equation 128^3 float32")
+    e12 = ost.c.e12
+    one.update(e12_min=float(e12.min()), e12_max=float(e12.max()))
+    phase(29, f"one-equation 128^3: e12 within {one['e12_min']:.4g} .. "
+              f"{one['e12_max']:.4g} (e12min {const.e12min:g}), max|div u| "
+              f"{one['max_div']:.3e} <= {div_bound:g}")
+    if not (bool(torch.isfinite(e12).all()) and one["e12_min"]
+            >= const.e12min * (1 - 1e-6) and one["e12_max"] > const.e12min
+            and one["max_div"] <= div_bound):
+        raise RuntimeError("the one-equation path failed a check")
+
+    # 30. no host synchronisation inside a step of any variant
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        st = dm.step(st)
+        pst = pm.step(pst)
+        ost = om.step(ost)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    phase(30, "one step of each dispersion variant under "
+              "set_sync_debug_mode('error'): no host synchronisation")
+    return dict(dispersion=disp, purifiers_heatpumps=pu, oneeqn=one)
+
+
+def divergence_field(model, c):
+    """|div u| per cell of the projected velocity (periodic x and y)."""
+    grid = model.grid
+    gu = torch.cat([c.u, c.u[:1]], dim=0)
+    gv = torch.cat([c.v, c.v[:, :1]], dim=1)
+    dzfi = grid.t("dzfi", c.u.device)
+    return ((gu[1:] - gu[:-1]) * grid.dxi + (gv[:, 1:] - gv[:, :-1])
+            * grid.dyi + (c.w[:, :, 1:] - c.w[:, :, :-1])
+            * dzfi[None, None, :]).abs()
+
+
 def open_xy_ghost_check(fused):
     """The unmasked kernel on ghosts assembled with both directions open
     (x planes first, y planes across the corners), float64 and float32, at a
@@ -853,6 +1035,9 @@ def main():
     # 18.-24. the open-boundary slice
     drv = open_boundary_phases(smi, fused_diff_mom, div_bound, pm128)
 
+    # 25.-30. the dispersion slice
+    disp = dispersion_phases(smi, fused_diff_mom, div_bound, urb)
+
     foreign = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "udales_tpu"))
     if foreign:
@@ -876,6 +1061,10 @@ def main():
          **tm128, "bound_by": "bytes", "library_ms": None,
          "launches_urban_eb": ueb["launches"],
          "launches_urban_driven": drv["driven"]["launches"],
+         "launches_urban_dispersion": disp["dispersion"]["launches"],
+         "launches_oneeqn": disp["oneeqn"]["launches"],
+         "launches_purifiers_heatpumps":
+             disp["purifiers_heatpumps"]["launches"],
          "max_abs_err_open_ghosts": drv["open_err"]["masked"]}],
         "main_path": rates(main), "main_path_256": rates(big),
         "urban_128": rates(urb),
@@ -887,7 +1076,17 @@ def main():
                                           "top_div", "dt", "ensure_ms",
                                           "refill_ms")}},
         "recycle_128": rates(drv["recycle"]),
-        "precursor_replay_64": drv["replay"]}))
+        "precursor_replay_64": drv["replay"],
+        "dispersion_128": {**rates(disp["dispersion"]), **{
+            k: disp["dispersion"][k] for k in (
+                "ratio_to_urban", "max_div", "nox_err", "sv_max", "o3_min",
+                "dt")}},
+        "purifiers_heatpumps_128": {**rates(disp["purifiers_heatpumps"]), **{
+            k: disp["purifiers_heatpumps"][k] for k in (
+                "box_err", "div_outside", "fan_w")}},
+        "oneeqn_128": {**rates(disp["oneeqn"]), **{
+            k: disp["oneeqn"][k] for k in ("e12_min", "e12_max",
+                                           "max_div")}}}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

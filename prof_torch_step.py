@@ -7,8 +7,11 @@ urban building-array case (``cases.stage_urban``, staged into
 .bench_cache/), urbanebn for the same array with the facet energy
 balance (``cases.stage_urban_eb``), or urbandrvn for the same array driven
 through an open x boundary by precursor planes
-(``cases.stage_urban_driven``, records 0.1 s apart read 16 at a time).  For
-each N it builds the case on the card, warms
+(``cases.stage_urban_driven``, records 0.1 s apart read 16 at a time), or
+urbandispn for the same array as a street-canyon dispersion case
+(``cases.stage_urban_dispersion``: three scalars, sources, chemistry,
+trees; urbandisppuhpn with purifiers and heat pumps, urbandisponeeqnn with
+the one-equation closure).  For each N it builds the case on the card, warms
 up, times 10 steps with CUDA events, then traces 3 steps with
 torch.profiler and prints the device-busy share of the traced wall time and
 the kernels that take the most device time.  The full kernel table goes to
@@ -21,7 +24,11 @@ the energy balance, also the wall functions as the third substep calls them
 (``FacetEB.update``) and gated (``maybe_update``); with a driver inlet,
 also the window interpolation, the ghosts with the open-x context, the
 open-x Poisson solve, the convective plane update and
-``DriverStream.ensure`` with and without a refill.  It also runs one step
+``DriverStream.ensure`` with and without a refill; with the dispersion
+case, also ``Vegetation.forcing``, the scalar part of a substep (kappa
+ghosts, kappa advection and masked diffusion of the whole stack, the
+sources), ``chem_update``, and ``Purifiers.apply`` and ``HeatPumps.apply``
+of the variant with purifiers and heat pumps.  It also runs one step
 under ``torch.cuda.set_sync_debug_mode("error")``, which raises on any host
 synchronisation.  The
 hand-written kernel's launches are read from its wrapper's counters: the
@@ -51,6 +58,15 @@ def build_case(case: str):
         if case.startswith("urbandrv"):
             path = stage_urban_driven(int(case[len("urbandrv"):]), cache,
                                       dtdriver=0.1)
+        elif case.startswith("urbandisp"):
+            from udales_tpu_torch.cases import stage_urban_dispersion
+            rest = case[len("urbandisp"):]
+            kw = {"puhp": dict(purifiers=True, heatpumps=True),
+                  "oneeqn": dict(sgs="oneeqn")}
+            variant = next((v for v in kw if rest.startswith(v)), None)
+            path = stage_urban_dispersion(
+                int(rest[len(variant or ""):]), cache,
+                **kw.get(variant, {}))
         elif case.startswith("urbaneb"):
             path = stage_urban_eb(int(case[len("urbaneb"):]), cache)
         else:
@@ -79,7 +95,7 @@ def hook_table(model, state, smi: str) -> list:
         openx = {"inlet": model._inlet_planes(state, c, state.ig),
                  "bx": c.bx}
     ekm, ekh, _ = sgs.closure(_velocity_ghosts(c, cfg, grid, openx), grid,
-                              cfg, dthvdz=th.dthvdz, thl=c.thl,
+                              cfg, e12=c.e12, dthvdz=th.dthvdz, thl=c.thl,
                               thvs=cfg.bc.thls)
     g = make_ghosts(c, ekm, ekh, cfg, grid, openx=openx)
     pm = dict(u=ibm.pmask_u, v=ibm.pmask_v, w=ibm.pmask_w)
@@ -91,7 +107,7 @@ def hook_table(model, state, smi: str) -> list:
         "ibm.wallfun": lambda: ibm.wallfun(g, z(c.u), z(c.v), z(c.w),
                                            z(c.thl), fac=state.fac),
         "ibm.ibmnorm": lambda: ibm.ibmnorm(c, m, c.u, c.v, c.w, c.thl,
-                                           th.thl0av[0]),
+                                           th.thl0av[0], dsv=m.sv),
         "fused_diff_mom, masked": lambda: fused_diff_mom(g, grid, pmasks=pm),
     }
     if model.eb is not None:
@@ -125,6 +141,8 @@ def hook_table(model, state, smi: str) -> list:
             "DriverStream.ensure": lambda: stream.ensure(state),
             "DriverStream.ensure, refill": refill,
         })
+    if model.vegetation is not None:
+        hooks.update(dispersion_hooks(model, state, g, th))
     lines = [f"IBM hooks alone, {grid.itot}^3 float32 on {smi} "
              f"(ms per call to a synchronize, 20 calls; device launches "
              f"and device ms per call from the profiler; the hand-written "
@@ -164,6 +182,42 @@ def hook_table(model, state, smi: str) -> list:
                      f"launches ({hand} of the hand-written kernel)  "
                      f"{dev_ms:8.4f}{mark} device ms")
     return lines
+
+
+def dispersion_hooks(model, state, g, th) -> dict:
+    """The long-tail physics of the dispersion case as hooks: the canopy
+    forcing, the scalar part of a substep, the chemistry, and the purifiers
+    and heat pumps of the same case staged with them (their own Model)."""
+    from udales_tpu_torch.cases import stage_urban_dispersion
+    from udales_tpu_torch.ops import advection as adv
+    from udales_tpu_torch.ops import subgrid as sgs
+    from udales_tpu_torch.ops.boundary import ghost_sv
+    from udales_tpu_torch.physics import chem_update
+    from udales_tpu_torch.run import load_case
+    cfg, grid, ibm = model.cfg, model.grid, model.ibm
+    c, m = state.c, state.m
+    z = torch.zeros_like
+    dsv = z(c.sv)
+
+    def scalars():
+        gsv = ghost_sv(c.sv, cfg)
+        d = adv.adv_kappa(gsv, g, grid)
+        d = d + sgs.diff_c(gsv[:, 1:-1, 1:-1, 1:-1], g.ekh, grid,
+                           M=ibm.pmask_c)
+        return d + model.scalsources.field
+    pm = load_case(stage_urban_dispersion(grid.itot, ROOT / ".bench_cache",
+                                          purifiers=True, heatpumps=True),
+                   "900", dtype="float32")
+    return {
+        "Vegetation.forcing": lambda: model.vegetation.forcing(
+            m, grid, cfg, z(c.u), z(c.v), z(c.w), z(c.thl), None, dsv),
+        "scalars of a substep": scalars,
+        "chem_update": lambda: chem_update(c.sv, state.dt, cfg, ibm.masks.c),
+        "Purifiers.apply": lambda: pm.purifiers.apply(m, c, z(c.u), z(c.v),
+                                                      z(c.w), dsv),
+        "HeatPumps.apply": lambda: pm.heatpumps.apply(m, c, z(c.w),
+                                                      z(c.thl)),
+    }
 
 
 def profile_case(case: str, smi: str) -> None:

@@ -289,18 +289,22 @@ def test_module_matches_reference(config, case):
         assert_close(got, ref, what=f"{config}/{case}/{label}")
 
 
-def test_unported_branches_raise():
-    """The branch outside the slice raises instead of being skipped:
-    passive scalars in make_ghosts.  The open ghosts and the kappa ghosts,
-    which used to raise, are held against the reference here (periodic) and
-    in test_torch_openbc.py (open)."""
+def test_make_ghosts_with_scalars_matches_reference():
+    """make_ghosts with passive scalars, which used to raise, builds the
+    kappa-layout stack of the reference (periodic here; the open contexts
+    are in test_torch_scalars.py), and the kappa ghosts of one field match
+    too."""
     e = env("flat")
     nx, ny, nz = e["tf"].u.shape
-    with_sv = dataclasses.replace(e["tf"], sv=torch.zeros((1, nx, ny, nz),
-                                                          dtype=torch.float64))
-    ek = torch.ones((nx, ny, nz), dtype=torch.float64)
-    with pytest.raises(NotImplementedError, match="passive scalars"):
-        tbnd.make_ghosts(with_sv, ek, ek, e["cfg"], e["tgrid"])
+    sv = e["rng"].uniform(0.0, 2.0, (2, nx, ny, nz))
+    jf = dataclasses.replace(e["jf"], sv=jnp.asarray(sv))
+    tf = dataclasses.replace(e["tf"], sv=t(sv))
+    ek = np.full((nx, ny, nz), 0.7)
+    ref = jbnd.make_ghosts(jf, jnp.asarray(ek), jnp.asarray(ek), e["cfg"],
+                           e["jgrid"])
+    got = tbnd.make_ghosts(tf, t(ek), t(ek), e["cfg"], e["tgrid"])
+    assert got.sv.shape == (2, nx + 4, ny + 4, nz + 4)
+    assert_close(got.sv, ref.sv, what="make_ghosts sv")
     assert_close(tbnd.ghost_scalar_kappa(e["tf"].thl, e["cfg"]),
                  jbnd.ghost_scalar_kappa(e["jf"].thl, e["cfg"]),
                  what="ghost_scalar_kappa")

@@ -143,14 +143,14 @@ COPIES = ["config.py", "io/inputs.py", "prep/stl.py", "prep/geom.py",
           "prep/zgrid.py", "prep/ibmprep.py", "prep/udgeom.py",
           "prep/native.py", "prep/radiation.py", "prep/solar.py",
           "prep/weather.py", "prep/prep.py", "io/driverfiles.py",
-          "prep/syntheticinflow.py", "prep/harmonie.py"]
+          "prep/syntheticinflow.py", "prep/harmonie.py",
+          "prep/vegetation.py", "prep/inps.py"]
 
 
 @pytest.mark.parametrize("rel", COPIES)
 def test_copies_hold_the_originals_code(rel):
     """Apart from docstrings (which may name the package) a copied module
-    has the original's syntax tree; prep.py alone differs, in the trees
-    branch, whose module is not ported and raises NotImplementedError."""
+    has the original's syntax tree."""
     def tree(path):
         mod = ast.parse(path.read_text())
         for node in ast.walk(mod):
@@ -163,33 +163,70 @@ def test_copies_hold_the_originals_code(rel):
         return mod
     ref = tree(REPO / "udales_tpu" / rel)
     got = tree(REPO / "udales_tpu_torch" / rel)
-    if rel != "prep/prep.py":
-        assert ast.dump(got) == ast.dump(ref)
-        return
-    names = lambda mod: {n.name: ast.dump(n) for n in mod.body
-                         if isinstance(n, (ast.FunctionDef, ast.ClassDef))}
-    ref_defs, got_defs = names(ref), names(got)
-    assert ref_defs.keys() == got_defs.keys()
-    differing = {k for k in ref_defs if ref_defs[k] != got_defs[k]}
-    assert differing == {"prepare_case"}
-    raised = [n for n in ast.walk(got) if isinstance(n, ast.Raise)
-              and "NotImplementedError" in ast.dump(n)]
-    assert len(raised) == 1
+    assert ast.dump(got) == ast.dump(ref)
 
 
-@pytest.mark.parametrize("kw", [dict(with_radiation=False, trees_file="t")],
-                         ids=["trees"])
-def test_unported_prep_branches_raise(tmp_path, kw):
+@pytest.mark.parametrize("kw", [dict(with_radiation=False)], ids=["trees"])
+def test_formerly_unported_prep_branches_match(tmp_path, kw):
+    """The trees branch of prepare_case, which used to raise: a trees.inp of
+    two blocks (one with a leading id) expanded by both packages' prep into
+    veg.inp / veg_params.inp byte for byte, and the counts equal."""
+    from udales_tpu.prep.prep import PrepConfig as JPrepConfig
+    from udales_tpu.prep.prep import prepare_case as jprepare
     from udales_tpu_torch.prep.prep import PrepConfig, prepare_case
     n = 8
     tcreate_cubes(float(n), float(n), 2.0, 2.0, 2.0, 2.0, 2.0, "AC",
                   edgelength=2.0).save(tmp_path / "geom.stl")
-    cfg = PrepConfig(itot=n, jtot=n, ktot=n, xlen=float(n), ylen=float(n),
-                     zsize=float(n), expnr="900",
-                     **{"with_radiation": True, "vf_exact_close": False,
-                        **kw})
-    with pytest.raises(NotImplementedError, match="not ported"):
-        prepare_case(tmp_path / "geom.stl", tmp_path / "case", cfg)
+    trees = tmp_path / "trees.inp"
+    trees.write_text("# il iu jl ju kl ku\n3 4 1 2 1 2\n7 7 8 5 6 1 3\n")
+    counts = {}
+    for name, cls, fn in (("ref", JPrepConfig, jprepare),
+                          ("got", PrepConfig, prepare_case)):
+        cfg = cls(itot=n, jtot=n, ktot=n, xlen=float(n), ylen=float(n),
+                  zsize=float(n), expnr="900", trees_file=str(trees), **kw)
+        counts[name] = fn(tmp_path / "geom.stl", tmp_path / name, cfg)
+    assert counts["got"] == counts["ref"] and counts["got"]["ntrees"] == 20
+    names = sorted(p.name for p in (tmp_path / "ref").iterdir())
+    assert {"veg.inp.900", "veg_params.inp.900"} <= set(names)
+    match, mismatch, errors = filecmp.cmpfiles(tmp_path / "ref",
+                                               tmp_path / "got", names,
+                                               shallow=False)
+    assert not mismatch and not errors, (mismatch, errors)
+
+
+def test_inps_case_regenerates_identically(tmp_path):
+    """prepare_from_case (prep/inps.py) on a case whose &INPS group names
+    its STL, profiles, a tree file and a scalar line and point source: both
+    packages write the same files byte for byte (scalar.inp and the source
+    files included) and patch &WALLS into the namelist alike."""
+    from udales_tpu.prep import inps as jinps
+    from udales_tpu.prep.prep import make_box_stl
+    from udales_tpu_torch.prep import inps as tinps
+    src = tmp_path / "case"
+    src.mkdir()
+    make_box_stl(src / "box.stl", 4, 8, 4, 8, 6, 12.0, 12.0)
+    (src / "trees.inp.301").write_text("2 3 2 3 1 2\n")
+    (src / "namoptions.301").write_text(
+        "&RUN\niexpnr = 301\nlibm = .true.\n/\n&DOMAIN\nitot = 12\n"
+        "jtot = 12\nktot = 12\nxlen = 12.\nylen = 12.\n/\n"
+        "&SCALARS\nnsv = 2\nlscasrcl = .true.\nnscasrcl = 1\n"
+        "lscasrc = .true.\nnscasrc = 1\n/\n&WALLS\nnfcts = 0\n/\n"
+        "&INPS\nstl_file = 'box.stl'\nzsize = 12.\nu0 = 1.2\n"
+        "thl0 = 289.\nsv10 = 0.5\nsv20 = 2.\ntreesfile = 'trees.inp.301'\n"
+        "xSb = 2.\nySb = 0.\nzSb = 1.\nxSe = 2.\nySe = 12.\nzSe = 1.\n"
+        "SSl = 1.5\nsigSl = 0.8\nxS = 10.\nyS = 6.\nzS = 2.\nSSp = 3.\n"
+        "sigSp = 0.7\nltrees = .true.\n/\n")
+    counts = {name: mod.prepare_from_case(src, tmp_path / name)
+              for name, mod in (("ref", jinps), ("got", tinps))}
+    assert counts["got"] == counts["ref"] and counts["got"]["nfcts"] > 0
+    names = sorted(p.name for p in (tmp_path / "ref").iterdir())
+    assert {"namoptions.301", "scalar.inp.301", "scalarsourcel.inp.1.301",
+            "scalarsourcep.inp.1.301", "veg.inp.301"} <= set(names)
+    assert names == sorted(p.name for p in (tmp_path / "got").iterdir())
+    match, mismatch, errors = filecmp.cmpfiles(tmp_path / "ref",
+                                               tmp_path / "got", names,
+                                               shallow=False)
+    assert not mismatch and not errors, (mismatch, errors)
 
 
 def _weather_table(path):

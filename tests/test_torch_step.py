@@ -6,19 +6,25 @@ carried into the port as numpy through udales_tpu_torch.convert.  The port
 solves Poisson with torch.fft where the reference uses dense DFT matrices,
 so trajectories drift apart at rounding level: the stated tolerance is
 1e-8 relative to max|ref| after 10 steps.
+
+The tests marked ``cuda`` hold one step on the card against the same step
+on the CPU (16^3 float64, 1e-9): the driven urban case, the rescale-recycle
+inlet and the three variants of the dispersion case.  They skip without a
+card.  JAX and the JAX package are imported only inside the tests that need
+them, so the file runs where JAX is not installed:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_step.py
 """
 import dataclasses
 
-import jax
 import numpy as np
 import pytest
 import torch
 
-import __graft_entry__ as ref_entry
-from udales_tpu.config import (SGS_ONEEQN, ChemistryConfig, OutputConfig,
-                               PhysicsConfig, ScalarsConfig, SubgridConfig)
-
 from udales_tpu_torch import entry
+from udales_tpu_torch.config import (SGS_ONEEQN, ChemistryConfig,
+                                     OutputConfig, PhysicsConfig,
+                                     ScalarsConfig, SubgridConfig)
 from udales_tpu_torch.convert import (FIELD_NAMES, PROFILE_NAMES,
                                       load_profiles, state_from_numpy,
                                       state_to_numpy)
@@ -39,6 +45,7 @@ def rel_err(got, ref):
 
 @pytest.fixture(scope="module")
 def both_models():
+    import __graft_entry__ as ref_entry
     jmodel = ref_entry._build(16, 16, 16, "float64")
     tmodel = entry._build(16, 16, 16, "float64", device="cpu")
     load_profiles(tmodel, {k: np.asarray(getattr(jmodel, k))
@@ -47,6 +54,8 @@ def both_models():
 
 
 def test_ten_steps_match_reference(both_models):
+    import jax
+    import __graft_entry__ as ref_entry
     jmodel, tmodel = both_models
     jst = ref_entry._init_state(jmodel)
     tst = state_from_numpy(jax_state_to_numpy(jst))
@@ -77,6 +86,7 @@ def test_step_keeps_time_on_device_and_divergence_free(both_models):
 
 def test_new_dt_matches_reference(both_models):
     """Adaptive dt (CFL and diffusion limits) and the fixed-dt branch."""
+    import __graft_entry__ as ref_entry
     from udales_tpu.ops import subgrid as jsgs
     from udales_tpu.run import _velocity_ghosts as jvel
     from udales_tpu_torch.ops import subgrid as tsgs
@@ -109,18 +119,55 @@ def test_state_roundtrip_and_entry():
 
 
 @pytest.mark.parametrize("cfg_change,name", [
-    (dict(scalars=ScalarsConfig(nsv=1)), "passive scalars"),
-    (dict(subgrid=SubgridConfig(model=SGS_ONEEQN)), "one-equation"),
-    (dict(chem=ChemistryConfig(lchem=True)), "chemistry"),
     (dict(output=OutputConfig(lfielddump=True, fieldvars="u0,tx")),
      "wall-stress field dumps"),
-], ids=["scalars", "one-equation", "chemistry", "wall-stress-dumps"])
+], ids=["wall-stress-dumps"])
 def test_unported_configurations_raise(cfg_change, name):
     """What still waits raises by name when the Model is built."""
     base = entry._build(8, 8, 8, "float64", device="cpu")
     with pytest.raises(NotImplementedError, match=f"not ported.*{name}"):
         Model(dataclasses.replace(base.cfg, **cfg_change), base.grid,
               device="cpu")
+
+
+@pytest.mark.parametrize("cfg_change,nsv", [
+    (dict(scalars=ScalarsConfig(nsv=1)), 1),
+    (dict(subgrid=SubgridConfig(loneeqn=True, model=SGS_ONEEQN)), 0),
+    (dict(scalars=ScalarsConfig(nsv=3),
+          chem=ChemistryConfig(lchem=True, k1=4.7e-4, JNO2=8.9e-3)), 3),
+], ids=["scalars", "one-equation", "chemistry"])
+def test_long_tail_configurations_match_reference(cfg_change, nsv):
+    """Configurations that used to raise when the Model was built now run:
+    the flat 16^3 case with passive scalars, with the one-equation closure
+    and with the NOx-O3 chemistry on three scalars; 5 steps from the
+    reference's State, u, v, w, e12, sv and pres to 1e-8."""
+    import jax
+    import jax.numpy as jnp
+    import __graft_entry__ as ref_entry
+    from udales_tpu.run import Model as JModel
+    jbase = ref_entry._build(16, 16, 16, "float64")
+    cfg = dataclasses.replace(jbase.cfg, **cfg_change)
+    jmodel = JModel(cfg, jbase.grid)
+    jmodel.dpdxl = jbase.dpdxl
+    tbase = entry._build(16, 16, 16, "float64", device="cpu")
+    tmodel = Model(cfg, tbase.grid, device="cpu")
+    tmodel.dpdxl = tbase.dpdxl
+    jst = ref_entry._init_state(jmodel)
+    rng = np.random.default_rng(3)
+    sv = jnp.asarray(rng.uniform(0.5, 2.0, (nsv, 16, 16, 16)))
+    e12 = jst.m.e12 + 0.01 * jnp.asarray(rng.uniform(size=(16, 16, 16)))
+    f = dataclasses.replace(jst.m, sv=sv, e12=e12)
+    jst = jst.replace(m=f, c=f)
+    tst = state_from_numpy(jax_state_to_numpy(jst))
+    jstep = jax.jit(jmodel.step)
+    for _ in range(5):
+        jst, tst = jstep(jst), tmodel.step(tst)
+    ref, got = jax_state_to_numpy(jst), state_to_numpy(tst)
+    for name in ("u", "v", "w", "e12") + (("sv",) if nsv else ()):
+        assert rel_err(got["c"][name], ref["c"][name]) <= RTOL, name
+    assert rel_err(got["pres"], ref["pres"]) <= RTOL
+    if nsv:
+        assert float(np.abs(got["c"]["sv"] - np.asarray(sv)).max()) > 1e-6
 
 
 @pytest.mark.parametrize("physics", [
@@ -131,6 +178,8 @@ def test_formerly_unported_configurations_match_reference(physics):
     """Branches that used to raise now run: the flat 16^3 case with each,
     5 steps from the reference's State, to 1e-8 (the wider set is in
     test_torch_openbc.py)."""
+    import jax
+    import __graft_entry__ as ref_entry
     from udales_tpu.run import Model as JModel
     jbase = ref_entry._build(16, 16, 16, "float64")
     cfg = dataclasses.replace(jbase.cfg, physics=PhysicsConfig(**physics),
@@ -188,3 +237,118 @@ def test_default_device_raises_without_a_card():
         entry._build(8, 8, 8)
     with pytest.raises((RuntimeError, AssertionError), match="(?i)cuda"):
         entry.entry()
+
+
+# --- on the card: one step against the same step on the CPU -------------------
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def card_against_cpu(build, tol=1e-9):
+    """`build(device)` -> (model, start State) on that device; one step of
+    each (the rolling window refilled first where the model streams one),
+    every State leaf of the card's within `tol` x max|cpu|.  Returns the
+    names compared."""
+    states = {}
+    start = None
+    for dev in ("cpu", "cuda"):
+        model, st = build(dev)
+        if start is None:
+            start = state_to_numpy(st)
+        st = state_from_numpy(start, device=dev)
+        if model.driver_stream is not None:
+            st = model.driver_stream.ensure(st)
+        states[dev] = state_to_numpy(model.step(st))
+
+    def leaves(tree, prefix=""):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                yield from leaves(v, f"{prefix}{k}.")
+            else:
+                yield f"{prefix}{k}", v
+    ref = dict(leaves(states["cpu"]))
+    for name, got in leaves(states["cuda"]):
+        scale = float(np.abs(ref[name]).max(initial=0.0))
+        err = float(np.abs(got - ref[name]).max(initial=0.0))
+        assert err <= tol * max(scale, 1e-300), (name, err, scale)
+    return sorted(ref)
+
+
+def staged_builder(stage):
+    from udales_tpu_torch.run import load_case
+
+    def build(dev):
+        model = load_case(stage(), "900", dtype="float64", device=dev)
+        return model, model.cold_start(seed=43)
+    return build
+
+
+@pytest.mark.cuda
+def test_driven_urban_step_on_card_matches_cpu(cuda, tmp_path):
+    from udales_tpu_torch import cases
+    names = card_against_cpu(staged_builder(
+        lambda: cases.stage_urban_driven(16, tmp_path, nt=24, chunk=8,
+                                         dtdriver=0.05)))
+    assert {"c.bx.u", "drv.u", "pres"} <= set(names)
+
+
+@pytest.mark.cuda
+def test_recycle_step_on_card_matches_cpu(cuda):
+    """The flat open-x case with the rescale-recycle inlet generator
+    (iinletgen = 1, BCxm = 2) at 16^3."""
+    from udales_tpu_torch.config import (BC_PROFILE, BCConfig, Config,
+                                         DomainConfig, DriverConfig,
+                                         RunConfig, const)
+    from udales_tpu_torch.grid import Grid
+    from udales_tpu_torch.ops.inletgen import InletGenParams, init_inletgen
+    from udales_tpu_torch.ops.openbc import BC_RECYCLE, Inlet, init_xplanes
+    from udales_tpu_torch.state import (initial_state, profile_fields,
+                                        randomize)
+    n = 16
+    cfg = Config(
+        domain=DomainConfig(itot=n, jtot=n, ktot=n, xlen=float(n),
+                            ylen=float(n)),
+        run=RunConfig(ladaptive=False, dtmax=0.02, lrandomize=False),
+        physics=PhysicsConfig(ltempeq=True, inletav=5.0),
+        bc=BCConfig(BCxm=BC_PROFILE, BCxT=BC_PROFILE, Uinf=2.0, thls=288.0,
+                    thl_top=290.0, z0=0.03, z0h=0.003),
+        driver=DriverConfig(iinletgen=1, iplane=n - 4, di=n / 2, dti=n / 2),
+        dtype="float64")
+
+    def build(dev):
+        grid = Grid.uniform(n, n, n, float(n), float(n), float(n),
+                            dtype=np.float64)
+        model = Model(cfg, grid, device=dev)
+        zf = grid.zf
+        uprof = 2.0 * np.minimum(zf / (0.8 * zf[-1]), 1.0) ** 0.25
+        thlprof = 288.0 + 2.0 * zf / zf[-1]
+        t = lambda a: torch.as_tensor(a, dtype=torch.float64, device=dev)
+        model.inlet = Inlet(
+            mode=BC_RECYCLE, uprof=t(uprof), vprof=t(np.zeros(n)),
+            thlprof=t(thlprof), qtprof=t(np.zeros(n)),
+            e12prof=t(np.full(n, const.e12min)),
+            svprof=t(np.zeros((0, n))), irecy=n - 4)
+        model.igparams = InletGenParams(cfg, grid)
+        f = profile_fields(grid, uprof, np.zeros(n), thlprof, np.zeros(n),
+                           np.full(n, const.e12min), device=dev)
+        f = randomize(f, torch.Generator(device=dev).manual_seed(5), 0.05, n)
+        f = dataclasses.replace(f, bx=init_xplanes(f, grid))
+        st = initial_state(grid, f, dt0=0.02)
+        return model, st.replace(ig=init_inletgen(cfg, grid, f,
+                                                  model.igparams))
+    assert {"ig.u0", "c.bx.u"} <= set(card_against_cpu(build))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", [
+    dict(), dict(purifiers=True, heatpumps=True), dict(sgs="oneeqn")],
+    ids=["dispersion", "purifiers-heatpumps", "oneeqn"])
+def test_dispersion_step_on_card_matches_cpu(cuda, tmp_path, variant):
+    from udales_tpu_torch import cases
+    names = card_against_cpu(staged_builder(
+        lambda: cases.stage_urban_dispersion(16, tmp_path, **variant)))
+    assert {"c.sv", "m.sv", "c.e12"} <= set(names)

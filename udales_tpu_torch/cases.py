@@ -12,6 +12,12 @@ the namelist.  The files are byte-identical to the JAX package's.
 (view factors, sky view factors, net shortwave) and a namelist that
 switches the facet energy balance on (``root/urban{n}eb``).
 
+``stage_urban_dispersion(n, root)`` stages the same array as an air-quality
+case: traffic NOx from line sources in the street canyons and a rooftop
+stack, NO-NO2-O3 chemistry over an ozone background, trees in the canyons,
+and optionally purifiers, roof heat pumps and the one-equation closure
+(``root/urban{n}disp...``).
+
 ``stage_urban_driven(n, root)`` stages the same array with an open x
 boundary: a ``BCxm = 3`` driver inlet replayed from synthesized precursor
 planes through the ``lchunkread`` window, and a convective outlet
@@ -120,6 +126,44 @@ z0h = 0.003
 """
 PRECURSOR_EXPNR, REPLAY_EXPNR = "901", "902"
 
+# the air-quality additions of `stage_urban_dispersion`: three kappa-advected
+# scalars (NO, NO2, O3) with line and point sources, the null cycle with the
+# rate constants of tests/test_physics.py, and trees (VegParams' defaults)
+_DISP_NAMELIST = """&SCALARS
+nsv = 3
+lscasrcl = .true.
+nscasrcl = {nlines}
+lscasrc = .true.
+nscasrc = 1
+/
+&CHEMISTRY
+lchem = .true.
+k1 = 4.7e-4
+JNO2 = 8.9e-3
+/
+&TREES
+ltrees = .true.
+/
+"""
+_PURIFS_NAMELIST = """&PURIFS
+lpurif = .true.
+npurif = 2
+Qpu = {Qpu:g}
+epu = 0.9
+/
+"""
+_HEATPUMP_NAMELIST = """&HEATPUMP
+lheatpump = .true.
+lfan_hp = .true.
+nhppoints = {nhp}
+QH_dot_hp = {QH:g}
+Q_dot_hp = {Q:g}
+/
+"""
+# scalar source strengths of NO per line and of the rooftop stack; NO2 gets
+# 10% of NO's, O3 none; the ozone background of scalar.inp
+NO_LINE, NO_STACK, NO2_SHARE, O3_BACKGROUND = 1.0, 5.0, 0.1, 80.0
+
 
 def stage_urban(n: int, root) -> Path:
     """Generate (once; an existing namelist is reused) the n^3 urban case
@@ -199,6 +243,118 @@ def stage_urban_driven(n: int, root, nt: int = 120, chunk: int = 16,
                   nt=nt, chunk=chunk)
 
 
+def _dispersion_layout(n: int) -> dict:
+    """The placement of the air-quality features on the n^3 cube array
+    (cube pitch p = n/4, cubes p/2 wide and p tall, canyons p/2 wide; 1 m
+    cells): line sources along y at z = 1 m with sigma = 1 m in the street
+    canyons centred at x = p, 2p, 3p and at x = n - p/8 (the fourth canyon
+    straddles x = 0, so its line sits in the canyon's inner half); a
+    rooftop stack 2 m above the first cube; tree blocks (1-based cell
+    boxes) half a canyon wide beside every cube of the three inner canyons,
+    from p/8 to p/2 high; two purifier boxes at canyon crossings, blowing
+    +x (ipu 1) and +y (ipu 3), 2 cells high; eight heat pumps on the roofs
+    of the cubes of the first two rows (0-based cells)."""
+    p = n // 4
+    half = max(1, p // 8)
+    lines = [(float(xc), 0.0, 1.0, float(xc), float(n), 1.0, NO_LINE, 1.0)
+             for xc in (p, 2 * p, 3 * p, n - p / 8)]
+    stack = [(p / 2, p / 2, p + 2.0, NO_STACK, 1.0)]
+    kl, ku = max(1, p // 8), max(1, p // 2 - 1)
+    trees = [(xc - half + 1, xc + half, cy - half + 1, cy + half, kl + 1,
+              ku + 1)
+             for xc in (p, 2 * p, 3 * p)
+             for cy in (p * j - p // 2 for j in range(1, 5))]
+    purifs = [(2 * p - half + 1, 2 * p + half, p - half + 1, p + half, 2, 3,
+               1),
+              (3 * p - half + 1, 3 * p + half, 2 * p - half + 1,
+               2 * p + half, 2, 3, 3)]
+    heatpumps = [(p * i - p // 2, p * j - p // 2, p)
+                 for i in range(1, 5) for j in (1, 2)]
+    return dict(lines=lines, stack=stack, trees=trees, purifs=purifs,
+                heatpumps=heatpumps, half=half)
+
+
+def stage_urban_dispersion(n: int, root, *, purifiers: bool = False,
+                           heatpumps: bool = False,
+                           sgs: str = "vreman") -> Path:
+    """The `stage_urban` array as a street-canyon air-quality case, its
+    flow and walls unchanged: ``&SCALARS nsv = 3`` (NO, NO2, O3), line
+    sources (``lscasrcl``, scalarsourcel.inp.<n>) and one rooftop point
+    source (``lscasrc``, scalarsourcep.inp.<n>) on NO, NO2 at 10% of NO's
+    strength and O3 with the same sources at strength 0 (prep writes only
+    the files of scalar 1; the files of scalars 2 and 3 are written here),
+    an O3 background in scalar.inp, ``&CHEMISTRY lchem`` with k1 = 4.7e-4
+    and JNO2 = 8.9e-3, and ``&TREES ltrees`` with a trees.inp of blocks in
+    the canyons, expanded by prep with VegParams' defaults.  See
+    `_dispersion_layout` for where each feature sits.  `purifiers` adds two
+    purifier boxes (``&PURIFS``, 0.5 m/s through each box, epu = 0.9),
+    `heatpumps` eight roof heat pumps with exhaust fans (``&HEATPUMP``,
+    10 kW and 2 m^3/s each), ``sgs="oneeqn"`` the one-equation closure in
+    place of Vreman.  Its own directory, generated once:
+    ``root/urban{n}disp`` with ``_pu``, ``_hp``, ``_oneeqn`` appended for
+    the variants."""
+    if sgs not in ("vreman", "oneeqn"):
+        raise ValueError(f"sgs must be 'vreman' or 'oneeqn', not {sgs!r}")
+    lay = _dispersion_layout(n)
+    name = (f"urban{n}disp" + ("_pu" if purifiers else "")
+            + ("_hp" if heatpumps else "")
+            + ("_oneeqn" if sgs == "oneeqn" else ""))
+    case = Path(root) / name
+    namelist = _NAMELIST + _DISP_NAMELIST.format(nlines=len(lay["lines"]))
+    if sgs == "oneeqn":
+        assert namelist.count("lvreman = .true.") == 1
+        namelist = namelist.replace("lvreman = .true.", "loneeqn = .true.")
+    # one purifier box is 2 half-canyons wide and 2 cells high
+    Apu = 2 * lay["half"] * 2.0
+    if purifiers:
+        namelist += _PURIFS_NAMELIST.format(Qpu=0.5 * Apu)
+    nhp = len(lay["heatpumps"])
+    if heatpumps:
+        namelist += _HEATPUMP_NAMELIST.format(nhp=nhp, QH=1e4 * nhp,
+                                              Q=2.0 * nhp)
+    zero = lambda rows, col: [r[:col] + (0.0,) + r[col + 1:] for r in rows]
+    line_rows = {1: lay["lines"],
+                 2: [r[:6] + (NO2_SHARE * r[6],) + r[7:] for r in lay["lines"]],
+                 3: zero(lay["lines"], 6)}
+    stack_rows = {1: lay["stack"],
+                  2: [r[:3] + (NO2_SHARE * r[3],) + r[4:] for r in lay["stack"]],
+                  3: zero(lay["stack"], 3)}
+
+    def before(case):
+        # the source files of scalars 2 and 3, in prep's layout
+        for n_sv in (2, 3):
+            for fname, rows, hdr in (
+                    ("scalarsourcel", line_rows[n_sv],
+                     "#xSb ySb zSb xSe ySe zSe SS sigS"),
+                    ("scalarsourcep", stack_rows[n_sv], "#xS yS zS SS sigS")):
+                with open(case / f"{fname}.inp.{n_sv}.900", "w") as f:
+                    f.write(f"# Scalar source data\n{hdr}\n")
+                    for r in rows:
+                        f.write(" ".join(f"{v:.6f}" for v in r) + "\n")
+        if purifiers:
+            with open(case / "purifs.inp.900", "w") as f:
+                f.write("# purifiers\n# il iu jl ju kl ku ipu\n")
+                for r in lay["purifs"]:
+                    f.write(" ".join(f"{v:d}" for v in r) + "\n")
+        if heatpumps:
+            with open(case / "heatpump.inp.900", "w") as f:
+                f.write("# heat pump position (i,j,k)\n")
+                for i, j, k in lay["heatpumps"]:
+                    f.write(f"{i + 1:7d} {j + 1:7d} {k + 1:7d}\n")
+
+    nam = case / "namoptions.900"
+    if nam.exists():
+        return case
+    case.mkdir(parents=True, exist_ok=True)
+    trees = case / "trees.inp.900"
+    trees.write_text("# il iu jl ju kl ku\n" + "".join(
+        " ".join(str(v) for v in t) + "\n" for t in lay["trees"]))
+    extras = dict(nsv=3, sv0=[0.0, 0.0, O3_BACKGROUND, 0.0, 0.0],
+                  line_sources=line_rows[1], point_sources=stack_rows[1])
+    return _stage(n, case, False, namelist, before=before,
+                  prep_kw=dict(trees_file=str(trees)), extras=extras)
+
+
 def stage_precursor(n: int, root, dtdriver: float = 0.5) -> Path:
     """A flat neutral ABL (rough floor, -1e-4 pressure gradient, u = 1 m/s)
     of n^3 1 m cells under ``root/flat{n}pre``, twice: experiment 901 is
@@ -237,9 +393,10 @@ def stage_precursor(n: int, root, dtdriver: float = 0.5) -> Path:
 
 
 def _stage(n: int, case: Path, with_radiation: bool, namelist: str,
-           before=None, **values) -> Path:
+           before=None, prep_kw=None, extras=None, **values) -> Path:
     """Stage the cube array under `case` unless its namelist, which is
-    written last, exists.  `before(case)` writes further inputs."""
+    written last, exists.  `prep_kw` adds to the PrepConfig, `extras` are
+    prepare_case's scalar inputs, `before(case)` writes further inputs."""
     nam = case / "namoptions.900"
     if nam.exists():
         return case
@@ -251,7 +408,8 @@ def _stage(n: int, case: Path, with_radiation: bool, namelist: str,
     counts = prepare_case(case / "geom.stl", case, PrepConfig(
         itot=n, jtot=n, ktot=n, xlen=float(n), ylen=float(n),
         zsize=float(n), expnr="900", u0=1.5, thl0=290.0, facT0=295.0,
-        with_radiation=with_radiation, vf_subdiv=1))
+        with_radiation=with_radiation, vf_subdiv=1, **(prep_kw or {})),
+        extras)
     walls = "\n".join(
         [f"nfcts = {counts['nfcts']}"]
         + [f"nsolpts_{w} = {counts[f'nsolpts_{w}']}" for w in "uvwc"]

@@ -12,6 +12,7 @@ import torch
 from .ibm.eb import FACET_STATE_NAMES, FacetState
 from .ops.inletgen import INLETGEN_NAMES, InletGen
 from .ops.openbc import DriverWindow, Inlet, XPlanes, YPlanes
+from .physics import HeatPumps, Purifier, Purifiers, ScalarSources, Vegetation
 from .state import FACSTAT_FIELDS, Ctl, FacStats, Fields, State
 
 # the tensor leaves of a Fields; bx / by are nested outlet planes
@@ -21,6 +22,9 @@ DRIVER_WINDOW_NAMES = ("t", "u", "v", "w", "thl", "qt", "sv")
 CTL_NAMES = ("freestreamav", "dgdt", "dpdx_shift")
 INLET_NAMES = ("uprof", "vprof", "thlprof", "qtprof", "e12prof", "svprof",
                "t", "u", "v", "w", "thl", "qt", "sv")
+# the arrays of a udales_tpu Vegetation (physics.Vegetation)
+VEGETATION_NAMES = ("lad", "dcoef_u", "dcoef_v", "dcoef_w", "ud", "lsize",
+                    "rs", "sveg")
 # the Model's static vertical profiles (run.Model.__init__)
 PROFILE_NAMES = ("dpdxl", "dpdyl", "ug", "vg", "thlpcar", "whls", "dqtdtls")
 
@@ -132,3 +136,33 @@ def ibm_static_to_numpy(ibm) -> dict:
         "facnorm": ibm.facnorm, "facz0": ibm.facz0, "facz0h": ibm.facz0h,
         "facT": ibm.facT, "faca": ibm.faca, "faclGR": ibm.faclGR,
     }
+
+
+def physics_from_numpy(model, d: dict) -> None:
+    """Attach the long-tail physics of a ``udales_tpu`` Model, carried over
+    as NumPy, to the port's `model` (in its dtype, on its device):
+
+      - "scalsources": the (nsv, nx, ny, nz) field of its ScalarSources;
+      - "vegetation": {`VEGETATION_NAMES`} of its Vegetation (the drag
+        coefficients at the faces; "sveg" may be None);
+      - "purifiers": the boxes of its Purifiers, rows (il, iu, jl, ju, kl,
+        ku, ipu) with 0-based bounds;
+      - "heatpumps": the (n, 3) 0-based points of its HeatPumps.
+
+    Absent or None entries leave the model's attribute as it is."""
+    cfg, grid, dev = model.cfg, model.grid, model.device
+    if d.get("scalsources") is not None:
+        model.scalsources = ScalarSources(torch.as_tensor(
+            np.asarray(d["scalsources"], np.float64).astype(grid.dtype),
+            device=dev))
+    if d.get("vegetation") is not None:
+        v = d["vegetation"]
+        model.vegetation = Vegetation.from_faces(
+            cfg, grid, *(v[k] for k in VEGETATION_NAMES[:-1]),
+            sveg=v.get("sveg"), device=dev)
+    if d.get("purifiers") is not None:
+        model.purifiers = Purifiers(cfg, grid, [
+            Purifier(*(int(x) for x in r)) for r in d["purifiers"]])
+    if d.get("heatpumps") is not None:
+        model.heatpumps = HeatPumps(cfg, grid, np.asarray(d["heatpumps"]),
+                                    device=dev)

@@ -43,7 +43,7 @@ from ..config import IADV_CD2, Config, const
 from ..grid import Grid
 from ..io.inputs import (read_column_file, read_facet_sections,
                          read_facets_inp, read_sparse_ijk)
-from ..ops.halo import pad_periodic_xy
+from ..ops.halo import pad_edge, pad_periodic_xy, pad_wrap
 from ..state import FACSTAT_FIELDS
 from .wallfn import UMIN, _stability_fm_fh
 
@@ -483,14 +483,21 @@ class IBM:
         The diffusion corrections are folded into the sweeps (pmask_*), as
         udales_tpu does by default.
 
+        The passive scalars need nothing here: their correction
+        (udales_tpu ibm.py:726-729, taken only when the folding is off) is
+        the pmask_c folded into their ``diff_c``, as for thl and qt.
+
         Returns (du, dv, dw, dthl, dqt, fachf, facef, hf_tot, ef_tot,
         fstats): the tendencies, the per-facet sensible and latent flux
-        sums ((nfcts,), None unless `need_fac`), their domain totals
-        (always) and the lwritefac diagnostics dict (None unless
-        `need_facstats`; modibm.f90:1416-1430, 1475-1476, 1539-1540)."""
+        sums ((nfcts,), None unless `need_fac`), their domain totals (None
+        unless `need_fac` or ``lperiodicEBcorr``) and the lwritefac
+        diagnostics dict (None unless `need_facstats`; modibm.f90:
+        1416-1430, 1475-1476, 1539-1540).  Without a facet state and
+        without those outputs no per-facet or domain sum is formed."""
         cfg = self.cfg
         facT = fac.T[:, 0] if fac is not None else None
-        hf_tot = ef_tot = self.faca_t.new_zeros(())
+        hf_tot = ef_tot = (self.faca_t.new_zeros(())
+                           if need_fac or cfg.eb.lperiodicEBcorr else None)
         fachf = facef = None
         fstats = {} if need_facstats else None
         if cfg.walls.iwallmom > 1:
@@ -581,7 +588,8 @@ class IBM:
         added to `dqt`.  Returns (dthl, dqt, hf_tot, ef_tot, fachf, facef,
         stats) as `wallfun` documents them; stats holds htc and cth."""
         cfg = self.cfg
-        zt = self.faca_t.new_zeros(())
+        need_tot = need_fac or cfg.eb.lperiodicEBcorr
+        zt = self.faca_t.new_zeros(()) if need_tot else None
         nf0 = torch.zeros_like(self.faca_t) if need_fac else None
         stats = dict(htc=torch.zeros_like(self.faca_t),
                      cth=torch.zeros_like(self.faca_t)) if need_stats else None
@@ -607,9 +615,12 @@ class IBM:
                 flux = torch.cat([vals, vals.new_zeros(1)])[s.orient]
             else:
                 Ts = s.tsurf if fac is None else fac.T[:, 0][s.fid]
+                # htc feeds the statistics and the green-roof resistance
                 cth, flux, htc = _heat_coef_flux(
                     utan, s.dist, s.logdz, s.logzh, s.sqdz, Ta, Ts,
-                    cfg.walls.prandtlturb)
+                    cfg.walls.prandtlturb, with_htc=need_stats or (
+                        cfg.physics.lmoist and cfg.walls.iwallmoist == 2
+                        and fac is not None))
                 if need_stats:
                     stats = dict(
                         htc=self._facsum(s, torch.where(ok, htc, 0.0))
@@ -618,7 +629,8 @@ class IBM:
                         / self.faca_t)
             fl = torch.where(ok, flux, 0.0)
             dthl = scatter(dthl, fl)
-            hf_tot = torch.sum(fl * s.area)
+            if need_tot:
+                hf_tot = torch.sum(fl * s.area)
             if need_fac:
                 fachf = self._facsum(s, fl)
         # latent heat on green-roof facets (modibm.f90:1555-1589)
@@ -641,7 +653,8 @@ class IBM:
             mfl = torch.where(ok & s.lGR & (exch > 0.0), mflux, 0.0)
         if mfl is not None:
             dqt = scatter(dqt, mfl)
-            ef_tot = torch.sum(mfl * s.area)
+            if need_tot:
+                ef_tot = torch.sum(mfl * s.area)
             if need_fac:
                 facef = self._facsum(s, mfl)
         return dthl, dqt, hf_tot, ef_tot, fachf, facef, stats
@@ -649,11 +662,13 @@ class IBM:
     # ------------------------------------------------------------------
     # ibmnorm: zero solid velocities, fill solid scalar cells
     # ------------------------------------------------------------------
-    def ibmnorm(self, c, m, du, dv, dw, dthl, thl_vmean, dqt=None):
+    def ibmnorm(self, c, m, du, dv, dw, dthl, thl_vmean, dqt=None,
+                dsv=None):
         """ibmnorm (modibm.f90:697-745): zero the solid velocities and
-        their tendencies, fill solid thl and qt cells (value and tendency)
-        and add the cd2 scalar advection correction.  Returns the tendencies
-        (du, dv, dw, dthl, dqt) and the masked `m` fields."""
+        their tendencies, fill solid thl, qt and passive-scalar cells (value
+        and tendency; all scalars in one pass) and add the cd2 scalar
+        advection correction to thl and qt.  Returns the tendencies (du,
+        dv, dw, dthl, dqt, dsv) and the masked `m` fields."""
         cfg, M = self.cfg, self.masks
         du, dv, dw = du * M.u, dv * M.v, dw * M.w
         m_new = replace(m, u=m.u * M.u, v=m.v * M.v, w=m.w * M.w)
@@ -669,12 +684,16 @@ class IBM:
             qtm, dqt = self.solid_fill(m.qt, dqt, 0.0)
             m_new = replace(m_new, qt=qtm)
             dqt = dqt + corr(c.qt, c)
-        return du, dv, dw, dthl, dqt, m_new
+        if dsv is not None and dsv.shape[0] > 0:
+            svm, dsv = self.solid_fill(m.sv, dsv, 0.0)
+            m_new = replace(m_new, sv=svm)
+        return du, dv, dw, dthl, dqt, dsv, m_new
 
     def solid_fill(self, var, rhs, val):
         """`solid` (modibm.f90:748-826): solid cells take the average of
         their fluid neighbours (value and tendency), or `val` (tendency 0)
-        when enclosed (udales_tpu ``_solid_fill_full``, ibm.py:1518)."""
+        when enclosed (udales_tpu ``_solid_fill_full``, ibm.py:1518).
+        `var` and `rhs` may carry a leading stack axis."""
         Mp = self.pmask_c
         s = _shifts(var.shape)
 
@@ -779,16 +798,17 @@ class IBM:
 
 def _shifts(shape):
     """s(a, di, dj, dk): the (di, dj, dk) neighbour view of a field padded
-    by one cell on every side."""
-    nx, ny, nz = shape
-    return lambda a, di, dj, dk: a[1 + di: 1 + di + nx, 1 + dj: 1 + dj + ny,
-                                   1 + dk: 1 + dk + nz]
+    by one cell on every side (the last three axes of `shape`; leading
+    axes ride along)."""
+    nx, ny, nz = shape[-3:]
+    return lambda a, di, dj, dk: a[..., 1 + di: 1 + di + nx,
+                                   1 + dj: 1 + dj + ny, 1 + dk: 1 + dk + nz]
 
 
 def _pad_scalar(f):
-    """Periodic x/y halo and zero-gradient k ghosts of a cell field."""
-    fp = pad_periodic_xy(f, 1)
-    return torch.cat([fp[:, :, :1], fp, fp[:, :, -1:]], dim=2)
+    """Periodic x/y halo and zero-gradient k ghosts of a cell field (or of
+    a stack of them along a leading axis)."""
+    return pad_edge(pad_wrap(pad_wrap(f, -3, 1), -2, 1), -1, 1)
 
 
 # ---------------------------------------------------------------------------
@@ -818,10 +838,11 @@ def _mom_coef_stability(utan, dist, logdz, logzh, sqdz, Tair, Tsurf,
 
 
 def _heat_coef_flux(utan, dist, logdz, logzh, sqdz, Tair, Tsurf,
-                    prandtlturb=const.prandtlmol):
+                    prandtlturb=const.prandtlmol, with_htc=True):
     """heat_transfer_coef_flux (modibm.f90:1919-1985): (cth, flux, htc), the
     kinematic heat flux being |utan| cth dT_rough and htc = flux / (|utan|
-    dT), 0 where that denominator is (udales_tpu ``_heat_coef_flux_pre``)."""
+    dT), 0 where that denominator is (udales_tpu ``_heat_coef_flux_pre``);
+    htc is None unless `with_htc`."""
     fkar2 = const.fkar ** 2
     dT = Tair - Tsurf
     Ribl0 = _ribl0(utan, dist, Tair, Tsurf)
@@ -833,6 +854,8 @@ def _heat_coef_flux(utan, dist, logdz, logzh, sqdz, Tair, Tsurf,
     dTrough = dT / (prandtlturb * logzh / M1 + 1.0)
     cth = fkar2 / (logdz ** 2) * Fh1 / prandtlturb
     flux = torch.abs(utan) * cth * dTrough
+    if not with_htc:
+        return cth, flux, None
     denom = torch.abs(utan) * dT
     nz = torch.abs(denom) > 0
     htc = torch.where(nz, flux / torch.where(nz, denom, 1.0), 0.0)

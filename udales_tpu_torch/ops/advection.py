@@ -151,7 +151,9 @@ def adv_kappa(gc, g, grid: Grid):
     """Flux-limited kappa scheme for scalars (modadvection.f90:316-407).
 
     `gc` has halo 2 in x/y and 2 k-ghosts (``ghost_scalar_kappa`` layout):
-    gc[2+i, 2+j, 2+k] == c[i,j,k].  Velocities from `g` (halo 1)."""
+    gc[..., 2+i, 2+j, 2+k] == c[..., i, j, k]; leading axes are a stack of
+    scalars (``ghost_sv``), advected in one pass.  Velocities from `g`
+    (halo 1)."""
     nx, ny, nz = grid.shape
     dev = gc.device
     h, hk = 2, 2
@@ -173,21 +175,21 @@ def adv_kappa(gc, g, grid: Grid):
         return (cf + (lim if width is None else width * lim)) * vel
 
     # --- x faces: i = 0..nx (face i between cells i-1 and i) ---------------
-    Cx = lambda di: gc[h + di - 1: h + di + nx, h: h + ny, hk: hk + nz]
+    Cx = lambda di: gc[..., h + di - 1: h + di + nx, h: h + ny, hk: hk + nz]
     ux = g.u[1: 2 + nx, 1: 1 + ny, 1: 1 + nz]  # u at faces 0..nx
     Fx = limited_flux(Cx, ux, grid.dxi, grid.dxi, grid.dxi, grid.dx)
-    tend = (Fx[:-1] - Fx[1:]) * grid.dxi
+    tend = (Fx[..., :-1, :, :] - Fx[..., 1:, :, :]) * grid.dxi
 
     # --- y faces ----------------------------------------------------------
-    Cy = lambda dj: gc[h: h + nx, h + dj - 1: h + dj + ny, hk: hk + nz]
+    Cy = lambda dj: gc[..., h: h + nx, h + dj - 1: h + dj + ny, hk: hk + nz]
     vy = g.v[1: 1 + nx, 1: 2 + ny, 1: 1 + nz]
     Fy = limited_flux(Cy, vy)
-    tend = tend + (Fy[:, :-1] - Fy[:, 1:]) * grid.dyi
+    tend = tend + (Fy[..., :-1, :] - Fy[..., 1:, :]) * grid.dyi
 
     # --- z faces (stretched; modadvection.f90:383-404) --------------------
     # faces kf = 1..nz (bottom face kb flux not formed; w=0 there).
     nf = nz
-    Cz = lambda dk: gc[h: h + nx, h: h + ny, hk + dk: hk + dk + nf]
+    Cz = lambda dk: gc[..., h: h + nx, h: h + ny, hk + dk: hk + dk + nf]
     wz = g.w[1: 1 + nx, 1: 1 + ny, 1: 1 + nz]  # faces 1..nz
     dzhci = grid.t("dzhci_g", dev)   # face metric, index map: face kf -> kf+1
     dzfc = grid.t("dzfc_g", dev)     # cell metric, index map: cell k -> k+2
@@ -196,7 +198,7 @@ def adv_kappa(gc, g, grid: Grid):
     fhp = kvec(dzhci, 3, nf)     # dzhci(k+1)
     fc = kvec(dzfc, 3, nf)       # dzfc(k): cell above face kf (cell kf)
     Fz = limited_flux(Cz, wz, fhm, fh0, fhp, fc)   # faces 1..nz
-    Fz = torch.cat([torch.zeros_like(Fz[..., :1]), Fz], dim=2)  # face 0
+    Fz = torch.cat([torch.zeros_like(Fz[..., :1]), Fz], dim=-1)  # face 0
     dzfci_k = kvec(grid.t("dzfci_g", dev), 2, nz)
     return tend + (Fz[..., :-1] - Fz[..., 1:]) * dzfci_k
 

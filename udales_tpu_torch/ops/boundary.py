@@ -21,25 +21,26 @@ from ..config import (BCTOPM_FREESLIP, BCTOPM_NOSLIP, BCTOPM_PRESSURE,
                       BCTOP_VALUE, BC_PROFILE, Config, const)
 from ..grid import Grid
 from ..state import Fields
-from .halo import pad_axis, pad_edge, pad_periodic_xy, pad_wrap, take_k
+from .halo import pad_axis, pad_edge, pad_wrap, take_k
 
 
 def _assemble(gk, h, lo_plane, hi_plane):
     """Pad y periodically, then attach explicit x ghost planes (already
-    k-ghosted, shape (ny, nzg))."""
-    gy = pad_wrap(gk, 1, h)
-    lo = pad_wrap(lo_plane, 0, h)
-    hi = pad_wrap(hi_plane, 0, h)
-    return torch.cat([*([lo[None]] * h), gy, *([hi[None]] * h)], dim=0)
+    k-ghosted, shape (..., ny, nzg)).  Axes count from the end, so a
+    leading stack axis rides along."""
+    gy = pad_wrap(gk, -2, h)
+    lo = pad_wrap(lo_plane, -2, h).unsqueeze(-3)
+    hi = pad_wrap(hi_plane, -2, h).unsqueeze(-3)
+    return torch.cat([*([lo] * h), gy, *([hi] * h)], dim=-3)
 
 
 def _assemble_y(gk, h, lo_plane, hi_plane):
     """Pad x periodically, then attach explicit y ghost planes (already
-    k-ghosted, shape (nx, nzg)): the open-y mirror of _assemble."""
-    gx = pad_wrap(gk, 0, h)
-    lo = pad_wrap(lo_plane, 0, h)
-    hi = pad_wrap(hi_plane, 0, h)
-    return torch.cat([*([lo[:, None]] * h), gx, *([hi[:, None]] * h)], dim=1)
+    k-ghosted, shape (..., nx, nzg)): the open-y mirror of _assemble."""
+    gx = pad_wrap(gk, -3, h)
+    lo = pad_wrap(lo_plane, -2, h).unsqueeze(-2)
+    hi = pad_wrap(hi_plane, -2, h).unsqueeze(-2)
+    return torch.cat([*([lo] * h), gx, *([hi] * h)], dim=-2)
 
 
 def _assemble_xy(gk, h, xlo, xhi, ylo, yhi):
@@ -48,11 +49,11 @@ def _assemble_xy(gk, h, xlo, xhi, ylo, yhi):
     including the corners, the reference's ordering (modboundary.f90:96-103
     applies the x BC before the y BC, and the y loops run over the full x
     extent including ghosts)."""
-    gx = torch.cat([*([xlo[None]] * h), gk, *([xhi[None]] * h)], dim=0)
-    ylo_e = pad_edge(ylo, 0, h)
-    yhi_e = pad_edge(yhi, 0, h)
-    return torch.cat([*([ylo_e[:, None]] * h), gx, *([yhi_e[:, None]] * h)],
-                     dim=1)
+    gx = torch.cat([*([xlo.unsqueeze(-3)] * h), gk,
+                    *([xhi.unsqueeze(-3)] * h)], dim=-3)
+    ylo_e = pad_edge(ylo, -2, h).unsqueeze(-2)
+    yhi_e = pad_edge(yhi, -2, h).unsqueeze(-2)
+    return torch.cat([*([ylo_e] * h), gx, *([yhi_e] * h)], dim=-2)
 
 
 def _dispatch(gk, h, cfg, xlo=None, xhi=None, ylo=None, yhi=None):
@@ -64,7 +65,7 @@ def _dispatch(gk, h, cfg, xlo=None, xhi=None, ylo=None, yhi=None):
         return _assemble(gk, h, xlo, xhi)
     if ylo is not None:
         return _assemble_y(gk, h, ylo, yhi)
-    return pad_periodic_xy(gk, h)
+    return pad_wrap(pad_wrap(gk, -3, h), -2, h)
 
 
 # --- per-field k-ghost rules (shared by interior tensors and planes) -------
@@ -224,34 +225,53 @@ def ghost_e12(e12, cfg: Config, h: int = 1, openx=None, openy=None):
     return _dispatch(gk, h, cfg, xlo, xhi, ylo, yhi)
 
 
+def _ghost_kappa(c, cfg: Config, h: int, hk: int, xin=None, xout=None,
+                 yin=None, yout=None):
+    """Kappa-layout ghosts of `c` (..., nx, ny, nz): replicated k ghosts,
+    and in x/y the periodic wrap or the open planes `xin`/`xout` (...,
+    ny, nz) and `yin`/`yout` (..., nx, nz)."""
+    g = pad_edge(c, -1, hk)
+    kg2 = lambda p: pad_edge(p, -1, hk)
+    xlo = xhi = ylo = yhi = None
+    if xin is not None:
+        if cfg.bc.BCxs == BC_PROFILE:
+            xlo = 2.0 * kg2(xin) - kg2(c[..., 0, :, :])
+        else:
+            xlo = kg2(xin)
+        xhi = kg2(xout)
+    if yin is not None:
+        # ysi_profile (modboundary.f90:1065-1097)
+        ylo = 2.0 * kg2(yin) - kg2(c[..., :, 0, :])
+        yhi = kg2(yout)
+    return _dispatch(g, h, cfg, xlo, xhi, ylo, yhi)
+
+
 def ghost_scalar_kappa(c, cfg: Config, h: int = 2, hk: int = 2, openx=None,
                        openy=None, sv_index: int = 0):
     """Scalar ghosts for the kappa scheme: halo 2 in x/y and 2 ghost cells
     in k (reference ihc=jhc=khc=2).  The open-boundary planes are read from
     the ``sv`` slot of the contexts at `sv_index`."""
-    bot = take_k(c, 0)
-    top = take_k(c, -1)
-    g = c
-    for _ in range(hk):
-        g = pad_axis(g, 2, bot, top)
-
-    def kg2(p):
-        """(n, nz) plane -> (n, nz+2*hk) with replicated k ghosts."""
-        return pad_edge(p, p.dim() - 1, hk)
-    xlo = xhi = ylo = yhi = None
+    xin = xout = yin = yout = None
     if openx is not None:
-        inl = openx["inlet"]["sv"][sv_index]
-        if cfg.bc.BCxs == BC_PROFILE:
-            xlo = 2.0 * kg2(inl) - kg2(c[0])
-        else:
-            xlo = kg2(inl)
-        xhi = kg2(openx["bx"].sv[sv_index])
+        xin = openx["inlet"]["sv"][sv_index]
+        xout = openx["bx"].sv[sv_index]
     if openy is not None:
-        # ysi_profile (modboundary.f90:1065-1097)
-        inl = openy["inlet"]["sv"][sv_index]
-        ylo = 2.0 * kg2(inl) - kg2(c[:, 0])
-        yhi = kg2(openy["by"].sv[sv_index])
-    return _dispatch(g, h, cfg, xlo, xhi, ylo, yhi)
+        yin = openy["inlet"]["sv"][sv_index]
+        yout = openy["by"].sv[sv_index]
+    return _ghost_kappa(c, cfg, h, hk, xin, xout, yin, yout)
+
+
+def ghost_sv(sv, cfg: Config, openx=None, openy=None):
+    """Kappa ghosts of every passive scalar at once: `sv` (nsv, nx, ny, nz)
+    -> (nsv, nx+4, ny+4, nz+4), each scalar as ``ghost_scalar_kappa`` with
+    its own index gives it (udales_tpu ``make_ghosts``, boundary.py:310-316),
+    in one set of launches."""
+    xin = xout = yin = yout = None
+    if openx is not None:
+        xin, xout = openx["inlet"]["sv"], openx["bx"].sv
+    if openy is not None:
+        yin, yout = openy["inlet"]["sv"], openy["by"].sv
+    return _ghost_kappa(sv, cfg, 2, 2, xin, xout, yin, yout)
 
 
 def ghost_ek(ekm, ekh, cfg: Config, grid: Grid, h: int = 1, openx=None,
@@ -289,16 +309,13 @@ class Ghosts:
     thl: Optional[torch.Tensor]
     qt: Optional[torch.Tensor]
     e12: Optional[torch.Tensor]
-    sv: Optional[torch.Tensor]
+    sv: Optional[torch.Tensor]  # (nsv, nx+4, ny+4, nz+4) kappa layout
     ekm: Optional[torch.Tensor]
     ekh: Optional[torch.Tensor]
 
 
 def make_ghosts(f: Fields, ekm, ekh, cfg: Config, grid: Grid,
                 h: int = 1, openx=None, openy=None) -> Ghosts:
-    if f.sv.shape[0] > 0:
-        raise NotImplementedError(
-            "passive scalars (nsv > 0) are not ported to udales_tpu_torch yet")
     gm, gh = ghost_ek(ekm, ekh, cfg, grid, h, openx, openy)
     return Ghosts(
         u=ghost_u(f.u, cfg, h, openx, openy),
@@ -307,7 +324,8 @@ def make_ghosts(f: Fields, ekm, ekh, cfg: Config, grid: Grid,
         thl=ghost_thl(f.thl, ekh, cfg, grid, h, openx, openy),
         qt=ghost_qt(f.qt, ekh, cfg, grid, h, openx, openy),
         e12=ghost_e12(f.e12, cfg, h, openx, openy),
-        sv=f.sv,
+        sv=(ghost_sv(f.sv, cfg, openx, openy) if f.sv.shape[0] > 0
+            else f.sv),
         ekm=gm,
         ekh=gh,
     )

@@ -4,11 +4,15 @@ Re-derivations of src/modsubgrid.f90:
   - Vreman (2004) closure (:269-360) with the optional stable-stratification
     buoyancy correction (:332-354)
   - Smagorinsky (:208-264) and the DNS constant-viscosity branch
-  - diffusion stencils diffu (:672), diffv (:778), diffw (:890), diffc (:540)
+  - one-equation TKE (:363-400) and its source terms (`sources`, :415-538)
+  - diffusion stencils diffu (:672), diffv (:778), diffw (:890), diffc
+    (:540), diffe (:627)
 
 ``diff_u/v/w`` are the plain version of the hand-written CUDA kernel in
-``ops/fused_diff.py`` and the path it takes for CPU tensors.  The
-one-equation TKE model is not ported yet and raises.
+``ops/fused_diff.py`` and the path it takes for CPU tensors.  ``diff_c``
+takes a stack of scalars with a leading axis as one tensor.  udales_tpu's
+``GradPack`` (shared strain primitives) is a TPU layout the port does not
+carry: every function here is the unpacked form.
 """
 from __future__ import annotations
 
@@ -30,6 +34,18 @@ def _smag_constants(cf: float):
     cm = cf / (2.0 * math.pi) * (1.5 * alpha_kolm) ** (-1.5)
     ceps = 2.0 * math.pi / cf * (1.5 * alpha_kolm) ** (-1.5)
     return cm, ceps
+
+
+CH1 = 1.0   # modsubgriddata.f90 ch1
+
+
+def _oneeqn_constants(sg):
+    """cm, ch2, ce1, ce2 of the one-equation model (modsubgrid.f90:62-79;
+    ``udales_tpu.ops.subgrid.sgs_const.derived``)."""
+    cm, ceps = _smag_constants(sg.cf)
+    ch2 = sg.prandtl - CH1
+    ce1 = (sg.cn ** 2) * (cm / sg.rigc - CH1 * cm)
+    return cm, ch2, ce1, ceps - ce1
 
 
 def _gradients(g, grid: Grid):
@@ -166,10 +182,31 @@ def smagorinsky_closure(g, grid: Grid, cfg: Config):
     return ekm, ekh
 
 
+def oneeqn_closure(g, grid: Grid, cfg: Config, e12, dthvdz, thvs):
+    """One-equation TKE closure (modsubgrid.f90:363-400): ekm, ekh and the
+    length scale zlt (the filter width, limited by the stratification where
+    it is stable)."""
+    nz = grid.ktot
+    sg = cfg.subgrid
+    cm, ch2, _, _ = _oneeqn_constants(sg)
+    delta_k = kvec(grid.t("delta", e12.device), 0, nz).expand(e12.shape)
+    stable = dthvdz > 0
+    zlt_stable = torch.minimum(
+        delta_k,
+        sg.cn * e12 / torch.sqrt(const.grav / thvs * torch.abs(dthvdz)
+                                 + 1e-30))
+    zlt = torch.where(stable, zlt_stable, delta_k)
+    ekm_t = cm * zlt * e12
+    ekh_t = torch.where(stable, (CH1 + ch2 * zlt / delta_k) * ekm_t,
+                        (CH1 + ch2) * ekm_t)
+    return (ekm_t + const.numol, ekh_t + const.numol * const.prandtlmoli,
+            zlt)
+
+
 def closure(g, grid: Grid, cfg: Config, e12=None, dthvdz=None, thl=None,
             thvs=None):
     """Dispatch (modsubgrid.f90:159-412).  Returns interior ekm, ekh and
-    zlt (None: zlt is only defined by the one-equation model)."""
+    zlt (None but for the one-equation model, which defines it)."""
     model = cfg.subgrid.model
     if model == SGS_VREMAN:
         ekm, ekh = vreman_closure(g, grid, cfg, dthvdz, thl)
@@ -178,13 +215,31 @@ def closure(g, grid: Grid, cfg: Config, e12=None, dthvdz=None, thl=None,
         ekm, ekh = smagorinsky_closure(g, grid, cfg)
         return ekm, ekh, None
     if model == SGS_ONEEQN:
-        raise NotImplementedError(
-            "the one-equation TKE closure is not ported to udales_tpu_torch")
+        return oneeqn_closure(g, grid, cfg, e12, dthvdz, thvs)
     assert model == SGS_DNS, model
     kw = dict(dtype=g.u.dtype, device=g.u.device)
     ekm = torch.full(grid.shape, const.numol, **kw)
     ekh = torch.full(grid.shape, const.numol * const.prandtlmoli, **kw)
     return ekm, ekh, None
+
+
+def tke_sources(g, grid: Grid, cfg: Config, e12, ekm, ekh, dthvdz, zlt,
+                thvs):
+    """Shear, buoyancy and dissipation sources of the e12 equation
+    (modsubgrid.f90:415-538), zero at the lowest level (the reference loops
+    k = kb+1..ke; the wall functions own the lowest)."""
+    nz = grid.ktot
+    _, _, ce1, ce2 = _oneeqn_constants(cfg.subgrid)
+    tdef2 = 2.0 * _strain2(g, grid)
+    numolh = const.numol * const.prandtlmoli
+    e12s = torch.clamp(e12, min=1e-30)
+    sbshr = (ekm - const.numol) * tdef2 / (2.0 * e12s)
+    sbbuo = -(ekh - numolh) * const.grav / thvs * dthvdz / (2.0 * e12s)
+    delta_k = kvec(grid.t("delta", e12.device), 0, nz).expand(e12.shape)
+    sbdiss = -2.0 * (ce1 + ce2 * zlt / delta_k) * e12 ** 2 / (2.0 * zlt)
+    src = sbshr + sbbuo + sbdiss
+    mask = (torch.arange(nz, device=e12.device) >= 1).to(src.dtype)
+    return src * mask
 
 
 # ---------------------------------------------------------------------------
@@ -337,7 +392,7 @@ def diff_w(g, grid: Grid, M=None):
 
 def diff_c(gc, gekh, grid: Grid, M=None):
     """Scalar diffusion (modsubgrid.f90:540-623, LES branch).  `gc` ghosted
-    h=1/hk=1.  `M`: ghosted c-point fluid mask (folds diffc_corr,
+    h=1/hk=1, with any leading axes (a stack of scalars).  `M`: ghosted c-point fluid mask (folds diffc_corr,
     modibm.f90:1120-1164): each flux is masked by the opposite cell's flag."""
     nx, ny, nz = grid.shape
     dev = gc.device
@@ -363,3 +418,28 @@ def diff_c(gc, gekh, grid: Grid, M=None):
            * dzh2i_kp * m(0, 0, 1)
            - (dzf_km * e + dzf_k * S(gekh, 0, 0, -1))
            * (c - S(gc, 0, 0, -1)) * dzh2i_k * m(0, 0, -1)) * dzfi_k)
+
+
+def diff_e(g, grid: Grid):
+    """TKE diffusion with the doubled coefficient (modsubgrid.f90:627-667)
+    of the ghosted e12 with the ghosted ekm."""
+    nx, ny, nz = grid.shape
+    dev = g.e12.device
+    S = partial(sh, nx=nx, ny=ny, nz=nz, h=1, hk=1)
+    gekm, ge = g.ekm, g.e12
+    dzf = grid.t("dzf_g", dev)
+    dzf_k = kvec(dzf, 1, nz); dzf_kp = kvec(dzf, 2, nz); dzf_km = kvec(dzf, 0, nz)
+    dzh2i = grid.t("dzh2i", dev)
+    dzh2i_k = kvec(dzh2i, 0, nz); dzh2i_kp = kvec(dzh2i, 1, nz)
+    dzfi_k = kvec(grid.t("dzfi", dev), 0, nz)
+    c = S(ge, 0, 0, 0)
+    e = S(gekm, 0, 0, 0)
+    return 1.0 * (
+        ((S(gekm, 1, 0, 0) + e) * (S(ge, 1, 0, 0) - c)
+         - (e + S(gekm, -1, 0, 0)) * (c - S(ge, -1, 0, 0))) * grid.dx2i
+        + ((S(gekm, 0, 1, 0) + e) * (S(ge, 0, 1, 0) - c)
+           - (e + S(gekm, 0, -1, 0)) * (c - S(ge, 0, -1, 0))) * grid.dy2i
+        + ((dzf_kp * e + dzf_k * S(gekm, 0, 0, 1)) * (S(ge, 0, 0, 1) - c)
+           * dzh2i_kp
+           - (dzf_km * e + dzf_k * S(gekm, 0, 0, -1)) * (c - S(ge, 0, 0, -1))
+           * dzh2i_k) * dzfi_k)

@@ -5,10 +5,7 @@ Generates a complete, runnable case directory from an STL geometry + domain
 parameters: all IBM inputs, facet property files, radiation inputs (view
 factors, sky view factors, net shortwave), initial profiles, and a
 namoptions file with the &WALLS counts filled in (the reference pipeline:
-tools/python/udprep orchestrating the Fortran kernels, SURVEY.md A.3).
-
-The vegetation files (``vegetation.py`` of the original) are not in the
-port yet: the ``trees_file`` branch raises ``NotImplementedError``."""
+tools/python/udprep orchestrating the Fortran kernels, SURVEY.md A.3)."""
 from __future__ import annotations
 
 from dataclasses import dataclass, field
@@ -277,8 +274,11 @@ def prepare_case(stl_path: str | Path, outdir: str | Path,
 
     # vegetation (legacy trees.inp blocks -> sparse files)
     if cfg.trees_file is not None:
-        raise NotImplementedError(
-            "trees_file: prep/vegetation.py is not ported yet")
+        from .vegetation import VegParams, trees_to_veg, write_veg_files
+        pts1, ids = trees_to_veg(cfg.trees_file, cfg.itot, cfg.jtot,
+                                 cfg.ktot)
+        counts["ntrees"] = write_veg_files(outdir, cfg.expnr, pts1, ids,
+                                           VegParams())
 
     # info.txt with the &WALLS counts (reference examples ship the same)
     with open(outdir / "info.txt", "w") as f:

@@ -31,10 +31,19 @@ inlet and advects the outlet planes of both `c` and `m`.  With
 ``Model.driver_stream.ensure`` (``run`` calls it; a caller that steps by
 hand calls it before each ``step``).
 
-Configuration branches the port does not cover (passive scalars, the
-one-equation closure, chemistry, trees, purifiers, heat pumps, the
-energy-balance file output, wall-stress field dumps) raise
-NotImplementedError when the Model is built or the case is loaded.
+The long-tail physics follows udales_tpu's run.py:246-320, 438-531:
+passive scalars (kappa advection, ``diff_c`` with the IBM's folded mask,
+the large-scale term, ibmnorm's solid fill; all ``nsv`` scalars as one
+tensor with a leading axis, so that the launches do not grow with
+``nsv``), the one-equation TKE closure (its ``e12`` tendency and floor),
+and the hooks of ``physics.py`` in the reference's order: ibmnorm,
+``Vegetation.forcing``, ``HeatPumps.apply``, ``ScalarSources.field``, the
+``dw`` floor, the projection, ``Purifiers.apply``, the integrate step, and
+``chem_update`` on the third substep.
+
+Configuration branches the port does not cover (the energy-balance file
+output, wall-stress field dumps, an IBM case without its IBM) raise
+NotImplementedError when the Model is built.
 """
 from __future__ import annotations
 
@@ -70,6 +79,8 @@ from .ops.poisson import PoissonSolver
 from .ops.thermo import ThermoDiag, avexy_masked, thermodynamics
 from .ibm.bottom import bottom_tendencies
 from .ibm.eb import FacetEB
+from .physics import (HeatPumps, Purifiers, ScalarSources, Vegetation,
+                      chem_update)
 from .timedep import Timedep
 
 
@@ -77,9 +88,6 @@ def _unsupported(cfg: Config, ibm=None):
     """Names of the configured features this port does not implement."""
     codes = {c.strip() for c in cfg.output.fieldvars.split(",")}
     checks = {
-        "passive scalars": cfg.scalars.nsv > 0,
-        "one-equation TKE closure": cfg.subgrid.model == SGS_ONEEQN,
-        "chemistry": cfg.chem.lchem,
         "facet energy-balance file output (lwriteEBfiles)": (
             cfg.eb.lEB and cfg.eb.lwriteEBfiles),
         "an IBM case (libm, nfcts > 0) without its IBM": (
@@ -114,6 +122,10 @@ class Model:
         self.inlet_y = None  # ops.openbc.Inlet for open-y runs (profile only)
         self.igparams = None  # ops.inletgen.InletGenParams (iinletgen=1)
         self.driver_stream = None  # io.driverstream.DriverStream (lchunkread)
+        self.vegetation = None   # physics.Vegetation
+        self.heatpumps = None    # physics.HeatPumps
+        self.scalsources = None  # physics.ScalarSources
+        self.purifiers = None    # physics.Purifiers
         self.has_lstend = False    # lscale.inp holds subsidence or dqtdt
         self._nudge_prof = None
         self.pois = PoissonSolver(grid, cfg, device=self.device)
@@ -139,14 +151,18 @@ class Model:
         cfg, grid = self.cfg, self.grid
         nz = grid.ktot
         if self.inputs is not None:
+            # the scalars start from scalar.inp; without that file a case
+            # carries no scalar, as in the reference (run.py:105-109)
             p = self.inputs.prof
             f = profile_fields(grid, p["u"], p["v"], p["thl"], p["qt"],
                                np.maximum(p["e12"], const.e12min),
-                               device=self.device)
+                               self.inputs.scalar, device=self.device)
         else:
             f = profile_fields(grid, np.zeros(nz), np.zeros(nz),
                                np.full(nz, 288.0), np.zeros(nz),
-                               np.full(nz, const.e12min), device=self.device)
+                               np.full(nz, const.e12min),
+                               np.zeros((cfg.scalars.nsv, nz)),
+                               device=self.device)
         if cfg.run.lrandomize:
             gen = torch.Generator(device=self.device)
             gen.manual_seed(seed)
@@ -198,6 +214,8 @@ class Model:
         rk3coef = state.dt / (4.0 - rk3step)
         ltemp = cfg.physics.ltempeq
         lmoist = cfg.physics.lmoist
+        oneeqn = cfg.subgrid.model == SGS_ONEEQN
+        nsv = c.sv.shape[0]
         ibm = self.ibm
 
         if th is None:
@@ -228,10 +246,11 @@ class Model:
         thvs = cfg.bc.thls if cfg.bc.thls > 0 else 288.0
         if closure_out is None:
             gvel = _velocity_ghosts(c, cfg, grid, openx, openy)
-            ekm, ekh, _ = sgs.closure(gvel, grid, cfg, e12=c.e12,
-                                      dthvdz=th.dthvdz, thl=c.thl, thvs=thvs)
+            ekm, ekh, zlt = sgs.closure(gvel, grid, cfg, e12=c.e12,
+                                        dthvdz=th.dthvdz, thl=c.thl,
+                                        thvs=thvs)
         else:
-            ekm, ekh, _ = closure_out
+            ekm, ekh, zlt = closure_out
 
         g = make_ghosts(c, ekm, ekh, cfg, grid, openx=openx, openy=openy)
 
@@ -252,6 +271,9 @@ class Model:
         elif ltemp:
             dthl = adv.adv_c2(g.thl, g, grid)
         dqt = adv.adv_c2(g.qt, g, grid) if lmoist else None
+        de12 = adv.adv_c2(g.e12, g, grid) if oneeqn else None
+        # every scalar at once: g.sv is (nsv, ...) in the kappa layout
+        dsv = adv.adv_kappa(g.sv, g, grid) if nsv > 0 else c.sv
 
         # --- shifted periodic BCs (modforces.f90:953, after advection) -----
         if cfg.physics.ds > 0:
@@ -272,8 +294,17 @@ class Model:
             dthl = dthl + sgs.diff_c(g.thl, g.ekh, grid, M=Mc)
         if lmoist:
             dqt = dqt + sgs.diff_c(g.qt, g.ekh, grid, M=Mc)
+        if nsv > 0:
+            # the h=1 view of the kappa-ghosted stack
+            dsv = dsv + sgs.diff_c(g.sv[:, 1:-1, 1:-1, 1:-1], g.ekh, grid,
+                                   M=Mc)
+        if oneeqn:
+            de12 = de12 + sgs.diff_e(g, grid)
+            de12 = de12 + sgs.tke_sources(g, grid, cfg, c.e12, ekm, ekh,
+                                          th.dthvdz, zlt, thvs)
 
-        # --- floor wall functions (modibm.bottom) --------------------------
+        # --- floor wall functions (modibm.bottom; the scalars' floor flux
+        # is zero) ----------------------------------------------------------
         bu, bv, bthl, bqt, _ = bottom_tendencies(g, cfg, grid)
         du, dv = du + bu, dv + bv
         if ltemp:
@@ -293,15 +324,22 @@ class Model:
 
         # --- large-scale subsidence/advection (modforces.lstend) -----------
         if self.has_lstend:
-            lu, lv, lthl, lqt, _ = lstend(
+            IIc = ibm.masks.c if ibm is not None else None
+            sv0av = (torch.stack([avexy_masked(c.sv[n], IIc)
+                                  for n in range(nsv)])
+                     if nsv else c.sv.new_zeros((0, nz)))
+            sv0av = torch.where(sv0av < -900.0, 0.0, sv0av)
+            lu, lv, lthl, lqt, lsv = lstend(
                 c, grid, cfg, self.whls, th.u0av, th.v0av, th.thl0av,
-                th.qt0av, c.sv.new_zeros((0, nz)), self.dqtdtls)
+                th.qt0av, sv0av, self.dqtdtls)
             du = du + lu[None, None, :]
             dv = dv + lv[None, None, :]
             if ltemp:
                 dthl = dthl + lthl[None, None, :]
             if lmoist:
                 dqt = dqt + lqt[None, None, :]
+            if nsv:
+                dsv = dsv + lsv[:, None, None, :]
         if ltemp:
             dthl = dthl + self.thlpcar[None, None, :]
         if cfg.physics.igrw_damp != 0:
@@ -396,8 +434,22 @@ class Model:
         if ibm is not None:
             dzf = grid.t("dzf", self.device)
             thl_vmean = torch.sum(th.thl0av * dzf) / float(grid.zh[-1])
-            du, dv, dw, dthl, dqt, m = ibm.ibmnorm(c, m, du, dv, dw, dthl,
-                                                   thl_vmean, dqt)
+            du, dv, dw, dthl, dqt, dsv, m = ibm.ibmnorm(
+                c, m, du, dv, dw, dthl, thl_vmean, dqt, dsv)
+
+        # --- vegetation canopy forcing (vegetation.f90:351) ----------------
+        veg = self.vegetation
+        if veg is not None and veg.has_canopy:
+            du, dv, dw, dthl, dqt, dsv = veg.forcing(m, grid, cfg, du, dv, dw,
+                                                     dthl, dqt, dsv)
+
+        # --- heat pumps (heatpump.f90:60) ----------------------------------
+        if self.heatpumps is not None and ltemp:
+            m, c, dw, dthl = self.heatpumps.apply(m, c, dw, dthl)
+
+        # --- scalar sources (modscalsource.f90:385) ------------------------
+        if self.scalsources is not None and nsv > 0:
+            dsv = dsv + self.scalsources.field
 
         # --- forces hard-zeroes wp at the floor (modforces.f90:125) --------
         dw[..., 0] = 0.0
@@ -408,6 +460,13 @@ class Model:
             uouttot=uouttot, openy=openy, vouttot=vouttot)
         pres = state.pres + p
 
+        # --- purifiers (modpurifiers.f90, between poisson and integrate):
+        # they set m and c velocities after the projection, so div u is not
+        # zero in and around their boxes by design ---------------------------
+        if self.purifiers is not None:
+            m, c, du, dv, dw, dsv = self.purifiers.apply(m, c, du, dv, dw,
+                                                         dsv)
+
         # --- integrate (modtstep.tstep_integrate) --------------------------
         w_new = m.w + rk3coef * dw
         w_new[..., 0] = 0.0
@@ -417,8 +476,9 @@ class Model:
             w=w_new,
             thl=m.thl + rk3coef * dthl if ltemp else m.thl,
             qt=m.qt + rk3coef * dqt if lmoist else m.qt,
-            e12=torch.clamp(m.e12, min=const.e12min),
-            sv=m.sv,
+            e12=torch.clamp(m.e12 + rk3coef * de12 if oneeqn else m.e12,
+                            min=const.e12min),
+            sv=m.sv + rk3coef * dsv if nsv > 0 else m.sv,
             bx=c.bx,
             by=c.by,
         )
@@ -451,6 +511,14 @@ class Model:
             c_new = replace(c_new, bx=bxc)
             m_new = replace(m_new, bx=convect_planes(
                 m.bx, m, grid, rk3coef, uouttot, inlet_planes))
+        if oneeqn:
+            m_new = replace(m_new, e12=torch.clamp(m.e12, min=const.e12min))
+        # chemistry once per full step on the updated scalars
+        # (modtstep.f90:236-238, modchem.f90); the fluid mask of an IBM case
+        if cfg.chem.lchem and rk3step == 3 and nsv >= 3:
+            c_new = replace(c_new, sv=chem_update(
+                c_new.sv, state.dt, cfg,
+                ibm.masks.c if ibm is not None else 1.0))
         if rk3step == 3:
             m_new = c_new
         return state.replace(c=c_new, m=m_new, pres=pres, fac=fac,
@@ -646,13 +714,13 @@ def _case_profiles(inputs, cfg: Config, grid: Grid) -> dict:
 
 def load_case(case_dir, expnr: str | None = None, dtype: str = "float32",
               device="cuda") -> Model:
-    """Build a Model from a case directory (namoptions and inputs), the
-    subset of udales_tpu ``load_case`` (run.py:772-791) this port covers:
-    grid from prof.inp, profiles from prof.inp and lscale.inp, the IBM when
-    ``libm`` and ``nfcts > 0``, with ``lEB`` its facet energy balance, and
-    the time-dependent series whose switches are on and whose files exist.
-    Inputs that would switch on a subsystem the port lacks raise
-    NotImplementedError."""
+    """Build a Model from a case directory (namoptions and inputs), as
+    udales_tpu ``load_case`` (run.py:772-901) does: grid from prof.inp,
+    profiles from prof.inp and lscale.inp (and scalar.inp), the IBM when
+    ``libm`` and ``nfcts > 0``, with ``lEB`` its facet energy balance, the
+    time-dependent series whose switches are on and whose files exist, the
+    scalar sources, vegetation, purifiers and heat pumps whose switches are
+    on and whose files exist, and the open-boundary inlet."""
     case_dir = Path(case_dir)
     if expnr is None:
         expnr = sorted(case_dir.glob("namoptions.*"))[0].suffix[1:]
@@ -663,15 +731,6 @@ def load_case(case_dir, expnr: str | None = None, dtype: str = "float32",
                               dom.jtot, dom.ktot, dom.xlen, dom.ylen,
                               dtype=np_dt)
     inputs = CaseInputs.load(case_dir, expnr, dom.ktot, cfg.scalars.nsv)
-    lacking = {
-        "trees": cfg.trees.ltrees,
-        "purifiers": cfg.purifs.lpurif,
-        "heat pumps": cfg.heatpump.lheatpump,
-    }
-    missing = [name for name, on in lacking.items() if on]
-    if missing:
-        raise NotImplementedError(
-            "not ported to udales_tpu_torch yet: " + ", ".join(missing))
     ibm = None
     if cfg.run.libm and cfg.walls.nfcts > 0:
         from .ibm.ibm import IBM
@@ -685,6 +744,19 @@ def load_case(case_dir, expnr: str | None = None, dtype: str = "float32",
         model.eb = FacetEB.load(case_dir, expnr, cfg, ibm, device=device)
     model.timedep = Timedep.load(case_dir, expnr, cfg, dom.ktot,
                                  dtype=grid.torch_dtype, device=device)
+    # the long-tail physics (udales_tpu run.py:800-810)
+    if cfg.scalars.nsv > 0 and (cfg.scalars.lscasrc or cfg.scalars.lscasrcl):
+        model.scalsources = ScalarSources.load(case_dir, expnr, cfg, grid,
+                                               device=device)
+    if cfg.trees.ltrees and (case_dir / f"veg.inp.{expnr}").exists():
+        model.vegetation = Vegetation.load(case_dir, expnr, cfg, grid,
+                                           device=device)
+    if cfg.purifs.lpurif and (case_dir / f"purifs.inp.{expnr}").exists():
+        model.purifiers = Purifiers.load(case_dir, expnr, cfg, grid)
+    if (cfg.heatpump.lheatpump
+            and (case_dir / f"heatpump.inp.{expnr}").exists()):
+        model.heatpumps = HeatPumps.load(case_dir, expnr, cfg, grid,
+                                         device=device)
     _load_inlet(model, case_dir, inputs)
     return model
 
