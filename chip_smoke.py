@@ -9,7 +9,9 @@ balance, of the same array driven through an open x boundary by precursor
 planes, and of the same array as a street-canyon dispersion case (passive
 scalars, chemistry, trees, purifiers, heat pumps, the one-equation
 closure), and checks both variants of the hand-written CUDA
-diffusion kernel on the way.  Phases, one line each; any failure raises and
+diffusion kernel on the way.  Then the run-time driver: ``python -m
+udales_tpu_torch`` with every output, restart continuation, the output
+families on the other cases, the driver's cost and the runmodes.  Phases, one line each; any failure raises and
 the script exits non-zero without a result line:
 
   1. require a CUDA device (no CPU fallback)
@@ -76,6 +78,24 @@ the script exits non-zero without a result line:
  29. the one-equation variant at 128^3, 20 steps: e12 finite and at or
      above e12min
  30. one step of each variant under torch.cuda.set_sync_debug_mode("error")
+ 31. the user's path: the urban-EB 128^3 case with every output family on,
+     run by ``python -m udales_tpu_torch`` in a subprocess for 14 s of
+     simulated time; the exit code, the monitor (one line a step), every
+     file read back by scipy with the writers' variables and as many
+     records as the cadences give, all finite, max|div u| after the last
+     step, the masked kernel 3 times a step (the CLI's closing line)
+ 32. restart continuation: N steps, the reference's Fortran restart files,
+     N more in a second process (this script's --resume mode, which runs
+     the CLI's main and saves the final State), against 2N in one process;
+     urban 32^3 float64 (every leaf to 1e-9) and 128^3 float32 (max|du|
+     to 1e-4 of max|u|); the native .h5 checkpoint where h5py is installed
+ 33. the dispersion case at 128^3 (tree dump, scalar field dumps and
+     statistics) and the driven case at 32^3 (xytdump, tkedump) through
+     Simulation: launches, files and records as in 31
+ 34. the driver's cost: Simulation.run with every writer against
+     Model.run on urban-EB 128^3 in turns, and one sample and one write of
+     each family alone (host ms, launches and device ms)
+ 35. runmodes 1003, 1004 and 1005 through the CLI
 The line before the last is a JSON object describing the kernels and the
 main paths; the last line is {"ok": true, "device": {...}}.
 """
@@ -784,6 +804,478 @@ def dispersion_phases(smi, fused, div_bound, urban):
     return dict(dispersion=disp, purifiers_heatpumps=pu, oneeqn=one)
 
 
+# -- phases 31 to 35: the run-time driver ------------------------------------
+
+def step_counts(times, o, eb, walls):
+    """{family: the set of record counts it may write} over a run whose
+    steps end at `times`, read from the monitor file's 7 digits (the
+    cadence logic of sim.Simulation on the host; a step time that ties
+    with a cadence, as a dt held at dtmax makes it, counts both ways): `o`
+    the &OUTPUT, `eb` the &ENERGYBALANCE, `walls` the &WALLS settings."""
+    eps = 2e-6 * np.maximum(1.0, np.abs(times))
+    sign = (-1.0) ** np.arange(len(times))
+    runs = [_step_counts(list(times + k * sign * eps), o, eb, walls)
+            for k in (-1, 0, 1)]
+    return {k: {r[k] for r in runs} for k in runs[0]}
+
+
+def _step_counts(times, o, eb, walls):
+    def every(cad):
+        tnext, n = cad, 0
+        for t in times:
+            if t >= tnext:
+                tnext, n = tnext + cad, n + 1
+        return n
+
+    def sampled():
+        tns, tnw, n = o.tsample, o.tstatsdump, 0
+        for t in times:
+            if t < tns:
+                continue
+            tns += o.tsample
+            if t >= tnw:
+                tnw, n = tnw + o.tstatsdump, n + 1
+        return n
+    last, neb = 0.0, 0
+    for t in times:
+        if t >= last + eb.dtEB:
+            last, neb = t, neb + 1
+    tnf, nfac = walls.dtfac, 0
+    for t in times:
+        if t >= tnf:
+            tnf, nfac = round(t + walls.dtfac), nfac + 1
+    n = dict(fielddump=every(o.tfielddump), xydump=every(o.tsample),
+             ydump=every(o.tsample), kslicedump=every(o.tsample),
+             islicedump=every(o.tsample), jslicedump=every(o.tsample),
+             facT=neb, facEB=neb, fac=nfac)
+    n.update({k: sampled() for k in ("xytdump", "tdump", "ytdump",
+                                      "tkedump", "mintdump", "treedump")})
+    return n
+
+
+def writer_tables(sim):
+    """{file stem: variable names} of every writer a Simulation built (the
+    port's own tables), coordinates and time included."""
+    out = {}
+    for w in sim._writers():
+        if w is None:
+            continue
+        writers = w.writers.values() if hasattr(w, "writers") else \
+            [getattr(w, "writer", w)]
+        for nc in writers:
+            stem = Path(nc.path).name.split(".")[0]
+            out[stem] = set(nc.f.variables)
+    return out
+
+
+def check_outputs(outdir, tables, counts, label, n):
+    """Every expected file is there, scipy reads it, it holds the writer's
+    variables and the expected records, all finite.  Raises otherwise;
+    returns {stem: records}."""
+    from scipy.io import netcdf_file
+    found = {}
+    for stem, names in sorted(tables.items()):
+        path = next(Path(outdir).glob(f"{stem}.*.nc"), None)
+        if path is None:
+            raise RuntimeError(f"{label}: no {stem} file in {outdir}")
+        with netcdf_file(path, "r", mmap=False) as f:
+            if set(f.variables) != names:
+                raise RuntimeError(f"{label}: {path.name} holds "
+                                   f"{sorted(f.variables)}, not {sorted(names)}")
+            nrec = f.variables["time"].shape[0]
+            bad = [k for k, v in f.variables.items()
+                   if not np.isfinite(np.asarray(v[:])).all()]
+        if bad:
+            raise RuntimeError(f"{label}: non-finite {bad} in {path.name}")
+        if stem in counts and nrec not in counts[stem]:
+            raise RuntimeError(f"{label}: {path.name} has {nrec} records, "
+                               f"the cadence gives {counts[stem]}")
+        found[stem] = nrec
+    phase(n, f"{label}: {len(found)} files read by scipy.io.netcdf_file, "
+             f"the port's variable tables, records as the cadences give, "
+             f"all finite: " + ", ".join(f"{k} {v}" for k, v in found.items()))
+    return found
+
+
+def output_namelist(**out):
+    """&OUTPUT of every family at a 1.75 s sample and 5 s write cadence."""
+    o = dict(lfielddump=True, fieldvars="u0,v0,w0,th,pr,tx,ty,tz,hf,mc",
+             tfielddump=5.0, lxytdump=True, lxydump=True, lydump=True,
+             ltdump=True, lytdump=True, ltkedump=True, lmintdump=True,
+             lkslicedump=True, lislicedump=True, ljslicedump=True,
+             kslice=5, islice=20, jslice=20, tsample=1.75, tstatsdump=5.0)
+    o.update(out)
+    return o
+
+
+def run_cli(args, timeout):
+    """`python -m udales_tpu_torch ARGS` (or this script's --resume mode
+    when args start with it) in a subprocess; returns (rc, stdout, stderr,
+    seconds)."""
+    cmd = ([sys.executable, str(Path(__file__).resolve())] + args
+           if args[0] == "--resume"
+           else [sys.executable, "-m", "udales_tpu_torch"] + args)
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, cwd=Path(__file__).resolve().parent,
+                         capture_output=True, text=True, timeout=timeout)
+    return res.returncode, res.stdout, res.stderr, time.perf_counter() - t0
+
+
+def launches_of(stdout):
+    """(steps, unmasked, masked) from the CLI's closing line."""
+    import re
+    m = re.search(r"after (\d+) steps; kernel launches: fused_diff_mom "
+                  r"(\d+), fused_diff_mom_masked (\d+)", stdout)
+    if m is None:
+        raise RuntimeError(f"no closing line in the CLI's output:\n{stdout}")
+    return tuple(int(x) for x in m.groups())
+
+
+def flat_numpy(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(flat_numpy(v, f"{prefix}{k}."))
+        elif v is not None:
+            out[f"{prefix}{k}"] = np.asarray(v)
+    return out
+
+
+def resume_mode(argv):
+    """``chip_smoke.py --resume <CLI arguments> <npz>``: the port's CLI
+    (``sim.main``) in this process, then its final State saved as npz, so
+    that a continued run can be held against an uninterrupted one."""
+    from udales_tpu_torch.convert import state_to_numpy
+    from udales_tpu_torch.sim import main as cli
+    final = cli(argv[:-1])
+    np.savez(argv[-1], **flat_numpy(state_to_numpy(final)))
+
+
+def continuation(case, dtype, tmp, nsteps, label, n, fmt="fortran"):
+    """N steps through Simulation, a restart (`fmt` "fortran": the
+    reference's Fortran restart files; "h5": the native checkpoint that
+    trestart makes Simulation write), then a second process (``sim.main``
+    with lwarmstart) for N more, against 2N steps in one process.  Returns
+    the worst leaf difference relative to the leaf's max, max|u| difference
+    over max|u|, and the two runs' end times' difference relative to the
+    uninterrupted one's."""
+    from udales_tpu_torch import cases
+    from udales_tpu_torch.convert import state_to_numpy
+    from udales_tpu_torch.io.restart import write_fortran_restart
+    from udales_tpu_torch.run import load_case
+    from udales_tpu_torch.sim import Simulation
+    model = load_case(case, "900", dtype=dtype)              # on the card
+    st0 = model.cold_start(seed=43)
+    st, times = st0, []
+    for _ in range(2 * nsteps):
+        st = model.step(st)
+        times.append(float(st.timee))
+    full = flat_numpy(state_to_numpy(st))
+    # a run that is to end after step k stops halfway from step k - 1
+    stop = lambda k: 0.5 * (times[k - 2] + times[k - 1])
+    sim = Simulation(model, tmp / "leg1", monitor=False)
+    sim.tnextrestart = stop(nsteps)               # the h5 checkpoint
+    first = sim.run(st0, runtime=stop(nsteps)) if fmt == "h5" else \
+        Simulation(model, tmp / "leg1", monitor=False).run(
+            st0, runtime=stop(nsteps))
+    start = (f"initd{nsteps:08d}.900.h5" if fmt == "h5"
+             else f"initd{nsteps:08d}_xxx_xxx.900")
+    resumed = cases.with_namelist(case, tmp / "resumed", RUN=dict(
+        lwarmstart=True, startfile=start))
+    if fmt == "h5":
+        (resumed / start).write_bytes((tmp / "leg1" / start).read_bytes())
+    else:
+        c, d, host = first.c, model.cfg.domain, lambda a: a.cpu().numpy()
+        write_fortran_restart(
+            resumed, {"u": host(c.u), "v": host(c.v), "w": host(c.w),
+                      "pres": host(first.pres), "thl": host(c.thl),
+                      "e12": host(c.e12), "qt": host(c.qt)},
+            float(first.timee), float(first.dt), "900", d.itot, d.jtot,
+            d.ktot, ntrun=nsteps)
+    rc, out, err, secs = run_cli(
+        ["--resume", str(resumed), "--dtype", dtype, "--outdir",
+         str(tmp / "leg2"), "--runtime", repr(stop(2 * nsteps) - times[nsteps - 1]),
+         str(tmp / "leg2.npz")], timeout=600)
+    if rc != 0:
+        raise RuntimeError(f"{label}: the resumed run failed:\n{err[-4000:]}")
+    got = dict(np.load(tmp / "leg2.npz"))
+    worst = 0.0
+    for k, r in full.items():
+        scale = max(float(np.abs(r).max(initial=0.0)), 1e-30)
+        worst = max(worst, float(np.abs(got[k] - r).max(initial=0.0)) / scale)
+    du = float(np.abs(got["c.u"] - full["c.u"]).max()
+               / np.abs(full["c.u"]).max())
+    phase(n, f"{label}: {nsteps} steps, {fmt} restart, {nsteps} more "
+             f"in a second process ({secs:.1f} s) against {2 * nsteps} in "
+             f"one: t = {float(got['timee']):.4f} against "
+             f"{float(full['timee']):.4f} s, worst leaf difference "
+             f"{worst:.3e} of the leaf's max over {len(full)} leaves, "
+             f"max|du| / max|u| {du:.3e}, end times apart by "
+             f"{abs(float(got['timee']) - float(full['timee'])):.3e} s")
+    tg, tf = float(got["timee"]), float(full["timee"])
+    return worst, du, abs(tg - tf) / tf
+
+
+def profile_call(fn, reps=10):
+    """(host ms a call to a synchronize, launches of one call, device
+    activities the profiler captured of it, their device ms) of `fn` on the
+    card.  Launches are the host's CUDA runtime calls that put work on the
+    card (kernel launches, copies, fills), counted on the host's side of
+    the trace."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / reps
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    dev = [e for e in prof.events() if e.device_type == cuda]
+    runtime = [e for e in prof.events() if e.device_type != cuda
+               and e.name.startswith(("cudaLaunch", "cuLaunch", "cudaMemcpy",
+                                      "cudaMemset"))]
+    return (ms, len(runtime), len(dev),
+            sum(e.time_range.elapsed_us() for e in dev) / 1e3)
+
+
+def driver_phases(smi, fused, div_bound, eb128, urban, d32):
+    """Phases 31 to 35: the user's path through ``python -m
+    udales_tpu_torch`` with every writer, restart continuation, the
+    dispersion and driven cases through Simulation, the driver's cost and
+    the runmodes.  `eb128` is the staged urban-EB 128^3 case, `urban` the
+    staged urban cases by size, `d32` the driven 32^3 case.  Any failed
+    check raises."""
+    import importlib.util
+    import shutil
+    import statistics
+    import tempfile
+    from udales_tpu_torch import cases
+    from udales_tpu_torch.config import load_namoptions
+    from udales_tpu_torch.run import load_case
+    from udales_tpu_torch.sim import Simulation
+
+    tmp = Path(tempfile.mkdtemp(prefix="driver_", dir=CACHE))
+    has_h5py = importlib.util.find_spec("h5py") is not None
+    # 31. the user's path: stage, every writer, the CLI in a subprocess
+    run = dict(runtime=14.0)
+    if has_h5py:
+        run["trestart"] = 7.0
+    case = cases.with_namelist(
+        eb128, tmp / "urban128eb_all", OUTPUT=output_namelist(tcheck=1e-3),
+        WALLS=dict(lwritefac=True, dtfac=5.0),
+        ENERGYBALANCE=dict(lwriteEBfiles=True), RUN=run)
+    out = tmp / "out31"
+    rc, stdout, stderr, secs = run_cli(
+        [str(case), "--outdir", str(out), "--runtime", "14"], timeout=900)
+    if rc != 0:
+        raise RuntimeError(f"the CLI failed (rc {rc}):\n{stderr[-4000:]}")
+    steps, unmasked, masked = launches_of(stdout)
+    mon = np.loadtxt(out / "monitor.900.txt", ndmin=2)
+    divs = [float(line.split("max|div|=")[1].split()[0])
+            for line in stdout.splitlines() if "max|div|=" in line]
+    cfg = load_namoptions(case / "namoptions.900")
+    # the variable tables of the same writers, built in this process
+    ccase = cases.with_namelist(
+        eb128, tmp / "cost", OUTPUT=output_namelist(),
+        WALLS=dict(lwritefac=True, dtfac=5.0),
+        ENERGYBALANCE=dict(lwriteEBfiles=True))
+    cm = load_case(ccase, "900", dtype="float32")
+    tsim = Simulation(cm, tmp / "tables", monitor=False)
+    tables = writer_tables(tsim)
+    tsim._close()
+    counts = step_counts(mon[:, 0], cfg.output, cfg.eb, cfg.walls)
+    phase(31, f"python -m udales_tpu_torch {case.name} --runtime 14 on "
+              f"{smi}: rc 0 in {secs:.1f} s, {steps} steps, monitor lines "
+              f"{len(mon)}, dt {mon[0, 1]:.4g} .. {mon[-1, 1]:.4g} s; kernel "
+              f"launches unmasked {unmasked}, masked {masked} (= 3 x "
+              f"{steps}); max|div u| after the last step {divs[-1]:.2e} <= "
+              f"{div_bound:g}")
+    if not has_h5py:
+        print("  the native checkpoint (.h5) was not exercised on the card: "
+              "h5py is not installed here; the restart phase uses the "
+              "reference's Fortran restart files", flush=True)
+    if not (len(mon) == steps and masked == 3 * steps and unmasked == 0
+            and divs and divs[-1] <= div_bound and steps >= 20):
+        raise RuntimeError("the CLI run failed a check")
+    recs = check_outputs(out, tables, counts, "urban-EB 128^3 outputs", 31)
+    if min(recs[k] for k in ("xytdump", "tdump", "fielddump")) < 2:
+        raise RuntimeError("a family wrote fewer than two records")
+    if has_h5py and not list(out.glob("initd*.900.h5")):
+        raise RuntimeError("no checkpoint was written")
+    cli = dict(steps=steps, masked=masked, seconds=secs,
+               max_div=divs[-1], records=recs)
+
+    # 32. restart continuation
+    worst, _, dt_rel = continuation(urban[32], "float64", tmp / "c32", 5,
+                                    "urban 32^3 float64", 32)
+    if not (worst <= 1e-9 and dt_rel <= 1e-9):
+        raise RuntimeError("the continued 32^3 run left the uninterrupted")
+    _, du, dt_rel = continuation(urban[128], "float32", tmp / "c128", 10,
+                                 "urban 128^3 float32", 32)
+    if not (du <= 1e-4 and dt_rel <= 1e-4):
+        raise RuntimeError("the continued 128^3 run left the uninterrupted")
+    restart = dict(worst_32_f64=worst, du_128_f32=du)
+    if has_h5py:
+        worst, _, dt_rel = continuation(urban[32], "float64", tmp / "h32", 5,
+                                        "urban 32^3 float64", 32, fmt="h5")
+        if not (worst <= 1e-9 and dt_rel <= 1e-9):
+            raise RuntimeError("the run continued from the .h5 checkpoint "
+                               "left the uninterrupted")
+        restart["worst_32_f64_h5"] = worst
+    else:
+        print("  the native .h5 checkpoint and resume_stats (the statistics "
+              "accumulators it carries) were not exercised on the card: h5py "
+              "is not installed here; tests/test_torch_restart.py holds them "
+              "on the CPU", flush=True)
+
+    # 33. dispersion 128^3 and driven 32^3 through Simulation
+    d128 = cases.stage_urban_dispersion(128, CACHE)
+    dcase = cases.with_namelist(d128, tmp / "disp", OUTPUT=dict(
+        lfielddump=True, fieldvars="u0,w0,th,s1,s2,s3", tfielddump=5.0,
+        ltreedump=True, ltdump=True, lytdump=True, tsample=1.75,
+        tstatsdump=5.0))
+    dm = load_case(dcase, "900", dtype="float32")
+    dsim = Simulation(dm, tmp / "out33d", monitor=False)
+    tables = writer_tables(dsim)
+    fused.launch_count = fused.masked_launch_count = 0
+    dst = dsim.run(dm.cold_start(seed=43), runtime=10.0)
+    dl = (fused.launch_count, fused.masked_launch_count)
+    mon = np.loadtxt(tmp / "out33d" / "monitor.900.txt", ndmin=2)
+    if dl != (0, 3 * dsim.ntrun) or len(mon) != dsim.ntrun:
+        raise RuntimeError(f"dispersion: launches {dl} in {dsim.ntrun} steps")
+    check_outputs(tmp / "out33d", tables,
+                  step_counts(mon[:, 0], dm.cfg.output, dm.cfg.eb,
+                              dm.cfg.walls),
+                  f"dispersion 128^3 through Simulation ({dsim.ntrun} steps, "
+                  f"masked launches {dl[1]})", 33)
+    vcase = cases.with_namelist(d32, tmp / "drv", OUTPUT=dict(
+        lxytdump=True, ltkedump=True, tsample=0.1, tstatsdump=0.5))
+    vm = load_case(vcase, "900", dtype="float32")
+    vsim = Simulation(vm, tmp / "out33v", monitor=False)
+    tables = writer_tables(vsim)
+    fused.launch_count = fused.masked_launch_count = 0
+    vsim.run(vm.cold_start(seed=43), runtime=1.2)
+    vl = (fused.launch_count, fused.masked_launch_count)
+    mon = np.loadtxt(tmp / "out33v" / "monitor.900.txt", ndmin=2)
+    if vl != (0, 3 * vsim.ntrun):
+        raise RuntimeError(f"driven: launches {vl} in {vsim.ntrun} steps")
+    check_outputs(tmp / "out33v", tables,
+                  step_counts(mon[:, 0], vm.cfg.output, vm.cfg.eb,
+                              vm.cfg.walls),
+                  f"driven urban 32^3 through Simulation ({vsim.ntrun} "
+                  f"steps, masked launches {vl[1]})", 33)
+    sims = dict(dispersion_steps=dsim.ntrun, dispersion_masked=dl[1],
+                driven_steps=vsim.ntrun, driven_masked=vl[1])
+
+    # 34. the driver's cost: Simulation.run with every writer against
+    # Model.run, in turns, and each family's sample and write alone
+    st = cm.run(cm.cold_start(seed=43), 3)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        st = cm.step(st)                 # with the wall-stress diagnostics
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    phase(34, "one urban-EB step with the wall-stress diagnostics under "
+              "set_sync_debug_mode('error'): no host synchronisation")
+    timings = {"Model.run": [], "Simulation.run": []}
+    for i, which in enumerate(["Model.run", "Simulation.run",
+                               "Simulation.run", "Model.run",
+                               "Model.run", "Simulation.run"]):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        if which == "Model.run":
+            st = cm.run(st, 20)
+            nst = 20
+        else:
+            sim = Simulation(cm, tmp / f"cost{i}", monitor=False)
+            t0 = float(st.timee)
+            st = sim.run(st, runtime=20 * float(st.dt) - 1e-3)
+            nst = sim.ntrun
+        end.record()
+        torch.cuda.synchronize()
+        timings[which].append(start.elapsed_time(end) / nst)
+    med = {k: statistics.median(v) for k, v in timings.items()}
+    phase(34, f"urban-EB 128^3 float32 on {smi}, ms/step (CUDA events, 3 "
+              f"runs each of ~20 steps, in turns): Model.run "
+              f"{', '.join(f'{v:.3f}' for v in timings['Model.run'])} "
+              f"(median {med['Model.run']:.3f}); Simulation.run with every "
+              f"writer (samples every 1.75 s, writes every 5 s) "
+              f"{', '.join(f'{v:.3f}' for v in timings['Simulation.run'])} "
+              f"(median {med['Simulation.run']:.3f}), ratio "
+              f"{med['Simulation.run'] / med['Model.run']:.3f}")
+    sim = Simulation(cm, tmp / "cost_families", monitor=False)
+    masks = cm.ibm.masks
+    t = float(st.timee)
+    fam = {}
+    for name in ("xytdump", "tdump", "ytdump", "tkedump", "mintdump"):
+        w = getattr(sim, name)
+        fam[name] = (lambda w=w: w._acc(w.acc, st, masks),
+                     lambda w=w: w.write(t))
+    fam["xydump"] = (lambda: sim.xydump.profiles(st, masks),
+                     lambda: sim.xydump.maybe_dump(st, t + 1e9, masks))
+    fam["ydump"] = (lambda: sim.ydump.fields(st, masks),
+                    lambda: sim.ydump.maybe_dump(st, t + 1e9, masks))
+    fam["slicedump"] = (None, lambda: sim.slices.maybe_dump(st, t + 1e9))
+    fam["fielddump"] = (None, lambda: sim.fielddump.dump(st, t=t))
+    fam["facT + facEB"] = (None, lambda: sim._write_fac(st, t))
+    fam["fac"] = (None, lambda: sim._write_facstats(st, t))
+    cost = {}
+    print(f"  one sample and one write of each family, urban-EB 128^3 "
+          f"float32 on {smi} (host ms a call to a synchronize, 10 calls; "
+          f"the host's CUDA launches and copies, the device activities and "
+          f"their device ms of one call from the profiler; a write includes "
+          f"its host copy and the NetCDF append):",
+          flush=True)
+    for name, (sample, write) in fam.items():
+        row = {}
+        for kind, fn in (("sample", sample), ("write", write)):
+            if fn is None:
+                continue
+            # a write of a 3-D family appends hundreds of MB: time one
+            ms, nl, nd, dms = profile_call(
+                fn, reps=10 if kind == "sample" else 1)
+            row[kind] = dict(host_ms=ms, launches=nl, device_activities=nd,
+                             device_ms=dms)
+            print(f"    {name:14s} {kind:6s} {ms:9.3f} ms  {nl:5d} launches  "
+                  f"{nd:5d} device activities  {dms:8.4f} device ms",
+                  flush=True)
+        cost[name] = row
+    sim._close()
+    shutil.rmtree(tmp / "cost_families")
+
+    # 35. the runmodes through the CLI, three processes at once
+    procs = {}
+    for rm in (1003, 1004, 1005):
+        rcase = cases.with_namelist(urban[32], tmp / f"rm{rm}",
+                                    RUN=dict(runmode=rm))
+        procs[rm] = subprocess.Popen(
+            [sys.executable, "-m", "udales_tpu_torch", str(rcase),
+             "--outdir", str(tmp / "rmout")],
+            cwd=Path(__file__).resolve().parent, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+    codes = {}
+    for rm, p in procs.items():
+        so, se = p.communicate(timeout=300)
+        codes[rm] = p.returncode
+        if p.returncode != 0 or f"runmode {rm}" not in so:
+            raise RuntimeError(f"runmode {rm}: rc {p.returncode}\n{so}\n"
+                               f"{se[-2000:]}")
+        print("  " + so.strip().replace("\n", "\n  "), flush=True)
+    phase(35, f"runmodes 1003, 1004, 1005 through python -m udales_tpu_torch "
+              f"on {urban[32].name}: exit codes {codes}")
+    return dict(cli=cli, restart=restart, sims=sims,
+                cost=dict(ms_per_step=timings, median=med, families=cost))
+
+
 def divergence_field(model, c):
     """|div u| per cell of the projected velocity (periodic x and y)."""
     grid = model.grid
@@ -843,7 +1335,7 @@ def main():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda."
                          "is_available() is False); the port has no CPU "
                          "fallback here")
-    from udales_tpu_torch import entry
+    from udales_tpu_torch import cases, entry
     from udales_tpu_torch.cases import (stage_urban, stage_urban_driven,
                                         stage_urban_eb)
     from udales_tpu_torch.convert import state_from_numpy, state_to_numpy
@@ -1038,6 +1530,10 @@ def main():
     # 25.-30. the dispersion slice
     disp = dispersion_phases(smi, fused_diff_mom, div_bound, urb)
 
+    # 31.-35. the run-time driver
+    drv_out = driver_phases(smi, fused_diff_mom, div_bound, eb128, urban,
+                            cases.stage_urban_driven(32, CACHE))
+
     foreign = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "udales_tpu"))
     if foreign:
@@ -1065,6 +1561,9 @@ def main():
          "launches_oneeqn": disp["oneeqn"]["launches"],
          "launches_purifiers_heatpumps":
              disp["purifiers_heatpumps"]["launches"],
+         "launches_cli_urban_eb": drv_out["cli"]["masked"],
+         "launches_simulation_dispersion": drv_out["sims"]["dispersion_masked"],
+         "launches_simulation_driven": drv_out["sims"]["driven_masked"],
          "max_abs_err_open_ghosts": drv["open_err"]["masked"]}],
         "main_path": rates(main), "main_path_256": rates(big),
         "urban_128": rates(urb),
@@ -1086,11 +1585,15 @@ def main():
                 "box_err", "div_outside", "fan_w")}},
         "oneeqn_128": {**rates(disp["oneeqn"]), **{
             k: disp["oneeqn"][k] for k in ("e12_min", "e12_max",
-                                           "max_div")}}}))
+                                           "max_div")}},
+        "driver": drv_out}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--resume"]:
+        resume_mode(sys.argv[2:])
+    else:
+        main()

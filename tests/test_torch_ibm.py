@@ -502,10 +502,53 @@ def test_wallfun_without_facet_state_forms_no_facet_sums(models):
     assert len(plain.calls) < len(summed.calls)
 
 
+def eb_files_match_reference(staged, tmp_path):
+    """The energy-balance file output (lwriteEBfiles), which the port used
+    to refuse: the staged urban-EB case with it switched on builds in both
+    packages, and one facT / facEB record of one converted facet state
+    written by each package's Simulation holds the same variables, equal
+    as float32."""
+    from udales_tpu.run import load_case as jload_case
+    from udales_tpu.sim import Simulation as JSimulation
+    from udales_tpu_torch.sim import Simulation
+    from test_torch_io import read_nc
+    from test_torch_openbc import jtree
+    case = cases.with_namelist(staged.parent / f"urban{N}eb",
+                               tmp_path / "ebfiles",
+                               ENERGYBALANCE=dict(lwriteEBfiles=True))
+    jmodel = jload_case(case, "900", dtype="float64")
+    tmodel = load_case(case, "900", dtype="float64", device="cpu")
+    assert tmodel.cfg.eb.lwriteEBfiles and tmodel.eb is not None
+    jst = jmodel.cold_start(seed=43)
+    jst = jst.replace(fac=dataclasses.replace(
+        jst.fac, T=jst.fac.T + 3.0 * np.sin(np.arange(jst.fac.T.size))
+        .reshape(jst.fac.T.shape)))
+    tst = state_from_numpy(jtree(jst))
+    for name, sim, st in (("ref", JSimulation(jmodel, tmp_path / "ref"), jst),
+                          ("got", Simulation(tmodel, tmp_path / "got"), tst)):
+        sim._write_fac(st, 2.0)
+        for w in sim.facwriter:
+            w.close()
+    for stem in ("facT", "facEB"):
+        got = read_nc(tmp_path / "got" / f"{stem}.900.nc")
+        ref = read_nc(tmp_path / "ref" / f"{stem}.900.nc")
+        assert sorted(got) == sorted(ref) and len(ref) >= 4
+        for k in ref:
+            assert np.array_equal(got[k], ref[k]), (stem, k)
+    assert got["LWin"].shape == (1, tmodel.eb.nfcts)
+
+
 @pytest.mark.parametrize("change", [
     dict(eb=dict(lEB=True, lwriteEBfiles=True)), dict(ibm=None)],
     ids=["lwriteEBfiles", "ibm-missing"])
-def test_unported_urban_configurations_raise(models, change):
+def test_unported_urban_configurations_raise(models, staged, tmp_path,
+                                            change):
+    """An IBM case built without its IBM raises by name.  lwriteEBfiles,
+    which used to raise too, now runs and matches the reference
+    (`eb_files_match_reference`)."""
+    if "eb" in change:
+        eb_files_match_reference(staged, tmp_path)
+        return
     _, tmodel = models
     cfg, ibm = tmodel.cfg, tmodel.ibm
     for group, kw in change.items():

@@ -144,7 +144,8 @@ COPIES = ["config.py", "io/inputs.py", "prep/stl.py", "prep/geom.py",
           "prep/native.py", "prep/radiation.py", "prep/solar.py",
           "prep/weather.py", "prep/prep.py", "io/driverfiles.py",
           "prep/syntheticinflow.py", "prep/harmonie.py",
-          "prep/vegetation.py", "prep/inps.py"]
+          "prep/vegetation.py", "prep/inps.py", "io/netcdf.py",
+          "prep/__main__.py"]
 
 
 @pytest.mark.parametrize("rel", COPIES)

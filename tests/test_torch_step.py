@@ -119,15 +119,41 @@ def test_state_roundtrip_and_entry():
 
 
 @pytest.mark.parametrize("cfg_change,name", [
-    (dict(output=OutputConfig(lfielddump=True, fieldvars="u0,tx")),
+    (dict(output=OutputConfig(lfielddump=True,
+                              fieldvars="u0,tx,ty,tz,hf")),
      "wall-stress field dumps"),
 ], ids=["wall-stress-dumps"])
-def test_unported_configurations_raise(cfg_change, name):
-    """What still waits raises by name when the Model is built."""
-    base = entry._build(8, 8, 8, "float64", device="cpu")
-    with pytest.raises(NotImplementedError, match=f"not ported.*{name}"):
-        Model(dataclasses.replace(base.cfg, **cfg_change), base.grid,
-              device="cpu")
+def test_unported_configurations_raise(both_models, cfg_change, name):
+    """The wall-stress field dumps, which used to raise, now build: on the
+    flat case (no IBM) State.taud after one step holds the floor's wall
+    stress and heat flux, as udales_tpu's does (1e-12)."""
+    import jax
+    import __graft_entry__ as ref_entry
+    from udales_tpu.run import Model as JModel
+    jbase, tbase = both_models
+    jmodel = JModel(dataclasses.replace(jbase.cfg, **cfg_change),
+                    jbase.grid)
+    for k in PROFILE_NAMES:
+        setattr(jmodel, k, getattr(jbase, k))
+    tmodel = Model(dataclasses.replace(tbase.cfg, **cfg_change), tbase.grid,
+                   device="cpu")
+    load_profiles(tmodel, {k: np.asarray(getattr(jbase, k))
+                           for k in PROFILE_NAMES})
+    assert tmodel.need_taudiag and jmodel.need_taudiag, name
+    jst = ref_entry._init_state(jmodel)
+    tst = state_from_numpy(jax_state_to_numpy(jst))
+    tst = tmodel.step(tst.replace(taud={
+        k: torch.zeros_like(tst.c.w if k == "z" else tst.c.u)
+        for k in ("x", "y", "z", "hf")}))
+    jst = jax.jit(jmodel.step)(jst.replace(taud={
+        k: np.zeros_like(jst.c.w if k == "z" else jst.c.u)
+        for k in ("x", "y", "z", "hf")}))
+    for k in ("x", "y", "z", "hf"):
+        ref = np.asarray(jst.taud[k])
+        got = tst.taud[k].numpy()
+        assert np.abs(got - ref).max() <= 1e-12 * max(1.0, np.abs(ref).max())
+    assert np.abs(got).max() == 0.0      # no wall heat flux on this case
+    assert np.abs(tst.taud["x"].numpy()).max() > 0
 
 
 @pytest.mark.parametrize("cfg_change,nsv", [

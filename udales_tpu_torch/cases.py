@@ -392,6 +392,26 @@ def stage_precursor(n: int, root, dtdriver: float = 0.5) -> Path:
     return case
 
 
+def with_namelist(case, dest, **groups) -> Path:
+    """A copy of the staged `case` directory at `dest` whose namelist gains
+    the given groups, for example ``with_namelist(case, dest,
+    OUTPUT=dict(lxytdump=True, tsample=0.5), RUN=dict(trestart=4.0))``: the
+    namelist parser merges the groups of one name, so an entry given here
+    overrides the case's.  Booleans are written as .true./.false., strings
+    quoted."""
+    import shutil
+    dest = Path(dest)
+    shutil.copytree(case, dest, dirs_exist_ok=True)
+    nam = sorted(dest.glob("namoptions.*"))[0]
+    fmt = lambda v: ((".true." if v else ".false.") if isinstance(v, bool)
+                     else f"'{v}'" if isinstance(v, str) else repr(v))
+    extra = "".join(
+        f"&{name}\n" + "".join(f"{k} = {fmt(v)}\n" for k, v in kv.items())
+        + "/\n" for name, kv in groups.items())
+    nam.write_text(nam.read_text() + extra)
+    return dest
+
+
 def _stage(n: int, case: Path, with_radiation: bool, namelist: str,
            before=None, prep_kw=None, extras=None, **values) -> Path:
     """Stage the cube array under `case` unless its namelist, which is

@@ -67,7 +67,8 @@ def state_from_numpy(d: dict, device="cpu") -> State:
     optional entries are dicts of arrays too: "bx" / "by" (the outlet planes
     of a Fields, leaves as `PLANE_NAMES`), "fac" (see
     `facet_state_from_numpy`), "facstats", "ctl", "ig" and "drv" (the leaves
-    of ``FacStats``, ``Ctl``, ``InletGen`` and ``DriverWindow``)."""
+    of ``FacStats``, ``Ctl``, ``InletGen`` and ``DriverWindow``) and "taud"
+    (the wall-stress diagnostics {x, y, z, hf})."""
     def fields(fd):
         planes = {k: _leaves_from_numpy(cls, PLANE_NAMES, fd[k], device)
                   for k, cls in _FIELD_PARTS.items()
@@ -79,6 +80,8 @@ def state_from_numpy(d: dict, device="cpu") -> State:
              if d.get(k) is not None}
     if d.get("fac") is not None:
         parts["fac"] = facet_state_from_numpy(d["fac"], device)
+    if d.get("taud") is not None:
+        parts["taud"] = {k: t(v) for k, v in d["taud"].items()}
     return State(m=fields(d["m"]), c=fields(d["c"]), pres=t(d["pres"]),
                  dt=t(d["dt"]), timee=t(d["timee"]), **parts)
 
@@ -98,6 +101,8 @@ def state_to_numpy(state: State) -> dict:
            "timee": n(state.timee)}
     if state.fac is not None:
         out["fac"] = facet_state_to_numpy(state.fac)
+    if state.taud is not None:
+        out["taud"] = {k: n(v) for k, v in state.taud.items()}
     for k, (_, names) in _STATE_PARTS.items():
         if getattr(state, k) is not None:
             out[k] = _leaves_to_numpy(getattr(state, k), names)

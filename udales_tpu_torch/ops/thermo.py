@@ -28,6 +28,11 @@ def avexy_masked(f, mask=None, sentinel=-999.0):
     return torch.where(cnt > 0, s / torch.clamp(cnt, min=1), sentinel)
 
 
+def slab_mean(f):
+    """Unmasked slab (x, y) average per level."""
+    return f.mean(dim=(0, 1))
+
+
 def _qsat_tetens(T, pressure):
     es = const.es0 * torch.exp(const.at * (T - const.tmelt) / (T - const.bt))
     return const.ep * es / (pressure - (1.0 - const.ep) * es)

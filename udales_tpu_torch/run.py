@@ -41,8 +41,9 @@ and the hooks of ``physics.py`` in the reference's order: ibmnorm,
 ``dw`` floor, the projection, ``Purifiers.apply``, the integrate step, and
 ``chem_update`` on the third substep.
 
-Configuration branches the port does not cover (the energy-balance file
-output, wall-stress field dumps, an IBM case without its IBM) raise
+With ``Model.need_taudiag`` (a field dump of tx/ty/tz/hf) the third
+substep keeps the wall-stress diagnostics in ``State.taud``, as udales_tpu's
+run.py:356-403 does.  An IBM case built without its IBM raises
 NotImplementedError when the Model is built.
 """
 from __future__ import annotations
@@ -86,14 +87,9 @@ from .timedep import Timedep
 
 def _unsupported(cfg: Config, ibm=None):
     """Names of the configured features this port does not implement."""
-    codes = {c.strip() for c in cfg.output.fieldvars.split(",")}
     checks = {
-        "facet energy-balance file output (lwriteEBfiles)": (
-            cfg.eb.lEB and cfg.eb.lwriteEBfiles),
         "an IBM case (libm, nfcts > 0) without its IBM": (
             ibm is None and cfg.run.libm and cfg.walls.nfcts > 0),
-        "wall-stress field dumps": bool(
-            cfg.output.lfielddump and codes & {"tx", "ty", "tz", "hf"}),
     }
     return [name for name, on in checks.items() if on]
 
@@ -127,6 +123,10 @@ class Model:
         self.scalsources = None  # physics.ScalarSources
         self.purifiers = None    # physics.Purifiers
         self.has_lstend = False    # lscale.inp holds subsidence or dqtdt
+        # tau_x/y/z + thl_flux diagnostics only when fielddump asks for them
+        codes = {c.strip() for c in cfg.output.fieldvars.split(",")}
+        self.need_taudiag = bool(cfg.output.lfielddump
+                                 and codes & {"tx", "ty", "tz", "hf"})
         self._nudge_prof = None
         self.pois = PoissonSolver(grid, cfg, device=self.device)
         nz = grid.ktot
@@ -176,6 +176,12 @@ class Model:
         st = initial_state(grid, f, dt0=dt0, fac=fac)
         if self.igparams is not None:
             st = st.replace(ig=init_inletgen(cfg, grid, f, self.igparams))
+        if self.need_taudiag:
+            kw = dict(dtype=grid.torch_dtype, device=self.device)
+            z3 = lambda: torch.zeros(grid.shape, **kw)
+            st = st.replace(taud=dict(
+                x=z3(), y=z3(), z=torch.zeros((*grid.shape[:2], nz + 1), **kw),
+                hf=z3()))
         if cfg.walls.lwritefac and self.ibm is not None:
             st = st.replace(facstats=zero_facstats(
                 self.ibm.nfcts, grid.torch_dtype, self.device))
@@ -372,7 +378,10 @@ class Model:
 
         # --- IBM wall functions (modibm.ibmwallfun) ------------------------
         fac, facstats = state.fac, state.facstats
+        taud = state.taud
+        need_tau = self.need_taudiag and rk3step == 3
         if ibm is not None:
+            pre = (du, dv, dw, dthl)
             bctf = (self.timedep.surf_fluxes(state.timee)
                     if self.timedep is not None else None)
             need_fac = fac is not None and rk3step == 3
@@ -383,6 +392,14 @@ class Model:
                                    need_fac=need_fac,
                                    need_facstats=need_fstats,
                                    pres=state.pres)
+            if need_tau:
+                # tau_* / thl_flux diagnostics: the bottom + ibmwallfun
+                # tendency increments of this substep (modibm.f90:1185,
+                # 2014-2093; dumped by fielddump tx/ty/tz/hf)
+                dhf = bthl if dthl is None else (
+                    dthl + bthl if pre[3] is None else dthl - pre[3] + bthl)
+                taud = dict(x=(du - pre[0]) + bu, y=(dv - pre[1]) + bv,
+                            z=dw - pre[2], hf=dhf)
             # intqH (modEB.f90:220-247): the facet fluxes accumulate in time
             # on the last substep, with the full dt
             if need_fac:
@@ -400,6 +417,8 @@ class Model:
                     dthl = dthl + pthl[None, None, :]
                 if lmoist:
                     dqt = dqt + pqt[None, None, :]
+        elif need_tau:
+            taud = dict(x=bu, y=bv, z=torch.zeros_like(dw), hf=bthl)
 
         # --- free-stream controllers (modforces.fixuinf1/2) ----------------
         ctl = state.ctl
@@ -522,7 +541,7 @@ class Model:
         if rk3step == 3:
             m_new = c_new
         return state.replace(c=c_new, m=m_new, pres=pres, fac=fac,
-                             facstats=facstats, ctl=ctl, ig=ig)
+                             facstats=facstats, ctl=ctl, ig=ig, taud=taud)
 
     def _static_nudge_profiles(self):
         """prof.inp's u, v, thl, qt as the nudging targets (None without

@@ -1,17 +1,42 @@
-"""The precursor-plane recorder of ``udales_tpu.sim``.
+"""Simulation driver: the program.f90 equivalent (port of
+``udales_tpu.sim``).
 
-Only `DriverRecorder` is ported: the rest of the simulation driver
-(`Simulation`, its output cadences, restart writes and `main`) waits for
-the output modules.  A caller steps the Model itself and hands each State
-to `maybe_record`.
+`Simulation.run` steps the Model and, between steps, serves the output
+events on the reference's cadences: field dumps (tfielddump), statistics
+samples and writes (tsample / tstatsdump), facet outputs (dtEB, dtfac),
+restart writes (trestart), the runtime monitor (tcheck), the precursor and
+inlet-plane recorders, and the ``exit_now.<exp>`` graceful-stop sentinel
+(modsave.f90:63-75).  The step itself makes no host synchronisation; the
+loop reads the simulated time and the time step once a step, in one copy,
+and hands the time to every writer.
+
+`main` is ``python -m udales_tpu_torch <case>``: runmodes 1003-1005, a cold
+or warm start (native ``.h5`` checkpoint or the reference's Fortran restart
+files, ``lstratstart``) and the run, on the card unless ``--device cpu``.
 """
 from __future__ import annotations
 
+import dataclasses
+import math
+import time
 from pathlib import Path
 
 import numpy as np
+import torch
 
+from .config import const
 from .io.driverfiles import write_driver_files
+from .io.fielddump import FieldDump
+from .io.netcdf import NCWriter
+from .io.restart import save_checkpoint
+from .io.stats import (MinTDump, SliceDump, TDump, TKEDump, TreeDump,
+                       XYDump, XYTDump, YDump, YTDump)
+from .ops.fused_diff import fused_diff_mom
+from .state import zero_facstats
+
+
+def _host(a):
+    return a.detach().cpu().numpy()
 
 
 class DriverRecorder:
@@ -30,8 +55,10 @@ class DriverRecorder:
         self.frames = []
         self.times = []
 
-    def maybe_record(self, state):
-        t = float(state.timee)
+    def maybe_record(self, state, t: float | None = None):
+        """Record when the simulated time `t` (default: read from
+        ``state.timee``) has reached the cadence."""
+        t = float(state.timee) if t is None else t
         if t < self.tnext:
             return
         self.tnext += self.cfg.driver.dtdriver
@@ -39,12 +66,11 @@ class DriverRecorder:
         nx = self.grid.itot
         ip = self.cfg.driver.iplane % nx    # face index (wraps at itot)
         ic = min(ip, nx - 1)
-        n = lambda a: a.detach().cpu().numpy()
         self.times.append(t)
         self.frames.append(dict(
-            u=n(c.u[ip % nx]), v=n(c.v[ic]), w=n(c.w[ic]), thl=n(c.thl[ic]),
-            qt=n(c.qt[ic]),
-            sv=n(c.sv[:, ic]) if c.sv.shape[0] else None))
+            u=_host(c.u[ip % nx]), v=_host(c.v[ic]), w=_host(c.w[ic]),
+            thl=_host(c.thl[ic]), qt=_host(c.qt[ic]),
+            sv=_host(c.sv[:, ic]) if c.sv.shape[0] else None))
 
     def save(self):
         """Write the recorded series; returns the path of the time file
@@ -69,3 +95,519 @@ class DriverRecorder:
                 if v is not None:
                     f.create_dataset(k, data=v)
         return self.outdir / f"tdriver_000.{exp}"
+
+
+class Simulation:
+    """The run loop of one Model with every writer its configuration
+    switches on; the writers' tensors live on the model's device."""
+
+    def __init__(self, model, outdir: str | Path = ".", monitor: bool = True):
+        self.model = model
+        self.cfg = cfg = model.cfg
+        grid, dev = model.grid, model.device
+        self.outdir = Path(outdir)
+        self.outdir.mkdir(parents=True, exist_ok=True)
+        self.step = model.step
+        o = cfg.output
+        nsv = cfg.scalars.nsv
+        out = self.outdir
+        self.fielddump = (FieldDump(cfg, grid, out, masks=model.ibm.masks
+                                    if model.ibm is not None else None)
+                          if o.lfielddump else None)
+        self.xytdump = (XYTDump(cfg, grid, out, model=model, device=dev)
+                        if o.lxytdump else None)
+        self.xydump = XYDump(cfg, grid, out, model=model) \
+            if o.lxydump else None
+        self.ydump = YDump(cfg, grid, out, nsv=nsv, model=model) \
+            if o.lydump else None
+        self.tdump = (TDump(cfg, grid, out, nsv, model=model, device=dev)
+                      if o.ltdump else None)
+        self.tkedump = (TKEDump(cfg, grid, out, model, device=dev)
+                        if o.ltkedump else None)
+        self.ytdump = (YTDump(cfg, grid, out, nsv=nsv, model=model,
+                              device=dev) if o.lytdump else None)
+        self.mintdump = MinTDump(cfg, grid, out, device=dev) \
+            if o.lmintdump else None
+        self.treedump = (TreeDump(cfg, grid, model.vegetation, out,
+                                  device=dev)
+                         if (o.ltreedump and model.vegetation is not None)
+                         else None)
+        self.slices = (SliceDump(cfg, grid, out, nsv)
+                       if (o.lkslicedump or o.lislicedump or o.ljslicedump)
+                       else None)
+        self.facwriter = None
+        if cfg.eb.lEB and cfg.eb.lwriteEBfiles and model.eb:
+            exp = self._exp()
+            w = NCWriter(out / f"facT.{exp}.nc", nfcts=model.eb.nfcts,
+                         nlayers=cfg.eb.nfaclyrs + 1)
+            w.define("T", ("facet", "layer"), "K", "Temperature")
+            w.define("dTdz", ("facet", "layer"), "K/m",
+                     "Temperature gradient")
+            w2 = NCWriter(out / f"facEB.{exp}.nc", nfcts=model.eb.nfcts)
+            w2.define("netsw", ("facet",), "W/m^2", "Net shortwave")
+            w2.define("LWin", ("facet",), "W/m^2", "Incoming longwave")
+            w2.define("LWout", ("facet",), "W/m^2", "Outgoing longwave")
+            w2.define("hf", ("facet",), "W/m^2", "Sensible heat")
+            w2.define("ef", ("facet",), "W/m^2", "Latent heat")
+            w2.define("WGR", ("facet",), "?", "Water content")
+            self.facwriter = (w, w2)
+            self._last_facwrite = 0.0
+        # fac.<exp>.nc facet stress/pressure output (lwritefac,
+        # modibm.f90:198-247)
+        self.facstatwriter = None
+        if cfg.walls.lwritefac and model.ibm is not None:
+            wf = NCWriter(out / f"fac.{self._exp()}.nc",
+                          nfcts=model.ibm.nfcts)
+            wf.define("tau_x", ("facet",), "m^2/s^2", "tau_x")
+            wf.define("tau_y", ("facet",), "m^2/s^2", "tau_y")
+            wf.define("tau_z", ("facet",), "m^2/s^2", "tau_z")
+            wf.define("pres", ("facet",), "m^2/s^2", "pressure")
+            wf.define("htc", ("facet",), "", "heat transfer coefficient")
+            wf.define("cth", ("facet",), "",
+                      "heat transfer coefficient (Ivo)")
+            wf.define("pres_flc", ("facet",), "", "pressure fluctuation")
+            self.facstatwriter = wf
+            self.tnextfacstat = cfg.walls.dtfac
+        self.monitor = monitor
+        # tcheck cadence (modchecksim.f90:37,64-67): report every tcheck
+        # seconds of simulated time; tcheck=0 means every step in the
+        # reference, every 50 steps here (as in udales_tpu)
+        self.tcheck = o.tcheck
+        self.tnextcheck = 0.0
+        self.tnextrestart = cfg.run.trestart
+        self.ntrun = 0
+        # per-step monitor file (modtstep.f90:290-320 writes monitor<id>.txt)
+        self._monitor_path = out / f"monitor.{self._exp()}.txt"
+        self.profile_dir = None  # a directory: torch.profiler trace
+        self.driver_rec = (DriverRecorder(cfg, grid, out)
+                           if cfg.driver.idriver == 1 else None)
+        # inlet-plane recorder (lstoreplane, modinlet.f90 writeinletfile):
+        # the generated planes live in State.ig; stored once per full step
+        self.inlet_rec = ([] if (cfg.driver.iinletgen == 1
+                                 and cfg.driver.lstoreplane) else None)
+        self._inlet_rec_t = []
+
+    def _exp(self):
+        return f"{self.cfg.run.iexpnr:03d}"
+
+    def _writers(self):
+        return (self.fielddump, self.xytdump, self.tdump, self.ytdump,
+                self.slices, self.tkedump, self.xydump, self.ydump,
+                self.mintdump, self.treedump, self.facstatwriter,
+                *(self.facwriter or ()))
+
+    @staticmethod
+    def _time_and_dt(state):
+        """(timee, dt) of `state` as host floats, in one device copy."""
+        t, dt = torch.stack([state.timee, state.dt]).tolist()
+        return t, dt
+
+    def run(self, state=None, runtime: float | None = None, seed: int = 43):
+        cfg = self.cfg
+        if state is None:
+            state = self.model.cold_start(seed=seed)
+        runtime = runtime if runtime is not None else cfg.run.runtime
+        t0 = float(state.timee)
+        t_end = t0 + runtime
+        # warmstart: fast-forward output timers to the first cadence
+        # multiple at/after the restart time (otherwise every writer would
+        # fire once per step while catching up from t=0)
+
+        def _ff(obj, attr, cad):
+            if (obj is not None and cad > 0 and hasattr(obj, attr)
+                    and getattr(obj, attr) < t0):
+                setattr(obj, attr, cad * math.ceil(t0 / cad + 1e-9))
+        _ff(self.fielddump, "tnext", cfg.output.tfielddump)
+        for w in (self.xytdump, self.tdump, self.tkedump, self.ytdump,
+                  self.mintdump, self.treedump):
+            _ff(w, "tnext_sample", cfg.output.tsample)
+            _ff(w, "tnext_write", cfg.output.tstatsdump)
+        for w in (self.xydump, self.ydump, self.slices):
+            for attr, cad in (("tnext", cfg.output.tsample),
+                              ("tnext_sample", cfg.output.tsample),
+                              ("tnext_write", cfg.output.tstatsdump)):
+                if w is not None and hasattr(w, attr):
+                    _ff(w, attr, cad)
+        _ff(self, "tnextrestart", cfg.run.trestart)
+        _ff(self, "tnextcheck", self.tcheck)
+        masks = self.model.ibm.masks if self.model.ibm else None
+        wall0 = time.time()
+        nsteps = 0
+        prof = None
+        if self.profile_dir is not None:
+            acts = [torch.profiler.ProfilerActivity.CPU]
+            if self.model.device.type == "cuda":
+                acts.append(torch.profiler.ProfilerActivity.CUDA)
+            prof = torch.profiler.profile(activities=acts)
+            prof.start()
+        t = t0
+        try:
+            with open(self._monitor_path, "a") as mon:
+                while t < t_end:
+                    if self.model.driver_stream is not None:
+                        # streaming precursor replay: swap in the next chunk
+                        # when timee crosses the device window (lchunkread)
+                        state = self.model.driver_stream.ensure(state)
+                    state = self.step(state)
+                    nsteps += 1
+                    self.ntrun += 1
+                    t, dt = self._time_and_dt(state)   # the step's one sync
+                    state = self._outputs(state, t, masks, nsteps, wall0)
+                    mon.write(f"{t:14.6e} {dt:14.6e}\n")
+                    if (self.outdir / f"exit_now.{self._exp()}").exists():
+                        self._write_restart(state)
+                        break
+                    if prof is not None and nsteps == 12:
+                        self._stop_profile(prof)
+                        prof = None
+        finally:
+            if prof is not None:
+                self._stop_profile(prof)
+            self._close()
+        return state
+
+    def _outputs(self, state, t, masks, nsteps, wall0):
+        """Every output event due at the simulated time `t`, in the
+        reference's order; returns the State (the facet statistics restart
+        after a write)."""
+        if self.fielddump is not None:
+            self.fielddump.maybe_dump(state, t)
+        if self.xytdump is not None:
+            self.xytdump.maybe_sample(state, t, masks)
+        if self.driver_rec is not None:
+            self.driver_rec.maybe_record(state, t)
+        if self.inlet_rec is not None and state.ig is not None:
+            self._inlet_rec_t.append(t)
+            ig = state.ig
+            self.inlet_rec.append(dict(u=_host(ig.u0), v=_host(ig.v0),
+                                       w=_host(ig.w0), thl=_host(ig.t0)))
+        if self.tdump is not None:
+            self.tdump.maybe_sample(state, t)
+        if self.tkedump is not None:
+            self.tkedump.maybe_sample(state, t)
+        if self.xydump is not None:
+            self.xydump.maybe_dump(state, t, masks)
+        if self.ydump is not None:
+            self.ydump.maybe_dump(state, t, masks)
+        if self.ytdump is not None:
+            self.ytdump.maybe_sample(state, t, masks)
+        if self.slices is not None:
+            self.slices.maybe_dump(state, t)
+        if self.mintdump is not None:
+            self.mintdump.maybe_sample(state, t)
+        if self.treedump is not None:
+            self.treedump.maybe_sample(state, t)
+        if self.monitor and (t >= self.tnextcheck if self.tcheck > 0
+                             else nsteps % 50 == 0):
+            self.tnextcheck = t + self.tcheck
+            self._checksim(state, nsteps, wall0)
+        if (self.facwriter is not None and state.fac is not None
+                and t >= self._last_facwrite + self.cfg.eb.dtEB):
+            self._last_facwrite = t
+            self._write_fac(state, t)
+        if (self.facstatwriter is not None and state.facstats is not None
+                and t >= self.tnextfacstat):
+            state = self._write_facstats(state, t)
+            self.tnextfacstat = round(t + self.cfg.walls.dtfac)
+        if t >= self.tnextrestart:
+            self.tnextrestart += self.cfg.run.trestart
+            self._write_restart(state)
+        return state
+
+    def _stop_profile(self, prof):
+        prof.stop()
+        Path(self.profile_dir).mkdir(parents=True, exist_ok=True)
+        prof.export_chrome_trace(str(Path(self.profile_dir)
+                                     / f"trace.{self._exp()}.json"))
+
+    def _close(self):
+        for w in self._writers():
+            if w is not None:
+                w.close()
+        if self.driver_rec is not None:
+            self.driver_rec.save()
+        if self.inlet_rec:
+            np.savez(self.outdir / f"inletdata.{self._exp()}.npz",
+                     t=np.asarray(self._inlet_rec_t),
+                     **{k: np.stack([f[k] for f in self.inlet_rec])
+                        for k in ("u", "v", "w", "thl")})
+
+    def _write_facstats(self, state, t):
+        """fac.<exp>.nc write (modibm.f90:1256-1280): normalize the
+        dt-weighted sums by the elapsed interval, write, reset.  The
+        pressure fluctuation is the proper interval variance
+        <p^2> - <p>^2 (the reference's expression at modibm.f90:1265 mixes
+        dtfac and tfac in the mean-square term; udales_tpu's deliberate
+        deviation, followed here)."""
+        fs = state.facstats
+        tint = max(t - float(fs.tlast), 1e-9)
+        avg = lambda a: _host(a) / tint
+        pav = avg(fs.pres)
+        self.facstatwriter.append(t, {
+            "tau_x": avg(fs.tau_x), "tau_y": avg(fs.tau_y),
+            "tau_z": avg(fs.tau_z), "pres": pav,
+            "htc": avg(fs.htc), "cth": avg(fs.cth),
+            "pres_flc": avg(fs.pres2) - pav * pav,
+        })
+        grid = self.model.grid
+        fresh = zero_facstats(fs.tau_x.shape[0], grid.torch_dtype,
+                              fs.tau_x.device)
+        fresh = dataclasses.replace(fresh, tlast=torch.tensor(
+            t, dtype=grid.torch_dtype, device=fs.tau_x.device))
+        return state.replace(facstats=fresh)
+
+    def _write_fac(self, state, t):
+        """facT/facEB outputs (modEB.f90:510-532)."""
+        eb = self.model.eb
+        fac = state.fac
+        wT, wEB = self.facwriter
+        T = _host(fac.T)
+        wT.append(t, {"T": T, "dTdz": _host(fac.Tdash)})
+        em = _host(eb.facem)
+        wEB.append(t, {
+            "netsw": _host(eb.netsw),
+            "LWin": _host(eb.calclw(fac.T)),
+            "LWout": const.boltz * em * T[:, 0] ** 4,
+            "hf": _host(fac.hfi),
+            "ef": _host(fac.efi),
+            "WGR": _host(fac.wsoil),
+        })
+
+    def _stats_writers(self):
+        """Active statistics writers with resumable accumulators."""
+        out = {}
+        for name in ("xytdump", "tdump", "ytdump", "tkedump", "mintdump",
+                     "treedump"):
+            w = getattr(self, name, None)
+            if w is not None and hasattr(w, "acc"):
+                out[name] = w
+        return out
+
+    @staticmethod
+    def _acc_items(acc):
+        if isinstance(acc, dict):
+            return acc.items()
+        return [(f.name, getattr(acc, f.name))
+                for f in dataclasses.fields(acc)]
+
+    def _write_restart(self, state):
+        name = self.outdir / f"initd{self.ntrun:08d}.{self._exp()}.h5"
+        save_checkpoint(name, state, self.ntrun)
+        # statistics continuation (the reference's lreadmean pathway,
+        # modstartup.f90:2225-2280, reads legacy means/SGS files; here the
+        # live accumulators of every enabled family ride the checkpoint)
+        import h5py
+        with h5py.File(name, "a") as f:
+            sg = f.create_group("stats")
+            for fam, w in self._stats_writers().items():
+                g = sg.create_group(fam)
+                for k, v in self._acc_items(w.acc):
+                    g.create_dataset(k, data=_host(v))
+                g.attrs["tnext_sample"] = w.tnext_sample
+                g.attrs["tnext_write"] = w.tnext_write
+
+    def resume_stats(self, ckpt_path):
+        """Restore statistics accumulators from a checkpoint written by
+        _write_restart (lreadmean-equivalent continuation)."""
+        import h5py
+        with h5py.File(ckpt_path, "r") as f:
+            if "stats" not in f:
+                return
+            for fam, w in self._stats_writers().items():
+                if fam not in f["stats"]:
+                    continue
+                g = f["stats"][fam]
+                data = {k: torch.as_tensor(g[k][()], device=self.model.device)
+                        for k in g}
+                if isinstance(w.acc, dict):
+                    w.acc = {k: data.get(k, v) for k, v in w.acc.items()}
+                else:
+                    w.acc = type(w.acc)(**data)
+                w.tnext_sample = float(g.attrs["tnext_sample"])
+                w.tnext_write = float(g.attrs["tnext_write"])
+
+    def _checksim(self, state, nsteps, wall0):
+        """Runtime monitor (modchecksim.f90:76-205): Courant number,
+        diffusion number, and max divergence."""
+        from .ops import subgrid as sgs
+        from .ops.thermo import thermodynamics
+        from .run import _velocity_ghosts
+        grid, cfg = self.model.grid, self.model.cfg
+        c = state.c
+        nz = grid.ktot
+        dev = c.u.device
+        cour = torch.max(
+            c.u.abs() * grid.dxi + c.v.abs() * grid.dyi
+            + c.w[..., :nz].abs() / grid.t("dzh", dev)[:nz]) * state.dt
+        gu = torch.cat([c.u, c.u[:1]], dim=0)
+        gv = torch.cat([c.v, c.v[:, :1]], dim=1)
+        div = ((gu[1:] - gu[:-1]) * grid.dxi
+               + (gv[:, 1:] - gv[:, :-1]) * grid.dyi
+               + (c.w[:, :, 1:] - c.w[:, :, :-1]) * grid.t("dzfi", dev))
+        # diffusion number (modchecksim.calcdiffnr:129-160): recompute the
+        # closure on the current fields, max over ekm AND ekh
+        th = thermodynamics(c, cfg, grid,
+                            self.model.ibm.masks if self.model.ibm else None)
+        gvel = _velocity_ghosts(c, cfg, grid)
+        thvs = cfg.bc.thls if cfg.bc.thls > 0 else 288.0
+        ekm, ekh, _ = sgs.closure(gvel, grid, cfg, e12=c.e12,
+                                  dthvdz=th.dthvdz, thl=c.thl, thvs=thvs)
+        coef = grid.t("dzh2i", dev)[:nz] + grid.dx2i + grid.dy2i
+        diffnr = torch.maximum(torch.max(ekm * coef),
+                               torch.max(ekh * coef)) * state.dt
+        t, dt, cour, diffnr, dmax = torch.stack([
+            state.timee, state.dt, cour, diffnr, div.abs().max()]).tolist()
+        rate = nsteps / max(time.time() - wall0, 1e-9)
+        print(f"  t={t:9.2f}s dt={dt:.4f} CFL={cour:.3f} "
+              f"diffnr={diffnr:.3f} max|div|={dmax:.2e} "
+              f"[{rate:.1f} steps/s]", flush=True)
+
+
+def execute_runmode_actions(model, case_dir) -> int | None:
+    """In-solver test runmodes dispatched before the time loop
+    (program.f90:239-275; test bodies src/tests.f90). Returns an exit code
+    for runmodes 1003/1004/1005, None for a normal run (runmode 1)."""
+    from .ops.thermo import avexy_masked
+    cfg, grid = model.cfg, model.grid
+    rm = cfg.run.runmode
+    if rm == 1003:
+        # tests_2decomp_init_exit (tests.f90:30-45): print the layout
+        dev = model.device
+        ncards = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        name = (f" ({torch.cuda.get_device_name(dev)})"
+                if dev.type == "cuda" else "")
+        print(f"runmode 1003: model on {dev}{name}; {ncards} CUDA "
+              f"device(s) visible")
+        print(f"grid {grid.itot}x{grid.jtot}x{grid.ktot}")
+        return 0
+    if rm == 1004:
+        # tests_read_sparse_ijk (tests.f90:47-133): the sparse readers must
+        # agree with the &WALLS counts and stay inside the grid
+        from .io.inputs import read_sparse_ijk
+        ok = True
+        lims = {"u": (grid.itot, grid.jtot, grid.ktot),
+                "v": (grid.itot, grid.jtot, grid.ktot),
+                "w": (grid.itot, grid.jtot, grid.ktot + 1),
+                "c": (grid.itot, grid.jtot, grid.ktot)}
+        for s in "uvwc":
+            for stem, key in ((f"solid_{s}.txt", f"nsolpts_{s}"),
+                              (f"fluid_boundary_{s}.txt", f"nbndpts_{s}")):
+                p = Path(case_dir) / stem
+                if not p.exists():
+                    continue
+                ijk = read_sparse_ijk(p)
+                want = getattr(cfg.walls, key)
+                if len(ijk) != want:
+                    print(f"runmode 1004 FAIL: {stem} has {len(ijk)} "
+                          f"points, &WALLS says {want}")
+                    ok = False
+                if len(ijk) and (ijk.min() < 0
+                                 or (ijk.max(axis=0) >= lims[s]).any()):
+                    print(f"runmode 1004 FAIL: {stem} out of bounds")
+                    ok = False
+        print(f"runmode 1004: {'PASS' if ok else 'FAIL'}")
+        return 0 if ok else 1
+    if rm == 1005:
+        # tests_mpi_operators (tests.f90:215-429): masked reductions on the
+        # model's device against plain numpy on the same arrays
+        rng = np.random.default_rng(7)
+        nx, ny, nz = grid.shape
+        f = rng.random((nx, ny, nz))
+        mask = (rng.random((nx, ny, nz)) > 0.3).astype(float)
+        t = lambda a: torch.as_tensor(a, device=model.device)
+        tf, tm = t(f), t(mask)
+        got = _host(avexy_masked(tf, tm))
+        cnt = mask.sum(axis=(0, 1))
+        want = np.where(cnt > 0, (f * mask).sum(axis=(0, 1))
+                        / np.maximum(cnt, 1), -999.0)
+        ok = np.allclose(got, want, atol=1e-12)
+        # avey/sumx/sumy semantics (modmpi.f90:691-752)
+        gy = _host((tf * tm).sum(dim=1)
+                   / torch.clamp(tm.sum(dim=1), min=1))
+        wy = (f * mask).sum(axis=1) / np.maximum(mask.sum(axis=1), 1)
+        ok &= np.allclose(gy, wy, atol=1e-12)
+        ok &= np.allclose(_host((tf * tm).sum(dim=0)),
+                          (f * mask).sum(axis=0), atol=1e-12)
+        print(f"runmode 1005: {'PASS' if ok else 'FAIL'}")
+        return 0 if ok else 1
+    return None
+
+
+def main(argv=None):
+    """CLI: python -m udales_tpu_torch <case_dir_or_namoptions> [options]"""
+    import argparse
+    from .run import load_case
+    ap = argparse.ArgumentParser(prog="udales_tpu_torch",
+                                 description="urban LES on a CUDA card "
+                                             "(PyTorch)")
+    ap.add_argument("case", help="case directory or namoptions.<exp> path")
+    ap.add_argument("--outdir", default=None)
+    ap.add_argument("--runtime", type=float, default=None)
+    ap.add_argument("--dtype", default="float32")
+    ap.add_argument("--seed", type=int, default=43)
+    ap.add_argument("--device", default="cuda",
+                    help="torch device of the run (default: the card; "
+                         "'cpu' for a run without one)")
+    ap.add_argument("--profile", default=None,
+                    help="directory for a torch.profiler trace of the first "
+                         "12 steps")
+    args = ap.parse_args(argv)
+    if torch.device(args.device).type == "cuda" \
+            and not torch.cuda.is_available():
+        raise SystemExit("udales_tpu_torch: no CUDA device (torch.cuda."
+                         "is_available() is False); pass --device cpu to "
+                         "run on the CPU")
+
+    case = Path(args.case)
+    if case.is_file():
+        expnr = case.suffix[1:]
+        case = case.parent
+    else:
+        expnr = None
+    model = load_case(case, expnr, dtype=args.dtype, device=args.device)
+    rc = execute_runmode_actions(model, case)
+    if rc is not None:
+        raise SystemExit(rc)
+    outdir = args.outdir or "."
+    sim = Simulation(model, outdir)
+    if args.profile:
+        sim.profile_dir = args.profile
+    print(f"udales_tpu_torch: case {case} grid {model.grid} "
+          f"device {model.device}", flush=True)
+    state = None
+    run = model.cfg.run
+    if (run.lwarmstart or run.lstratstart) and run.startfile:
+        exp = f"{run.iexpnr:03d}"
+        if run.startfile.endswith(".h5"):
+            # native checkpoint resume
+            from .io.restart import load_checkpoint
+            ck = case / run.startfile
+            ck = ck if ck.exists() else Path(outdir) / run.startfile
+            state = load_checkpoint(ck, model.grid, model=model)
+            sim.resume_stats(ck)   # lreadmean-equivalent continuation
+        else:
+            # reference Fortran unformatted restart files
+            from .io.restart import warmstart_state
+            sdir = case / "warmstart_files"
+            sdir = sdir if sdir.exists() else case
+            state = warmstart_state(sdir, run.startfile, exp, model.cfg,
+                                    model.grid, device=model.device)
+        if run.lstratstart and model.inputs is not None:
+            # lstratstart (modstartup.f90:991-1084): keep the restart
+            # velocities but re-impose the thl/qt profiles from prof.inp
+            p = model.inputs.prof
+            kw = dict(dtype=model.grid.torch_dtype, device=model.device)
+            tile = lambda prof: torch.as_tensor(
+                np.asarray(prof), **kw)[None, None, :].expand(
+                    model.grid.shape).clone()
+            newf = lambda f: dataclasses.replace(f, thl=tile(p["thl"]),
+                                                 qt=tile(p["qt"]))
+            state = state.replace(m=newf(state.m), c=newf(state.c))
+        print(f"warmstart from {run.startfile} "
+              f"t={float(state.timee):.2f}", flush=True)
+    final = sim.run(state, runtime=args.runtime, seed=args.seed)
+    print(f"done: t={float(final.timee):.3f}s after {sim.ntrun} steps; "
+          f"kernel launches: fused_diff_mom {fused_diff_mom.launch_count}, "
+          f"fused_diff_mom_masked {fused_diff_mom.masked_launch_count}",
+          flush=True)
+    return final

@@ -12,8 +12,9 @@
       elapsed time ``timee`` (both 0-d tensors on the field device), the
       facet state ``fac`` of energy-balance runs (``ibm.eb.FacetState``),
       the ``FacStats`` accumulators of lwritefac runs, the free-stream
-      controller ``ctl``, the rescale-recycle generator ``ig`` and the
-      rolling driver window ``drv``.
+      controller ``ctl``, the rescale-recycle generator ``ig``, the
+      rolling driver window ``drv`` and the wall-stress diagnostics
+      ``taud`` that the tx/ty/tz/hf field dumps write.
 """
 from __future__ import annotations
 
@@ -51,6 +52,8 @@ class State:
     ig: Any = None        # InletGen rescale-recycle state (ops/inletgen.py)
     drv: Any = None       # DriverWindow: rolling precursor-replay chunk
                           # (lchunkread streaming, io/driverstream.py)
+    taud: Any = None      # wall-stress diagnostics {x, y, z, hf} of the
+                          # last third substep (Model.need_taudiag)
 
     def replace(self, **kw) -> "State":
         return replace(self, **kw)
