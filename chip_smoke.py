@@ -96,6 +96,19 @@ the script exits non-zero without a result line:
      Model.run on urban-EB 128^3 in turns, and one sample and one write of
      each family alone (host ms, launches and device ms)
  35. runmodes 1003, 1004 and 1005 through the CLI
+ 36. the x/y split (parallel/mesh.py, parallel/multihost.py) on one rank
+     with NCCL: mesh 1 x 1, 32^3 float64, 5 steps through the real NCCL
+     collectives, every State leaf against Model.run without a mesh (1e-12)
+ 37. NCCL's answer to two ranks on the one card; then meshes 2 x 1, 1 x 2
+     and 2 x 2 of ranks that share the card (spawned processes, gloo,
+     exchanges staged through pinned host memory), 32^3 float64, 5 steps,
+     the gathered State against the single-process card run (1e-9)
+ 38. flat 128^3 float32 on the 2 x 2 mesh, 10 steps: gathered max|div u|,
+     3 kernel launches a step on each rank, one step under
+     torch.cuda.set_sync_debug_mode("error"), ms/step per rank and the
+     collectives a step (4 ranks on one card: not a speed of the split)
+ 39. the unmasked kernel at the 2 x 2 block shape 64 x 64 x 128 float32
+     against its plain version, timed beside its bound
 The line before the last is a JSON object describing the kernels and the
 main paths; the last line is {"ok": true, "device": {...}}.
 """
@@ -650,23 +663,26 @@ def open_boundary_phases(smi, fused, div_bound, pm128):
                 open_err=open_err)
 
 
-def leaf_parity(states):
-    """Worst max|cuda - cpu| / max|cpu| over every leaf of two States."""
-    from udales_tpu_torch.convert import state_to_numpy
+def leaf_errors(got, ref, prefix=""):
+    """{leaf: max|got - ref| / max|ref|} over the non-empty leaves of two
+    state_to_numpy trees."""
+    out = {}
+    for k, r in ref.items():
+        if isinstance(r, dict):
+            out.update(leaf_errors(got[k], r, f"{prefix}{k}."))
+        elif r.size:
+            scale = max(float(np.abs(r).max()), 1e-30)
+            out[f"{prefix}{k}"] = float(np.abs(got[k] - r).max()) / scale
+    return out
 
-    def leaves(tree, prefix=""):
-        for k, v in tree.items():
-            if isinstance(v, dict):
-                yield from leaves(v, f"{prefix}{k}.")
-            else:
-                yield f"{prefix}{k}", v
-    ref = dict(leaves(state_to_numpy(states["cpu"])))
-    worst = 0.0
-    for name, got in leaves(state_to_numpy(states["cuda"])):
-        if got.size:
-            scale = max(float(np.abs(ref[name]).max()), 1e-30)
-            worst = max(worst, float(np.abs(got - ref[name]).max()) / scale)
-    return worst, len(ref)
+
+def leaf_parity(states):
+    """Worst max|cuda - cpu| / max|cpu| over every leaf of two States, and
+    the number of leaves compared."""
+    from udales_tpu_torch.convert import state_to_numpy
+    errs = leaf_errors(state_to_numpy(states["cuda"]),
+                       state_to_numpy(states["cpu"]))
+    return max(errs.values()), len(errs)
 
 
 def dispersion_phases(smi, fused, div_bound, urban):
@@ -1329,6 +1345,261 @@ def open_xy_ghost_check(fused):
                      f"open x and y ghosts {grid.shape} {np_dt.__name__}", 24)
 
 
+# --- the x/y process split (phases 36-39) ------------------------------------
+
+# Ranks that share the one card: NCCL takes one rank per device (phase 37
+# prints its answer), so these ranks run gloo and stage every exchange
+# through pinned host memory, explicitly.  Nothing falls back to either.
+SHARED_BACKEND = "gloo"
+SHARED_STAGED = True
+SPLIT_MESHES = [(2, 1), (1, 2), (2, 2)]
+
+
+def start_ranks(fn, nprocs, args):
+    """`nprocs` processes of fn(rank, *args), spawn start method."""
+    return torch.multiprocessing.start_processes(
+        fn, args=args, nprocs=nprocs, join=False, start_method="spawn")
+
+
+def wait_ranks(ctx, timeout):
+    """Wait for the ranks of `start_ranks`; raises if one fails or they
+    outlive `timeout` seconds, and leaves none running."""
+    deadline = time.monotonic() + timeout
+    try:
+        while not ctx.join(timeout=2.0):
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"ranks still running after {timeout} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+            p.join()
+
+
+def nccl_shared_rank(rank, port, out):
+    """One of two ranks that ask NCCL for a communicator on the same card;
+    writes what NCCL answered."""
+    import os
+    from datetime import timedelta
+    import torch.distributed as dist
+    torch.cuda.set_device(0)
+    try:
+        dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                                rank=rank, world_size=2,
+                                timeout=timedelta(seconds=30))
+        t = torch.ones(1, device="cuda")
+        dist.all_reduce(t)
+        torch.cuda.synchronize()
+        msg = f"accepted (all_reduce gave {float(t)})"
+    except Exception as e:       # NCCL's answer is what this rank reports
+        msg = f"refused: {type(e).__name__}: {e}"
+    Path(out, f"nccl{rank}.txt").write_text(msg)
+    os._exit(0)                  # no teardown of a communicator in error
+
+
+def split_rank(rank, world, port, px, py, jobs, out):
+    """One rank of phases 37/38 on the shared card: the `world`-process
+    group, the px x py mesh, and each job of `jobs`; writes its results to
+    out/rank<r>.pkl."""
+    import pickle
+    import torch.distributed as dist
+    from udales_tpu_torch import entry
+    from udales_tpu_torch.convert import state_from_numpy, state_to_numpy
+    from udales_tpu_torch.ops.fused_diff import fused_diff_mom
+    from udales_tpu_torch.parallel.mesh import gather_state, make_mesh
+    from udales_tpu_torch.parallel.multihost import (init_distributed,
+                                                     shard_state_global)
+    torch.cuda.set_device(0)
+    init_distributed(f"localhost:{port}", world, rank, backend=SHARED_BACKEND,
+                     device="cuda", timeout=60.0)
+    mesh = make_mesh(px, py, host_staged=SHARED_STAGED)
+    res = {}
+    for job in jobs:
+        n, steps = job["n"], job["steps"]
+        model = entry._build(n, n, n, job["dtype"], mesh=mesh)  # the card
+        start = state_from_numpy(numpy_state(model.domain_grid, job["seed"]))
+        st = shard_state_global(start, mesh, device="cuda")
+        st = model.run(st, job.get("warm", 0))
+        torch.cuda.synchronize()
+        dist.barrier()
+        fused_diff_mom.launch_count = fused_diff_mom.masked_launch_count = 0
+        mesh.reset_counts()
+        t0 = time.perf_counter()
+        st = model.run(st, steps)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        r = dict(launches=fused_diff_mom.launch_count,
+                 masked=fused_diff_mom.masked_launch_count,
+                 ms_per_step=1e3 * wall / steps,
+                 collectives=mesh.collectives / steps,
+                 bytes=mesh.bytes / steps,
+                 comm_share=mesh.comm_seconds / wall,
+                 wait_share=mesh.wait_seconds / wall)
+        whole = gather_state(st, mesh)
+        if job.get("divergence"):
+            r["max_div"] = max_divergence(
+                SimpleNamespace(grid=model.domain_grid), whole.c)[0]
+            r["finite"] = all(bool(torch.isfinite(getattr(whole.c, k)).all())
+                              for k in ("u", "v", "w", "thl", "e12"))
+        else:
+            r["state"] = state_to_numpy(whole)
+        if job.get("sync_debug"):
+            # a host wait outside the mesh's collectives raises here
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                st = model.step(st)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            torch.cuda.synchronize()
+            r["sync_debug"] = True
+        res[job["name"]] = r
+    Path(out, f"rank{rank}.pkl").write_bytes(pickle.dumps(res))
+    dist.destroy_process_group()
+
+
+def split_phases(smi, fused):
+    """Phases 36-39: the x/y split of the flat path (parallel/mesh.py,
+    parallel/multihost.py) on the one card."""
+    import pickle
+    import tempfile
+    import torch.distributed as dist
+    from udales_tpu_torch import entry
+    from udales_tpu_torch.convert import state_from_numpy, state_to_numpy
+    from udales_tpu_torch.grid import Grid
+    from udales_tpu_torch.parallel.mesh import gather_state, make_mesh
+    from udales_tpu_torch.parallel.multihost import (free_port,
+                                                     init_distributed,
+                                                     shard_state_global)
+    out = {}
+    # the single-process reference on the card: 32^3 float64, 5 steps
+    ref_model = entry._build(32, 32, 32, "float64")
+    start = numpy_state(ref_model.grid, seed=7)
+    ref = state_to_numpy(ref_model.run(state_from_numpy(start,
+                                                        device="cuda"), 5))
+
+    # 36. one rank, NCCL: the real NCCL calls on CUDA tensors (spectra too)
+    init_distributed(f"localhost:{free_port()}", 1, 0, backend="nccl",
+                     device="cuda", timeout=60.0)
+    try:
+        mesh = make_mesh(1, 1)
+        model = entry._build(32, 32, 32, "float64", mesh=mesh)
+        st = shard_state_global(state_from_numpy(start), mesh, device="cuda")
+        mesh.reset_counts()
+        st = model.run(st, 5)
+        torch.cuda.synchronize()
+        ncoll = mesh.collectives
+        errs = leaf_errors(state_to_numpy(gather_state(st, mesh)), ref)
+    finally:
+        dist.destroy_process_group()
+    worst = max(errs, key=errs.get)
+    out["nccl_1x1"] = dict(max_rel_err=errs[worst], leaf=worst,
+                           collectives=ncoll, leaves=len(errs))
+    phase(36, f"mesh 1 x 1, backend nccl, host_staged False, 32^3 float64, 5 "
+              f"steps: {ncoll} NCCL collectives; every one of {len(errs)} "
+              f"leaves against Model.run without a mesh within "
+              f"{errs[worst]:.3e} relative (worst {worst}; tolerance 1e-12)")
+    if not errs[worst] <= 1e-12:
+        raise RuntimeError("the 1 x 1 NCCL split disagrees with Model.run")
+
+    CACHE.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="split_", dir=CACHE) as td:
+        # 37. NCCL's answer to two ranks on one card, and the shared-card
+        # meshes against the single-process card run: the probe and the
+        # 2 x 1 and 1 x 2 groups run together, then the 2 x 2 group alone,
+        # which also runs phase 38's path
+        parity = dict(name="parity", n=32, dtype="float64", steps=5, seed=7)
+        main_job = dict(name="main", n=128, dtype="float32", steps=10,
+                        warm=2, seed=43, divergence=True, sync_debug=True)
+        started = []
+
+        def group(fn, nprocs, args):
+            started.append(start_ranks(fn, nprocs, args))
+            return started[-1]
+
+        def split_group(px, py, jobs):
+            d = Path(td, f"m{px}x{py}")
+            d.mkdir()
+            return group(split_rank, px * py,
+                         (px * py, free_port(), px, py, jobs, str(d)))
+        t0 = time.perf_counter()
+        try:
+            probe = group(nccl_shared_rank, 2, (free_port(), td))
+            small = [split_group(2, 1, [parity]), split_group(1, 2, [parity])]
+            try:
+                wait_ranks(probe, 120)
+            except Exception as e:   # a rank NCCL killed reports nothing
+                print(f"  NCCL probe ranks ended: {type(e).__name__}: {e}",
+                      flush=True)
+            for ctx in small:
+                wait_ranks(ctx, 300)
+            wait_ranks(split_group(2, 2, [parity, main_job]), 600)
+        finally:                     # no rank outlives a failed phase
+            for ctx in started:
+                for proc in ctx.processes:
+                    if proc.is_alive():
+                        proc.kill()
+                    proc.join()
+        answers = [Path(td, f"nccl{r}.txt").read_text()
+                   if Path(td, f"nccl{r}.txt").exists() else "(no answer)"
+                   for r in (0, 1)]
+        out["nccl_shared_card"] = answers
+        phase(37, "two NCCL ranks on one card: " + " | ".join(
+            a.replace("\n", " ")[:400] for a in answers))
+        out["shared"] = {"seconds": time.perf_counter() - t0}
+        for px, py in SPLIT_MESHES:
+            ranks = [pickle.loads(Path(td, f"m{px}x{py}", f"rank{r}.pkl")
+                                  .read_bytes()) for r in range(px * py)]
+            errs = leaf_errors(ranks[0]["parity"]["state"], ref)
+            worst = max(errs, key=errs.get)
+            launches = [r["parity"]["launches"] for r in ranks]
+            out["shared"][f"{px}x{py}"] = dict(max_rel_err=errs[worst],
+                                               leaf=worst, launches=launches)
+            phase(37, f"mesh {px} x {py} on one card, backend "
+                      f"{SHARED_BACKEND}, host_staged {SHARED_STAGED}, 32^3 "
+                      f"float64, 5 steps: the gathered State against the "
+                      f"single-process card run within {errs[worst]:.3e} "
+                      f"relative in every leaf (worst {worst}; tolerance "
+                      f"1e-9); kernel launches per rank {launches}")
+            if not errs[worst] <= 1e-9 or any(n != 15 for n in launches):
+                raise RuntimeError(f"the {px} x {py} split disagrees with "
+                                   f"the single-process run")
+        main = [r["main"] for r in ranks]
+
+    # 38. flat 128^3 float32 on 2 x 2 (the ranks of the 2 x 2 group above)
+    out["main_2x2"] = main
+    phase(38, f"flat 128^3 float32 on mesh 2 x 2, backend {SHARED_BACKEND}, "
+              f"host_staged {SHARED_STAGED}, 10 steps: gathered max|div u| "
+              f"{main[0]['max_div']:.3e} (bound 1e-5); kernel launches per "
+              f"rank {[m['launches'] for m in main]} (= 3 x 10); one step "
+              f"under set_sync_debug_mode('error'): no host wait outside the "
+              f"collectives")
+    print("  4 ranks on one H100, host-staged: not a speed of the split. "
+          f"{smi}: ms/step per rank "
+          f"{[round(m['ms_per_step'], 3) for m in main]}; collectives a step "
+          f"{main[0]['collectives']:.1f}, {main[0]['bytes'] / 1e6:.3f} MB "
+          f"sent a step per rank; share of the step in the staged "
+          f"collectives (host copy, gloo, copy back) "
+          f"{[round(m['comm_share'], 3) for m in main]}, waiting for the "
+          f"card before them {[round(m['wait_share'], 3) for m in main]}",
+          flush=True)
+    if not (all(m["finite"] and m["sync_debug"] for m in main)
+            and main[0]["max_div"] <= 1e-5
+            and all(m["launches"] == 30 and m["masked"] == 0
+                    for m in main)):
+        raise RuntimeError("the 2 x 2 split of the flat 128^3 path failed "
+                           "its checks")
+
+    # 39. the kernel at the block shape of the 2 x 2 split of 128^3
+    gb = Grid.uniform(64, 64, 128, 64.0, 64.0, 128.0, dtype=np.float32)
+    out["block_err"] = check_kernel(
+        fused, random_ghosts(gb, torch.float32, "cuda", seed=39), gb, None,
+        1e-5, f"block {gb.shape} float32", 39)
+    out["block"] = time_kernel(
+        fused, random_ghosts(gb, torch.float32, "cuda", seed=40), gb, None,
+        smi, f"block {gb.shape} float32", 39)
+    return out
+
+
 def main():
     # 1. a CUDA device, or nothing
     if not torch.cuda.is_available():
@@ -1534,6 +1805,9 @@ def main():
     drv_out = driver_phases(smi, fused_diff_mom, div_bound, eb128, urban,
                             cases.stage_urban_driven(32, CACHE))
 
+    # 36.-39. the x/y split of the flat path
+    split = split_phases(smi, fused_diff_mom)
+
     foreign = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "udales_tpu"))
     if foreign:
@@ -1550,7 +1824,11 @@ def main():
          "launches_256": big["launches"],
          "launches_recycle_128": drv["recycle"]["launches"],
          "max_abs_err_open_ghosts": drv["open_err"]["unmasked"],
-         **{f"{k}_256": v for k, v in t256.items()}},
+         **{f"{k}_256": v for k, v in t256.items()},
+         "launches_split_2x2_per_rank": [m["launches"] for m in
+                                         split["main_2x2"]],
+         "max_abs_err_block_64x64x128": split["block_err"],
+         **{f"{k}_block_64x64x128": v for k, v in split["block"].items()}},
         {"name": "fused_diff_mom_masked", "route": "cuda", "source": src,
          "replaces": "udales_tpu/ops/pallas_stencil.py:191",
          "launches": urb["launches"], "max_abs_err": masked_err,
@@ -1586,7 +1864,9 @@ def main():
         "oneeqn_128": {**rates(disp["oneeqn"]), **{
             k: disp["oneeqn"][k] for k in ("e12_min", "e12_max",
                                            "max_div")}},
-        "driver": drv_out}))
+        "driver": drv_out,
+        "split": {k: split[k] for k in ("nccl_1x1", "nccl_shared_card",
+                                        "shared", "main_2x2")}}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -5,6 +5,11 @@ and its udales_tpu_torch counterpart.  The port keeps the reference's
 arithmetic order, so the tolerance is 1e-12 * max(1, max|ref|): a few ulps
 of float64, far below any indexing or formula error.
 """
+import pytest
+
+# the card's machine has no JAX: the whole file skips there
+pytest.importorskip("jax")
+
 import dataclasses
 import subprocess
 import sys
@@ -13,7 +18,6 @@ from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
-import pytest
 import torch
 
 from udales_tpu import state as jstate

@@ -145,7 +145,7 @@ COPIES = ["config.py", "io/inputs.py", "prep/stl.py", "prep/geom.py",
           "prep/weather.py", "prep/prep.py", "io/driverfiles.py",
           "prep/syntheticinflow.py", "prep/harmonie.py",
           "prep/vegetation.py", "prep/inps.py", "io/netcdf.py",
-          "prep/__main__.py"]
+          "prep/__main__.py", "post.py", "vis.py"]
 
 
 @pytest.mark.parametrize("rel", COPIES)

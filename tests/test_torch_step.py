@@ -9,8 +9,9 @@ so trajectories drift apart at rounding level: the stated tolerance is
 
 The tests marked ``cuda`` hold one step on the card against the same step
 on the CPU (16^3 float64, 1e-9): the driven urban case, the rescale-recycle
-inlet and the three variants of the dispersion case.  They skip without a
-card.  JAX and the JAX package are imported only inside the tests that need
+inlet and the three variants of the dispersion case; and one step of two
+ranks that share the card on a 2 x 1 mesh (gloo, host-staged) against the
+single-process step on the card.  They skip without a card.  JAX and the JAX package are imported only inside the tests that need
 them, so the file runs where JAX is not installed:
 
     python -m pytest --noconftest -m cuda tests/test_torch_step.py
@@ -378,3 +379,32 @@ def test_dispersion_step_on_card_matches_cpu(cuda, tmp_path, variant):
     names = card_against_cpu(staged_builder(
         lambda: cases.stage_urban_dispersion(16, tmp_path, **variant)))
     assert {"c.sv", "m.sv", "c.e12"} <= set(names)
+
+
+@pytest.mark.cuda
+def test_split_step_on_shared_card_matches_one_process(cuda, tmp_path):
+    """Two ranks that share the card (gloo, host-staged exchanges) on a
+    2 x 1 mesh: one adaptive flat step at 16^3 float64, gathered, against
+    the single-process step on the card (every leaf to 1e-9); the kernel
+    launches 3 times on each rank."""
+    from torch_split_worker import free_port, launch
+    model = entry._build(16, 16, 16, "float64", device="cuda")
+    start = state_to_numpy(entry._init_state(model, seed=7))
+    ref = state_to_numpy(model.step(state_from_numpy(start, device="cuda")))
+    case = dict(name="flat", cfg=model.cfg, zf=model.grid.zf,
+                dpdxl=np.full(16, -1e-4), state=start, steps=1)
+    res = launch(dict(world=2, address=f"localhost:{free_port()}",
+                      backend="gloo", device="cuda", host_staged=True,
+                      timeout=60.0, mesh=(2, 1), cases=[case]), tmp_path)
+    for r in res:
+        out = r["cases"]["flat"]
+        assert out["launches"] == 3
+        got = out["gathered"]
+        for part in ("m", "c"):
+            for k in ("u", "v", "w", "thl", "e12"):
+                scale = np.abs(ref[part][k]).max()
+                err = np.abs(got[part][k] - ref[part][k]).max()
+                assert err <= 1e-9 * scale, (part, k, err)
+        for k in ("pres", "dt", "timee"):
+            assert np.abs(got[k] - ref[k]).max() <= \
+                1e-9 * np.abs(ref[k]).max(), k

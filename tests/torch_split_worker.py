@@ -1,0 +1,209 @@
+"""One rank of a split run of udales_tpu_torch, for tests/test_torch_split.py,
+tests/test_torch_multihost.py and the card case of tests/test_torch_step.py.
+It imports torch and udales_tpu_torch, never JAX or udales_tpu.
+
+    python tests/torch_split_worker.py JOB RANK
+
+JOB is a pickle the test writes:
+
+  - "world", "address": the group's size and "host:port"; address None
+    takes the group from torchrun's environment (MASTER_ADDR, MASTER_PORT,
+    RANK, WORLD_SIZE), as ``init_distributed()`` does with no arguments,
+    and "bare" leaves that environment unset (one process on a free port);
+  - "backend", "device", "host_staged", "timeout";
+  - "mesh": (px, py), or None for ``global_mesh()``;
+  - "cases": [{"name", "cfg" (a udales_tpu_torch Config), "zf", "dpdxl",
+    "state" (numpy, as ``convert.state_to_numpy``), "steps"}], each taken
+    from the whole-domain State by ``shard_state_global`` and run for
+    "steps" steps on the mesh;
+  - "checks": also hold the halo exchange (h = 1, 2) against ``pad_wrap``,
+    ``gather_state(shard_state(.))`` against the identity (and the blocks
+    against ``state_shardings``), and the split slab means against the
+    whole domain's;
+  - "dryrun": run ``entry.dryrun_multichip(world)`` instead;
+  - "out": the directory where rank r writes rank<r>.pkl: the mesh
+    coordinates, and per case this rank's block and the gathered State
+    after the steps, the kernel's launches and the collectives.
+"""
+import os
+import pickle
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+
+from udales_tpu_torch import entry  # noqa: E402
+from udales_tpu_torch.convert import (state_from_numpy,  # noqa: E402
+                                      state_to_numpy)
+from udales_tpu_torch.grid import Grid  # noqa: E402
+from udales_tpu_torch.ops.fused_diff import fused_diff_mom  # noqa: E402
+from udales_tpu_torch.ops.halo import pad_wrap  # noqa: E402
+from udales_tpu_torch.ops.thermo import avexy_masked, slab_mean  # noqa
+from udales_tpu_torch.parallel.mesh import (gather_state,  # noqa: E402
+                                            make_mesh, shard_state,
+                                            state_shardings)
+from udales_tpu_torch.parallel.multihost import (  # noqa: E402
+    free_port, global_mesh, init_distributed, shard_state_global)
+from udales_tpu_torch.run import Model  # noqa: E402
+
+
+def start(job, out):
+    """Start the job's ranks as processes of this script (torchrun's
+    environment when job["address"] is None); `finish` collects them."""
+    out = Path(out)
+    out.mkdir(parents=True, exist_ok=True)
+    job = {**job, "out": str(out)}
+    path = out / "job.pkl"
+    path.write_bytes(pickle.dumps(job))
+    port = free_port()
+    base = {k: v for k, v in os.environ.items()
+            if k not in ("XLA_FLAGS", "JAX_PLATFORMS")}
+    base["OMP_NUM_THREADS"] = "1"
+    procs = []
+    for r in range(job["world"]):
+        env = dict(base)
+        if job["address"] is None and not job.get("bare"):
+            env.update(MASTER_ADDR="localhost", MASTER_PORT=str(port),
+                       RANK=str(r), WORLD_SIZE=str(job["world"]))
+        procs.append(subprocess.Popen(
+            [sys.executable, __file__, str(path), str(r)], env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    return out, procs
+
+
+def finish(started, timeout=120):
+    """The ranks' results, rank by rank.  A rank that fails or outlives
+    `timeout` seconds fails the caller with the output of every rank."""
+    out, procs = started
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=timeout)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    failed = [r for r, p in enumerate(procs) if p.returncode != 0]
+    if failed:
+        raise RuntimeError(f"ranks {failed} failed:\n" + "\n".join(
+            f"--- rank {r}:\n{log[-3000:]}" for r, log in enumerate(logs)))
+    return [pickle.loads((out / f"rank{r}.pkl").read_bytes())
+            for r in range(len(procs))]
+
+
+def launch(job, out, timeout=120):
+    """`start` then `finish`."""
+    return finish(start(job, out), timeout)
+
+
+def build(case, device, mesh):
+    cfg = case["cfg"]
+    d = cfg.domain
+    grid = Grid(d.itot, d.jtot, d.ktot, d.xlen, d.ylen, case["zf"],
+                dtype=np.dtype(cfg.dtype))
+    model = Model(cfg, grid, device=device, mesh=mesh)
+    model.dpdxl = torch.as_tensor(case["dpdxl"], dtype=grid.torch_dtype,
+                                  device=model.device)
+    return model
+
+
+def halo_errors(mesh, device):
+    """max|mesh.wrap_xy(block) - pad_wrap(pad_wrap(whole))[block]| for h =
+    1, 2 over a cell field, a face field and a stacked field."""
+    gen = torch.Generator().manual_seed(5)
+    errs = {1: 0.0, 2: 0.0}
+    for shape in ((16, 12, 8), (16, 12, 9), (2, 16, 12, 8)):
+        whole = torch.rand(shape, generator=gen, dtype=torch.float64)
+        whole = whole.to(device)
+        bx, by = shape[-3] // mesh.px, shape[-2] // mesh.py
+        i0, j0 = mesh.cx * bx, mesh.cy * by
+        block = whole[..., i0:i0 + bx, j0:j0 + by, :].contiguous()
+        for h in (1, 2):
+            got = mesh.wrap_xy(block, h)
+            want = pad_wrap(pad_wrap(whole, -3, h), -2, h)[
+                ..., i0:i0 + bx + 2 * h, j0:j0 + by + 2 * h, :]
+            errs[h] = max(errs[h], float((got - want).abs().max()))
+    return errs
+
+
+def identity_error(case, mesh, device):
+    """max|gather_state(shard_state(st)) - st| over every leaf, and the
+    blocks of shard_state against the slices of state_shardings."""
+    st = state_from_numpy(case["state"], device=device)
+    blocks = shard_state(st, mesh)
+    back = state_to_numpy(gather_state(blocks, mesh))
+    cut = state_shardings(st, mesh)
+    ref = case["state"]
+    errs = [float(np.abs(back[p][k] - ref[p][k]).max()) if ref[p][k].size
+            else 0.0 for p in ("m", "c") for k in ref[p]]
+    errs += [float(np.abs(back[k] - ref[k]).max())
+             for k in ("pres", "dt", "timee")]
+    for k in ("u", "w", "sv"):
+        want = getattr(st.c, k)[getattr(cut.c, k)]
+        errs.append(0.0 if torch.equal(getattr(blocks.c, k), want) else 1.0)
+    return max(errs)
+
+
+def reduction_errors(mesh, device):
+    """max|split slab mean - whole slab mean| of ``avexy_masked`` (with and
+    without a fluid mask) and ``slab_mean`` on a seeded field."""
+    gen = torch.Generator().manual_seed(6)
+    whole = torch.rand((16, 12, 8), generator=gen, dtype=torch.float64)
+    mask = (torch.rand((16, 12, 8), generator=gen) > 0.3).double()
+    bx, by = 16 // mesh.px, 12 // mesh.py
+    cut = lambda a: a[mesh.cx * bx:(mesh.cx + 1) * bx,
+                      mesh.cy * by:(mesh.cy + 1) * by].to(device)
+    pairs = [(avexy_masked(cut(whole), mesh=mesh), avexy_masked(whole)),
+             (avexy_masked(cut(whole), cut(mask), mesh=mesh),
+              avexy_masked(whole, mask)),
+             (slab_mean(cut(whole), mesh=mesh), slab_mean(whole))]
+    return max(float((a.cpu() - b).abs().max()) for a, b in pairs)
+
+
+def main(job_path, rank):
+    job = pickle.loads(Path(job_path).read_bytes())
+    device = torch.device(job["device"])
+    torch.set_num_threads(1)
+    addr = job["address"]
+    init_distributed(addr, job["world"] if addr else None,
+                     rank if addr else None, backend=job["backend"],
+                     device=device, timeout=job.get("timeout", 60.0))
+    rank = dist.get_rank()
+    res = {}
+    if job.get("dryrun"):
+        mesh, out = entry.dryrun_multichip(job["world"], device=device,
+                                           host_staged=job["host_staged"])
+        res["dryrun"] = state_to_numpy(out)
+    else:
+        mesh = (make_mesh(*job["mesh"], host_staged=job["host_staged"])
+                if job["mesh"] else global_mesh(host_staged=job["host_staged"]))
+        res["cases"] = {}
+        for case in job["cases"]:
+            model = build(case, device, mesh)
+            st = shard_state_global(state_from_numpy(case["state"]), mesh,
+                                    device=device)
+            fused_diff_mom.launch_count = 0
+            mesh.reset_counts()
+            out = model.run(st, case["steps"])
+            res["cases"][case["name"]] = dict(
+                block=state_to_numpy(out), launches=fused_diff_mom.launch_count,
+                collectives=mesh.collectives,
+                gathered=state_to_numpy(gather_state(out, mesh)))
+        if job.get("checks"):
+            res["halo"] = halo_errors(mesh, device)
+            res["identity"] = identity_error(job["cases"][0], mesh, device)
+            res["reductions"] = reduction_errors(mesh, device)
+    res["mesh"] = (mesh.px, mesh.py, mesh.cx, mesh.cy)
+    Path(job["out"], f"rank{rank}.pkl").write_bytes(pickle.dumps(res))
+    dist.destroy_process_group()
+    print(f"SPLIT_WORKER_OK rank={rank}", flush=True)
+
+
+if __name__ == "__main__":
+    main(sys.argv[1], int(sys.argv[2]))

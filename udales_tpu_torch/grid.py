@@ -11,9 +11,14 @@ Index conventions (0-based):
   - faces:         xh[i] = i dx (u lives here), yh[j] = j dy (v), zh[k] (w)
   - dzf[k] = zh[k+1] - zh[k],  k = 0..ktot-1
   - dzh[k] = zf[k] - zf[k-1] with dzh[0] = 2 zf[0],  k = 0..ktot
+
+``block(mesh)`` gives one rank's share of the grid under an x/y process split
+(``parallel.mesh``): its ``itot``/``jtot`` and x/y coordinates are the
+block's, ``global_shape``, ``xlen`` and ``ylen`` the domain's.
 """
 from __future__ import annotations
 
+import copy
 from pathlib import Path
 
 import numpy as np
@@ -99,6 +104,10 @@ class Grid:
                                        [1.0 / dzh[-1]]])
 
         self._tensor_cache: dict = {}
+        # a whole-domain grid; `block` sets these for one rank's block
+        self.mesh = None
+        self.i0 = self.j0 = 0
+        self.global_shape = (itot, jtot, ktot)
 
     # -- constructors -----------------------------------------------------
     @classmethod
@@ -113,6 +122,36 @@ class Grid:
         """z levels from a reference prof.inp file (col 0 = zf)."""
         data = np.loadtxt(path, skiprows=2)
         return cls(itot, jtot, ktot, xlen, ylen, data[:ktot, 0], dtype)
+
+    def block(self, mesh) -> "Grid":
+        """This rank's (itot/px, jtot/py, ktot) block on `mesh`
+        (``parallel.mesh.Mesh``), whose first cell is (i0, j0) of the
+        domain.  The blocks and the Poisson pencils (x/px, y, z/py) and
+        (x, y/px, z/py) must divide the grid; ValueError names the condition
+        that fails."""
+        if self.mesh is not None:
+            raise ValueError("block: this grid is already a block")
+        px, py = mesh.px, mesh.py
+        checks = {"itot % px == 0": self.itot % px,
+                  "jtot % py == 0": self.jtot % py,
+                  "jtot % px == 0": self.jtot % px,
+                  "ktot % px == 0": self.ktot % px,
+                  "ktot % py == 0": self.ktot % py}
+        bad = [k for k, v in checks.items() if v]
+        if bad:
+            raise ValueError(f"grid {self.shape} does not split over a "
+                             f"{px} x {py} mesh: " + ", ".join(
+                                 f"{k} fails" for k in bad))
+        g = copy.copy(self)
+        g._tensor_cache = {}
+        g.mesh = mesh
+        g.itot, g.jtot = self.itot // px, self.jtot // py
+        g.i0, g.j0 = mesh.cx * g.itot, mesh.cy * g.jtot
+        g.xh = self.xh[g.i0: g.i0 + g.itot + 1]
+        g.xf = self.xf[g.i0: g.i0 + g.itot]
+        g.yh = self.yh[g.j0: g.j0 + g.jtot + 1]
+        g.yf = self.yf[g.j0: g.j0 + g.jtot]
+        return g
 
     # -- tensor views -----------------------------------------------------
     def t(self, name: str, device) -> torch.Tensor:

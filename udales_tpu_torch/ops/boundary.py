@@ -8,7 +8,9 @@ as the halo exchange, see ops/halo.py) or open: profile/driver inlet and
 convective outlet (modboundary.f90:688-996 in x, :1017-1190 in y).  For an
 open direction the ghost planes come from a context dict built per substep
 (see ops/openbc.py): ``openx = {"inlet": {...interior-k planes...}, "bx":
-XPlanes}``, ``openy = {"inlet": {...}, "by": YPlanes}``.
+XPlanes}``, ``openy = {"inlet": {...}, "by": YPlanes}``.  Under an x/y
+process split (``parallel.mesh``; the flat path only) the periodic wrap is
+the mesh's halo exchange.
 """
 from __future__ import annotations
 
@@ -56,9 +58,16 @@ def _assemble_xy(gk, h, xlo, xhi, ylo, yhi):
     return torch.cat([*([ylo_e] * h), gx, *([yhi_e] * h)], dim=-2)
 
 
-def _dispatch(gk, h, cfg, xlo=None, xhi=None, ylo=None, yhi=None):
+def _dispatch(gk, h, cfg, xlo=None, xhi=None, ylo=None, yhi=None,
+              mesh=None):
     """Assemble ghosts from whichever open-boundary planes exist; periodic
-    wrap in any direction without planes."""
+    wrap in any direction without planes, exchanged over the ranks of
+    `mesh` when one is given."""
+    if mesh is not None:
+        if xlo is not None or ylo is not None:
+            raise NotImplementedError("open-boundary ghosts under an x/y "
+                                      "split are not ported yet")
+        return mesh.wrap_xy(gk, h)
     if xlo is not None and ylo is not None:
         return _assemble_xy(gk, h, xlo, xhi, ylo, yhi)
     if xlo is not None:
@@ -90,7 +99,8 @@ def _kg_scalar(f, top):
     return pad_axis(f, f.ndim - 1, take_k(f, 0), top)
 
 
-def ghost_u(u, cfg: Config, h: int = 1, openx=None, openy=None):
+def ghost_u(u, cfg: Config, h: int = 1, openx=None, openy=None,
+            mesh=None):
     """u ghosts: bottom ghost 0 (the molecular no-slip stress with the
     mirrored ekm of closurebc); top per BCtopm; x per BCxm (profile inlet
     ghost 2u(ib)-u(ib+1), modboundary.f90:699; driver ghost = driver plane
@@ -109,10 +119,11 @@ def ghost_u(u, cfg: Config, h: int = 1, openx=None, openy=None):
                         cfg)
         ylo = 2.0 * uprof_k - gk[:, 0]
         yhi = _kg_u(openy["by"].u, cfg)
-    return _dispatch(gk, h, cfg, xlo, xhi, ylo, yhi)
+    return _dispatch(gk, h, cfg, xlo, xhi, ylo, yhi, mesh)
 
 
-def ghost_v(v, cfg: Config, h: int = 1, openx=None, openy=None):
+def ghost_v(v, cfg: Config, h: int = 1, openx=None, openy=None,
+            mesh=None):
     gk = _kg_v(v, cfg)
     xlo = xhi = ylo = yhi = None
     if openx is not None:
@@ -126,10 +137,11 @@ def ghost_v(v, cfg: Config, h: int = 1, openx=None, openy=None):
         # ymi_profile: v(jb)=vprof pinned in the update; ghost extrapolates
         ylo = 2.0 * gk[:, 0] - gk[:, 1]
         yhi = _kg_v(openy["by"].v, cfg)
-    return _dispatch(gk, h, cfg, xlo, xhi, ylo, yhi)
+    return _dispatch(gk, h, cfg, xlo, xhi, ylo, yhi, mesh)
 
 
-def ghost_w(w, cfg: Config, h: int = 1, openx=None, openy=None):
+def ghost_w(w, cfg: Config, h: int = 1, openx=None, openy=None,
+            mesh=None):
     """w is a face tensor (nx, ny, nz+1); bottom/top faces impermeable
     (modboundary.f90:165-166, 177) except under the pressure top BC, where
     the top face is prognostic."""
@@ -147,7 +159,7 @@ def ghost_w(w, cfg: Config, h: int = 1, openx=None, openy=None):
     if openy is not None:
         ylo = -w[:, 0]
         yhi = openy["by"].w
-    return _dispatch(w, h, cfg, xlo, xhi, ylo, yhi)
+    return _dispatch(w, h, cfg, xlo, xhi, ylo, yhi, mesh)
 
 
 def _scalar_top_ghost(f, ekh, grid: Grid, flux: float, value: float,
@@ -169,7 +181,7 @@ def _kg_plane(p):
 
 
 def ghost_thl(thl, ekh, cfg: Config, grid: Grid, h: int = 1, openx=None,
-              openy=None):
+              openy=None, mesh=None):
     top = _scalar_top_ghost(thl, ekh, grid, cfg.bc.wttop, cfg.bc.thl_top,
                             cfg.bc.BCtopT)
     gk = _kg_scalar(thl, top)
@@ -185,11 +197,11 @@ def ghost_thl(thl, ekh, cfg: Config, grid: Grid, h: int = 1, openx=None,
                                                         thl.shape[2]))
         ylo = 2.0 * prof_k - gk[:, 0]
         yhi = _kg_plane(openy["by"].thl)
-    return _dispatch(gk, h, cfg, xlo, xhi, ylo, yhi)
+    return _dispatch(gk, h, cfg, xlo, xhi, ylo, yhi, mesh)
 
 
 def ghost_qt(qt, ekh, cfg: Config, grid: Grid, h: int = 1, openx=None,
-             openy=None):
+             openy=None, mesh=None):
     top = _scalar_top_ghost(qt, ekh, grid, cfg.bc.wqtop, cfg.bc.qt_top,
                             cfg.bc.BCtopq)
     gk = _kg_scalar(qt, top)
@@ -206,10 +218,11 @@ def ghost_qt(qt, ekh, cfg: Config, grid: Grid, h: int = 1, openx=None,
                                                        qt.shape[2]))
         ylo = 2.0 * prof_k - gk[:, 0]
         yhi = _kg_plane(openy["by"].qt)
-    return _dispatch(gk, h, cfg, xlo, xhi, ylo, yhi)
+    return _dispatch(gk, h, cfg, xlo, xhi, ylo, yhi, mesh)
 
 
-def ghost_e12(e12, cfg: Config, h: int = 1, openx=None, openy=None):
+def ghost_e12(e12, cfg: Config, h: int = 1, openx=None, openy=None,
+              mesh=None):
     if cfg.bc.BCtopm in (BCTOPM_FREESLIP, BCTOPM_PRESSURE):
         top = torch.full_like(take_k(e12, -1), const.e12min)
     else:
@@ -222,7 +235,7 @@ def ghost_e12(e12, cfg: Config, h: int = 1, openx=None, openy=None):
     if openy is not None:
         ylo = gk[:, 0]
         yhi = _kg_plane(openy["by"].e12)
-    return _dispatch(gk, h, cfg, xlo, xhi, ylo, yhi)
+    return _dispatch(gk, h, cfg, xlo, xhi, ylo, yhi, mesh)
 
 
 def _ghost_kappa(c, cfg: Config, h: int, hk: int, xin=None, xout=None,
@@ -275,7 +288,7 @@ def ghost_sv(sv, cfg: Config, openx=None, openy=None):
 
 
 def ghost_ek(ekm, ekh, cfg: Config, grid: Grid, h: int = 1, openx=None,
-             openy=None):
+             openy=None, mesh=None):
     """closurebc (modboundary.f90:434-505).  The bottom ghost mirrors about
     the molecular value, 2*numol - ekm (bottom.py reads it at k=0); zero
     gradient at any inflow/outflow face (:467-475)."""
@@ -295,7 +308,7 @@ def ghost_ek(ekm, ekh, cfg: Config, grid: Grid, h: int = 1, openx=None,
         xhi = gk[-1] if openx is not None else None
         ylo = gk[:, 0] if openy is not None else None
         yhi = gk[:, -1] if openy is not None else None
-        return _dispatch(gk, h, cfg, xlo, xhi, ylo, yhi)
+        return _dispatch(gk, h, cfg, xlo, xhi, ylo, yhi, mesh)
     return (mk(pad_axis(ekm, 2, bot_m, top_m)),
             mk(pad_axis(ekh, 2, bot_h, top_h)))
 
@@ -316,14 +329,17 @@ class Ghosts:
 
 def make_ghosts(f: Fields, ekm, ekh, cfg: Config, grid: Grid,
                 h: int = 1, openx=None, openy=None) -> Ghosts:
-    gm, gh = ghost_ek(ekm, ekh, cfg, grid, h, openx, openy)
+    """Every ghosted view of one substep; on a block grid (``Grid.block``)
+    the periodic halos come from the neighbouring ranks."""
+    mesh = grid.mesh
+    gm, gh = ghost_ek(ekm, ekh, cfg, grid, h, openx, openy, mesh)
     return Ghosts(
-        u=ghost_u(f.u, cfg, h, openx, openy),
-        v=ghost_v(f.v, cfg, h, openx, openy),
-        w=ghost_w(f.w, cfg, h, openx, openy),
-        thl=ghost_thl(f.thl, ekh, cfg, grid, h, openx, openy),
-        qt=ghost_qt(f.qt, ekh, cfg, grid, h, openx, openy),
-        e12=ghost_e12(f.e12, cfg, h, openx, openy),
+        u=ghost_u(f.u, cfg, h, openx, openy, mesh),
+        v=ghost_v(f.v, cfg, h, openx, openy, mesh),
+        w=ghost_w(f.w, cfg, h, openx, openy, mesh),
+        thl=ghost_thl(f.thl, ekh, cfg, grid, h, openx, openy, mesh),
+        qt=ghost_qt(f.qt, ekh, cfg, grid, h, openx, openy, mesh),
+        e12=ghost_e12(f.e12, cfg, h, openx, openy, mesh),
         sv=(ghost_sv(f.sv, cfg, openx, openy) if f.sv.shape[0] > 0
             else f.sv),
         ekm=gm,

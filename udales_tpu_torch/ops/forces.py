@@ -79,8 +79,8 @@ def masscorr_uvol(up, um, grid: Grid, cfg: Config, rk3coef, IIu=None):
     provisional u matches uflowrate.  `IIu` is the IBM u fluid mask of the
     slab averages (None: all fluid)."""
     nz = grid.ktot
-    uvol = avexy_masked(up, IIu)
-    uvolold = avexy_masked(um, IIu)
+    uvol = avexy_masked(up, IIu, mesh=grid.mesh)
+    uvolold = avexy_masked(um, IIu, mesh=grid.mesh)
     dzf = grid.t("dzf_g", up.device)[1: nz + 1]
     zh_top = float(grid.zh[-1])
     uoutflow = rk3coef * torch.sum(uvol * dzf) / zh_top
@@ -93,8 +93,8 @@ def masscorr_vvol(vp, vm, grid: Grid, cfg: Config, rk3coef, IIv=None):
     """The lvvolflowr counterpart of `masscorr_uvol`; `IIv` is the IBM v
     fluid mask."""
     nz = grid.ktot
-    vvol = avexy_masked(vp, IIv)
-    vvolold = avexy_masked(vm, IIv)
+    vvol = avexy_masked(vp, IIv, mesh=grid.mesh)
+    vvolold = avexy_masked(vm, IIv, mesh=grid.mesh)
     dzf = grid.t("dzf_g", vp.device)[1: nz + 1]
     zh_top = float(grid.zh[-1])
     voutflow = rk3coef * torch.sum(vvol * dzf) / zh_top

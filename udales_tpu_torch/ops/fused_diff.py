@@ -24,6 +24,7 @@ tensors it launches a kernel or raises: there is no fallback.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -72,25 +73,33 @@ def compile_library(source: Path, flags=NVCC_FLAGS):
     """Compile `source` with nvcc into a shared library under ``_build/``
     unless that was done before; returns (path, nvcc's output, "" when the
     library was there already).  The file name carries the hash of the
-    source and the flags, so a stale library is never loaded."""
+    source and the flags, so a stale library is never loaded.  Processes
+    that start together (the ranks of a split run) build one after another
+    under a lock on ``_build/.lock``, which the system releases when its
+    holder exits: the first builds, the others find the library."""
     tag = hashlib.sha1(source.read_bytes()
                        + " ".join(flags).encode()).hexdigest()
     lib = BUILD_DIR / f"lib{source.stem}-{tag[:16]}.so"
     if lib.exists():
         return lib, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        res = subprocess.run([_find_nvcc(), *flags, "-o", tmp, str(source)],
-                             capture_output=True, text=True)
-        log = res.stdout + res.stderr
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {source}:\n{log}")
-        os.replace(tmp, lib)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
+    with open(BUILD_DIR / ".lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if lib.exists():
+            return lib, ""
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        try:
+            res = subprocess.run([_find_nvcc(), *flags, "-o", tmp,
+                                  str(source)], capture_output=True,
+                                 text=True)
+            log = res.stdout + res.stderr
+            if res.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {source}:\n{log}")
+            os.replace(tmp, lib)
+        finally:
+            if os.path.exists(tmp):
+                os.remove(tmp)
     return lib, log
 
 

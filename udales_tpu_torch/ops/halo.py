@@ -2,7 +2,9 @@
 
 Halos are values: fields are padded with periodic copies or explicit ghost
 planes, which on one device replaces the reference's MPI halo exchange
-(modboundary.f90:67-109).
+(modboundary.f90:67-109).  Split over processes (``parallel.mesh``), the
+periodic wrap of a split axis is the mesh's exchange with the neighbouring
+ranks.
 """
 from __future__ import annotations
 
@@ -21,8 +23,11 @@ def pad_edge(f, dim: int, h: int):
                       *([f.narrow(dim, f.shape[dim] - 1, 1)] * h)], dim=dim)
 
 
-def pad_periodic_xy(f, h: int = 1):
-    """Periodic wrap pad of width h in axes 0 (x) and 1 (y)."""
+def pad_periodic_xy(f, h: int = 1, mesh=None):
+    """Periodic wrap pad of width h in axes 0 (x) and 1 (y) of a 3-D field;
+    over the ranks of `mesh` when one is given."""
+    if mesh is not None:
+        return mesh.wrap_xy(f, h)
     return pad_wrap(pad_wrap(f, 0, h), 1, h)
 
 

@@ -22,6 +22,17 @@ of modpois.f90).  The z direction takes one of four routes:
 The routes differ in the additive constant of p (zeroed mean against the
 Dirichlet pin); the projection takes only its gradient.  Density is
 Boussinesq (rhobf = rhobh = 1).
+
+Under an x/y process split (`mesh`, ``parallel.mesh``) the right-hand side
+arrives as this rank's z-pencil (x/px, y/py, z) and the 2DECOMP transposes
+are written out (modpois.f90:459-548), with the single device's transforms
+in its order: the z transform on z-pencils, the rfft in x on x-pencils (x,
+y/px, z/py), the FFT in y on y-pencils (x/px, y, z/py), where the ``diag_z``
+divide happens, or on to z-pencils for the Thomas solve; the inverse
+retraces the pencils.  The rfft's nx/2 + 1 modes are padded with zeros to a
+multiple of px for the transposes that split them, and the pad is dropped
+before the inverse rfft.  The open-boundary (DCT), ``bczp2`` and ``fft3d``
+routes are not split yet and raise.
 """
 from __future__ import annotations
 
@@ -43,7 +54,7 @@ class PoissonSolver:
     """Precomputed spectral solver (reference initpois, modpois.f90:66-226).
     Solver constants live on `device` in the grid dtype."""
 
-    def __init__(self, grid: Grid, cfg: Config, device="cpu"):
+    def __init__(self, grid: Grid, cfg: Config, device="cpu", mesh=None):
         # The DCTs are float32 matmuls on the card: keep them in full
         # float32 (TF32 keeps ~3 decimal digits, which shows up directly as
         # post-projection divergence).  Both switches are process-wide.
@@ -52,7 +63,8 @@ class PoissonSolver:
         self.grid = grid
         self.cfg = cfg
         self.device = torch.device(device)
-        nx, ny, nz = grid.shape
+        self.mesh = mesh
+        nx, ny, nz = grid.global_shape
         self.per_x = cfg.bc.BCxm == BC_PERIODIC
         self.per_y = cfg.bc.BCym == BC_PERIODIC
         kw = dict(dtype=grid.torch_dtype, device=self.device)
@@ -96,6 +108,16 @@ class PoissonSolver:
         if self.bczp2 and not uniform_z:
             raise ValueError("BCzp=2 assumes an equidistant z grid "
                              "(modpois.f90:184)")
+        if mesh is not None:
+            split_refused = {
+                "open x or y (the DCT routes)": not (self.per_x
+                                                     and self.per_y),
+                "POISS_FFT3D": self.fft3d, "BCzp=2": self.bczp2}
+            refused = [k for k, v in split_refused.items() if v]
+            if refused:
+                raise NotImplementedError(
+                    "the x/y split of the Poisson solve is not ported yet "
+                    "for " + ", ".join(refused))
 
         if self.fft3d or self.bczp2 or self.diag_z:
             # fully diagonal: modal divide by xrt + yrt + zrt, zero modes -> 0
@@ -108,7 +130,7 @@ class PoissonSolver:
             inv = np.where(ok, 1.0 / np.where(ok, lam3, 1.0), 0.0)
             if not self.bczp2:
                 inv[0, 0, 0] = 0.0   # pin the global mean mode
-            self.inv_lam3 = const(inv)
+            self.inv_lam3 = const(self._modes(inv, "y"))
             if not self.fft3d:
                 # x @ M.T applies M along the last (z) axis
                 C = _dctII_matrix(nz)
@@ -139,9 +161,35 @@ class PoissonSolver:
         for k in range(1, nz):
             w[..., k] = 1.0 / (D[..., k] - a[k] * cp[..., k - 1])
             cp[..., k] = c[k] * w[..., k]
-        self.w = const(w)
-        self.cp = const(cp)
-        self.Af = const(-(a[None, None, :] * w))
+        self.w = const(self._modes(w, "z"))
+        self.cp = const(self._modes(cp, "z"))
+        self.Af = const(self._modes(-(a[None, None, :] * w), "z"))
+
+    def _modes(self, table, pencil: str):
+        """A (mx, my, mz) table of the whole domain, or under a split the
+        part of it on this rank's y-pencil (mx/px, all y, z/py) or z-pencil
+        (mx/px, y/py, all z), the x modes edge-padded to a multiple of px
+        (the padded modes carry zeros; their entries only stay finite)."""
+        m = self.mesh
+        if m is None:
+            return table
+        table = self._pad_modes(table, np)
+        mx, my, mz = table.shape
+        cut = lambda n, parts, c: slice(c * (n // parts),
+                                        (c + 1) * (n // parts))
+        if pencil == "y":
+            return table[cut(mx, m.px, m.cx), :, cut(mz, m.py, m.cy)]
+        return table[cut(mx, m.px, m.cx), cut(my, m.py, m.cy), :]
+
+    def _pad_modes(self, a, xp=torch):
+        """`a` with its leading (x-mode) axis padded to a multiple of px by
+        copies of its last mode (NumPy tables) or by zeros (spectra)."""
+        extra = -a.shape[0] % self.mesh.px
+        if extra == 0:
+            return a
+        if xp is np:
+            return np.concatenate([a, np.repeat(a[-1:], extra, axis=0)])
+        return torch.cat([a, a.new_zeros((extra, *a.shape[1:]))])
 
     def _tridiag(self, rhs):
         """Per-mode Thomas solve along z of a real or complex (mx, my, nz)
@@ -162,6 +210,8 @@ class PoissonSolver:
         transforms (DCTs) go first and the FFTs of the periodic directions
         after them, as in the reference's ``_solve_neumann``; the transforms
         of different axes commute."""
+        if self.mesh is not None:
+            return self._solve_split(rhs)
         nx, ny, nz = rhs.shape
         zcos = self.diag_z or self.bczp2
         F = torch.matmul(rhs, self.CzT) if zcos else rhs
@@ -191,3 +241,20 @@ class PoissonSolver:
         if not self.per_x:
             X = torch.einsum("ik,kjz->ijz", self.iCx, X)
         return torch.matmul(X, self.iCzT) if zcos else X
+
+    def _solve_split(self, rhs):
+        """`solve` of this rank's z-pencil under the x/y split (periodic x
+        and y; ``diag_z`` or the Thomas route)."""
+        m = self.mesh
+        nx = self.grid.global_shape[0]
+        F = torch.matmul(rhs, self.CzT) if self.diag_z else rhs
+        F = torch.fft.rfft(m.to_xpencil(m.to_ypencil(F)), dim=0)
+        F = torch.fft.fft(m.from_xpencil(self._pad_modes(F)), dim=1)
+        if self.diag_z:
+            X = F * self.inv_lam3
+        else:
+            X = m.to_ypencil(self._tridiag(m.from_ypencil(F)))
+        X = m.to_xpencil(torch.fft.ifft(X, dim=1))[: nx // 2 + 1]
+        X = torch.fft.irfft(X, n=nx, dim=0)
+        X = m.from_ypencil(m.from_xpencil(X))
+        return torch.matmul(X, self.iCzT) if self.diag_z else X

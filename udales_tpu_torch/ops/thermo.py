@@ -6,7 +6,8 @@ profiles (diagfld :241-350 / fromztop :364-424), half-level interpolation
 (calc_halflev :508-538) and d(theta_v)/dz of calthv (:130-235).
 
 Slab averages follow avexy_ibm (modmpi.f90:621-662): all-solid slabs give
-the sentinel -999.
+the sentinel -999.  On one rank's block of an x/y split (`mesh`,
+``parallel.mesh``) the sums and counts are all-reduced over the ranks.
 """
 from __future__ import annotations
 
@@ -18,9 +19,12 @@ from ..config import Config, const
 from ..grid import Grid
 
 
-def avexy_masked(f, mask=None, sentinel=-999.0):
+def avexy_masked(f, mask=None, sentinel=-999.0, mesh=None):
     """Mask-weighted slab (x, y) average per level.  `mask` is a 0/1 fluid
-    indicator broadcastable to `f`; None means all fluid."""
+    indicator broadcastable to `f`; None means all fluid.  With `mesh`, `f`
+    and `mask` are this rank's blocks and the average is the domain's."""
+    if mesh is not None:
+        return _avexy_split(f, mask, sentinel, mesh)
     if mask is None:
         return f.sum(dim=(0, 1)) / (f.shape[0] * f.shape[1])
     cnt = mask.sum(dim=(0, 1))
@@ -28,8 +32,22 @@ def avexy_masked(f, mask=None, sentinel=-999.0):
     return torch.where(cnt > 0, s / torch.clamp(cnt, min=1), sentinel)
 
 
-def slab_mean(f):
-    """Unmasked slab (x, y) average per level."""
+def _avexy_split(f, mask, sentinel, mesh):
+    """`avexy_masked` of the domain from this rank's block: local sums and
+    counts, one all-reduce, the global division."""
+    if mask is None:
+        s = mesh.allreduce_sum(f.sum(dim=(0, 1)))
+        return s / (f.shape[0] * f.shape[1] * mesh.px * mesh.py)
+    s, cnt = mesh.allreduce_sum(torch.stack(torch.broadcast_tensors(
+        (f * mask).sum(dim=(0, 1)), mask.sum(dim=(0, 1)))))
+    return torch.where(cnt > 0, s / torch.clamp(cnt, min=1), sentinel)
+
+
+def slab_mean(f, mesh=None):
+    """Unmasked slab (x, y) average per level (of the domain, from this
+    rank's block, with `mesh`)."""
+    if mesh is not None:
+        return _avexy_split(f, None, None, mesh)
     return f.mean(dim=(0, 1))
 
 
@@ -147,10 +165,11 @@ def thermodynamics(c, cfg: Config, grid: Grid, masks=None) -> ThermoDiag:
     IIc = IIu = IIv = IIw = None
     if masks is not None:
         IIc, IIu, IIv, IIw = masks.c, masks.u, masks.v, masks.w
-    u0av = avexy_masked(c.u, IIu)
-    v0av = avexy_masked(c.v, IIv)
-    thl0av = avexy_masked(c.thl, IIc)
-    qt0av = avexy_masked(c.qt, IIc)
+    mesh = grid.mesh
+    u0av = avexy_masked(c.u, IIu, mesh=mesh)
+    v0av = avexy_masked(c.v, IIv, mesh=mesh)
+    thl0av = avexy_masked(c.thl, IIc, mesh=mesh)
+    qt0av = avexy_masked(c.qt, IIc, mesh=mesh)
 
     # extended (ke+kh) profiles: zero-gradient top ghost
     ext = lambda p: torch.cat([p, p[-1:]])
@@ -166,7 +185,7 @@ def thermodynamics(c, cfg: Config, grid: Grid, masks=None) -> ThermoDiag:
             thl0av_e, qt0av_e, ql0av, grid, cfg, thvs, ps)
         ql0 = ql_sat_adjust(c.thl, c.qt, presf[None, None, :nz],
                             exnf[None, None, :nz], cfg.dynamics.lqlnr)
-        ql0av = ext(avexy_masked(ql0, IIc))
+        ql0av = ext(avexy_masked(ql0, IIc, mesh=mesh))
         th0av_e = thl0av_e + (const.rlv / const.cp) * ql0av / exnf
     presf, presh, exnf, exnh, _ = hydrostatic_profiles(
         th0av_e, qt0av_e, ql0av, grid, cfg, thvs, ps)
@@ -199,7 +218,7 @@ def thermodynamics(c, cfg: Config, grid: Grid, masks=None) -> ThermoDiag:
         dthvdz = _dthvdz_dry(c.thl, grid)
 
     # thvh slab average + lowest-level overrides (modthermodynamics:77-93)
-    thvh = avexy_masked(thv0h, IIw)
+    thvh = avexy_masked(thv0h, IIw, mesh=mesh)
     th0av_i = th0av_e[:nz]
     ql_ = ql0av[:nz]
     ov = lambda k: th0av_i[k] * (1.0 + (const.rv / const.rd - 1.0) * qt0av[k]

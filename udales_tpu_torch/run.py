@@ -45,6 +45,14 @@ With ``Model.need_taudiag`` (a field dump of tx/ty/tz/hf) the third
 substep keeps the wall-stress diagnostics in ``State.taud``, as udales_tpu's
 run.py:356-403 does.  An IBM case built without its IBM raises
 NotImplementedError when the Model is built.
+
+``Model(..., mesh=...)`` splits the flat periodic path over the ranks of a
+``parallel.mesh.Mesh``, as udales_tpu's Model takes a device mesh
+(run.py:46-65): the Model keeps this rank's block grid (``Grid.block``),
+the State holds this rank's blocks (``parallel.mesh.shard_state``), the
+periodic halos, slab means, the dt limit and the Poisson transposes go
+through the mesh's collectives, and each rank launches the kernel on its
+ghosted block.  `_split_unsupported` names what the split refuses.
 """
 from __future__ import annotations
 
@@ -54,8 +62,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from .config import (BCTOPM_PRESSURE, BC_DRIVER, BC_PROFILE, IADV_KAPPA,
-                     SGS_ONEEQN, Config, const, load_namoptions)
+from .config import (BCTOPM_PRESSURE, BC_DRIVER, BC_PERIODIC, BC_PROFILE,
+                     IADV_KAPPA, SGS_ONEEQN, Config, const, load_namoptions)
 from .convert import load_profiles
 from .grid import Grid
 from .io.inputs import CaseInputs, large_scale_pressure_gradient
@@ -80,6 +88,7 @@ from .ops.poisson import PoissonSolver
 from .ops.thermo import ThermoDiag, avexy_masked, thermodynamics
 from .ibm.bottom import bottom_tendencies
 from .ibm.eb import FacetEB
+from .parallel.mesh import shard_state
 from .physics import (HeatPumps, Purifiers, ScalarSources, Vegetation,
                       chem_update)
 from .timedep import Timedep
@@ -94,20 +103,56 @@ def _unsupported(cfg: Config, ibm=None):
     return [name for name, on in checks.items() if on]
 
 
+def _split_unsupported(cfg: Config, ibm=None):
+    """Names of the configured features whose x/y split is not ported: the
+    split covers the flat periodic path only."""
+    sc = cfg.scalars
+    checks = {
+        "an IBM": ibm is not None or (cfg.run.libm and cfg.walls.nfcts > 0),
+        "the facet energy balance (lEB)": cfg.eb.lEB,
+        "an open x boundary (BCxm)": cfg.bc.BCxm != BC_PERIODIC,
+        "an open y boundary (BCym)": cfg.bc.BCym != BC_PERIODIC,
+        "the inlet generator (iinletgen)": cfg.driver.iinletgen != 0,
+        "a driver inlet (idriver)": cfg.driver.idriver != 0,
+        "passive scalars (nsv > 0)": sc.nsv > 0,
+        "scalar sources (lscasrc, lscasrcl)": sc.lscasrc or sc.lscasrcl,
+        "kappa advection of thl (iadv_thl)": cfg.iadv_thl == IADV_KAPPA,
+        "shifted periodic BCs (ds > 0)": cfg.physics.ds > 0,
+        "Newton-Raphson saturation (lqlnr)": cfg.dynamics.lqlnr,
+        "vegetation (ltrees)": cfg.trees.ltrees,
+        "chemistry (lchem)": cfg.chem.lchem,
+        "purifiers (lpurif)": cfg.purifs.lpurif,
+        "heat pumps (lheatpump)": cfg.heatpump.lheatpump,
+    }
+    return [name for name, on in checks.items() if on]
+
+
 class Model:
     """Static configuration and precomputed operators for one case (the
     reference's init* routines, program.f90:63-124); everything mutable
     lives in `State`.  `ibm` is the case's ``ibm.IBM`` on the same device,
     or None.  `device` is the card unless the caller asks for "cpu"; with
     no card the constructor raises.  The static profiles are zero until set
-    (`load_case` reads them; see also ``convert.load_profiles``)."""
+    (`load_case` reads them; see also ``convert.load_profiles``).  With a
+    `mesh` (``parallel.mesh.Mesh``) the Model steps this rank's block of the
+    whole-domain `grid` (``domain_grid``), held in ``grid``."""
 
-    def __init__(self, cfg: Config, grid: Grid, ibm=None, device="cuda"):
+    def __init__(self, cfg: Config, grid: Grid, ibm=None, device="cuda",
+                 mesh=None):
         missing = _unsupported(cfg, ibm)
         if missing:
             raise NotImplementedError(
                 "not ported to udales_tpu_torch yet: " + ", ".join(missing))
+        if mesh is not None:
+            missing = _split_unsupported(cfg, ibm)
+            if missing:
+                raise NotImplementedError(
+                    "the x/y split is not ported to udales_tpu_torch yet "
+                    "for " + ", ".join(missing))
         self.cfg = cfg
+        self.mesh = mesh
+        self.domain_grid = grid
+        grid = grid.block(mesh) if mesh is not None else grid
         self.grid = grid
         self.ibm = ibm
         self.device = torch.device(device)
@@ -128,7 +173,7 @@ class Model:
         self.need_taudiag = bool(cfg.output.lfielddump
                                  and codes & {"tx", "ty", "tz", "hf"})
         self._nudge_prof = None
-        self.pois = PoissonSolver(grid, cfg, device=self.device)
+        self.pois = PoissonSolver(grid, cfg, device=self.device, mesh=mesh)
         nz = grid.ktot
         kw = dict(dtype=grid.torch_dtype, device=self.device)
         self.dpdxl = torch.zeros(nz, **kw)
@@ -147,8 +192,10 @@ class Model:
         device, so it is not jax.random's: parity tests start both packages
         from one converted State.  Solid cells keep the profile values, as
         in the reference; ibmnorm and the projection zero them within the
-        first substep."""
-        cfg, grid = self.cfg, self.grid
+        first substep.  Under a split the whole-domain start is made and
+        this rank keeps its block of it, so every rank starts as one device
+        would."""
+        cfg, grid = self.cfg, self.domain_grid
         nz = grid.ktot
         if self.inputs is not None:
             # the scalars start from scalar.inp; without that file a case
@@ -190,6 +237,8 @@ class Model:
             uref = cfg.bc.Vinf if cfg.physics.lvinf else cfg.bc.Uinf
             st = st.replace(ctl=Ctl(freestreamav=z + uref, dgdt=z,
                                     dpdx_shift=z))
+        if self.mesh is not None:
+            st = shard_state(st, self.mesh)
         return st
 
     # -- inlet planes of the open-x boundary ---------------------------------
@@ -261,7 +310,7 @@ class Model:
         g = make_ghosts(c, ekm, ekh, cfg, grid, openx=openx, openy=openy)
 
         # --- advection (+ pressure-gradient term, modadvection) ------------
-        gp = _pad_pres(state.pres, openx, openy)
+        gp = _pad_pres(state.pres, openx, openy, grid.mesh)
         du = adv.adv_u(g, grid) \
             - (gp[1:-1, 1:-1, :] - gp[:-2, 1:-1, :]) * grid.dxi
         dv = adv.adv_v(g, grid) \
@@ -570,7 +619,7 @@ class Model:
 
         def top_gradient(p):
             """2 <p>_ke dzhi(ke+1), the slab mean over the fluid cells."""
-            pij = avexy_masked(p, IIc)
+            pij = avexy_masked(p, IIc, mesh=grid.mesh)
             pij = torch.where(pij < -900.0, 0.0, pij)
             return 2.0 * pij[nz - 1] * dzhi_top
 
@@ -591,7 +640,7 @@ class Model:
         du_out = dv_out = None
         # x face divergence term
         if openx is None:
-            gpu = pad_periodic_xy(pup, 1)
+            gpu = pad_periodic_xy(pup, 1, grid.mesh)
             ddx = (gpu[2:, 1:-1, :] - gpu[1:-1, 1:-1, :]) * grid.dxi
         else:
             # bcpup open-x (modboundary.f90:1247-1305): inlet face fixed to
@@ -609,7 +658,7 @@ class Model:
             ddx = (pup_faces[1:] - pup_faces[:-1]) * grid.dxi
         # y face divergence term
         if openy is None:
-            gpv = pad_periodic_xy(pvp, 1)
+            gpv = pad_periodic_xy(pvp, 1, grid.mesh)
             ddy = (gpv[1:-1, 2:, :] - gpv[1:-1, 1:-1, :]) * grid.dyi
         else:
             # bcpup open-y: inlet v face fixed; outlet v face convective
@@ -628,7 +677,7 @@ class Model:
         p = self.pois.solve(rhs)
         # tderive: subtract grad p from the tendencies (Neumann ghosts at
         # open boundaries leave the inlet face untouched, modpois:1046-1056)
-        gp = _pad_pres(p, openx, openy)
+        gp = _pad_pres(p, openx, openy, grid.mesh)
         du = du - (gp[1:-1, 1:-1, :] - gp[:-2, 1:-1, :]) * grid.dxi
         dv = dv - (gp[1:-1, 1:-1, :] - gp[1:-1, :-2, :]) * grid.dyi
         dzhi = grid.t("dzhi", self.device)
@@ -641,6 +690,8 @@ class Model:
 
     # -- dt control (modtstep.tstep_update:49-154) --------------------------
     def new_dt(self, state: State, ekm=None, ekh=None):
+        """The adaptive dt; under a split each max is the domain's (a MAX
+        all-reduce)."""
         cfg, grid = self.cfg, self.grid
         if not cfg.run.ladaptive:
             return torch.full((), cfg.run.dtmax, dtype=state.dt.dtype,
@@ -648,15 +699,17 @@ class Model:
         m = state.m
         nz = grid.ktot
         dzh = grid.t("dzh", self.device)
-        courtot_per_dt = torch.max(
+        mesh = self.mesh
+        gmax = (torch.max if mesh is None
+                else lambda t: mesh.allreduce_max(torch.max(t)))
+        courtot_per_dt = gmax(
             torch.abs(m.u) * grid.dxi + torch.abs(m.v) * grid.dyi
             + torch.abs(m.w[..., :nz]) / dzh[:nz][None, None, :])
         new = cfg.courant / torch.clamp(courtot_per_dt, min=1e-12)
         if ekm is not None:
             dzh2i = grid.t("dzh2i", self.device)
             coef = dzh2i[:nz][None, None, :] + grid.dx2i + grid.dy2i
-            diff_per_dt = torch.maximum(torch.max(ekm * coef),
-                                        torch.max(ekh * coef))
+            diff_per_dt = torch.maximum(gmax(ekm * coef), gmax(ekh * coef))
             new = torch.minimum(new, cfg.run.diffnr
                                 / torch.clamp(diff_per_dt, min=1e-12))
         return torch.clamp(new, max=cfg.run.dtmax).to(state.dt.dtype)
@@ -867,9 +920,10 @@ def _load_inlet(model: Model, case_dir: Path, inputs) -> None:
 def _velocity_ghosts(f: Fields, cfg: Config, grid: Grid, openx=None,
                      openy=None) -> Ghosts:
     """Minimal ghost set (u, v, w only) for closure/dt before ekm exists."""
-    return Ghosts(u=ghost_u(f.u, cfg, openx=openx, openy=openy),
-                  v=ghost_v(f.v, cfg, openx=openx, openy=openy),
-                  w=ghost_w(f.w, cfg, openx=openx, openy=openy),
+    mesh = grid.mesh
+    return Ghosts(u=ghost_u(f.u, cfg, openx=openx, openy=openy, mesh=mesh),
+                  v=ghost_v(f.v, cfg, openx=openx, openy=openy, mesh=mesh),
+                  w=ghost_w(f.w, cfg, openx=openx, openy=openy, mesh=mesh),
                   thl=None, qt=None, e12=None, sv=None, ekm=None, ekh=None)
 
 
@@ -890,8 +944,11 @@ def _kappa_ghost_scalar(cfield, cfg: Config, openx=None, openy=None):
                               sv_index=0)
 
 
-def _pad_pres(p, openx=None, openy=None):
-    """Pressure ghosts (bcp, modboundary.f90:1344-1430): periodic wrap, or
-    zero gradient at open boundaries."""
+def _pad_pres(p, openx=None, openy=None, mesh=None):
+    """Pressure ghosts (bcp, modboundary.f90:1344-1430): periodic wrap (over
+    the ranks of `mesh`, which has no open boundary), or zero gradient at
+    open boundaries."""
+    if mesh is not None:
+        return mesh.wrap_xy(p, 1)
     px = pad_edge(p, 0, 1) if openx is not None else pad_wrap(p, 0, 1)
     return pad_edge(px, 1, 1) if openy is not None else pad_wrap(px, 1, 1)

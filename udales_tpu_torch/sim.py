@@ -102,6 +102,10 @@ class Simulation:
     switches on; the writers' tensors live on the model's device."""
 
     def __init__(self, model, outdir: str | Path = ".", monitor: bool = True):
+        if model.mesh is not None:
+            raise NotImplementedError("Simulation of a Model split over a "
+                                      "mesh (writing from a gathered State) "
+                                      "is not ported yet")
         self.model = model
         self.cfg = cfg = model.cfg
         grid, dev = model.grid, model.device
@@ -478,6 +482,10 @@ def execute_runmode_actions(model, case_dir) -> int | None:
                 if dev.type == "cuda" else "")
         print(f"runmode 1003: model on {dev}{name}; {ncards} CUDA "
               f"device(s) visible")
+        if model.mesh is not None:
+            m = model.mesh
+            print(f"mesh {dict(zip(m.axis_names, m.shape))}, rank {m.rank} "
+                  f"at ({m.cx}, {m.cy}), {m.backend}")
         print(f"grid {grid.itot}x{grid.jtot}x{grid.ktot}")
         return 0
     if rm == 1004:
