@@ -9,7 +9,8 @@ balance, of the same array driven through an open x boundary by precursor
 planes, and of the same array as a street-canyon dispersion case (passive
 scalars, chemistry, trees, purifiers, heat pumps, the one-equation
 closure), and checks both variants of the hand-written CUDA
-diffusion kernel on the way.  Then the run-time driver: ``python -m
+diffusion kernel on the way.  The x/y process split runs the flat path
+(phases 36-39) and the urban paths (phases 40-43) over meshes of ranks.  Then the run-time driver: ``python -m
 udales_tpu_torch`` with every output, restart continuation, the output
 families on the other cases, the driver's cost and the runmodes.  Phases, one line each; any failure raises and
 the script exits non-zero without a result line:
@@ -109,6 +110,22 @@ the script exits non-zero without a result line:
      collectives a step (4 ranks on one card: not a speed of the split)
  39. the unmasked kernel at the 2 x 2 block shape 64 x 64 x 128 float32
      against its plain version, timed beside its bound
+ 40. the urban split on one rank with NCCL: mesh 1 x 1, urban 32^3 float64
+     through load_case(..., mesh=), 5 steps, every State leaf against
+     Model.run without a mesh (1e-12)
+ 41. urban, urban-EB (dtEB 0.5 s) and dispersion with purifiers and heat
+     pumps at 32^3 float64 on the 2 x 2 mesh of ranks that share the card
+     (gloo, host-staged), 5 steps: the gathered State against the
+     single-process card run (1e-9), fac.T and every scalar included
+ 42. urban 128^3 float32 on 2 x 2, 10 steps: gathered max|div u|, 3 masked
+     launches a step on each rank, one step under
+     torch.cuda.set_sync_debug_mode("error"), ms/step per rank, collectives
+     and bytes a step (4 ranks on one card: the host staging, not a speed
+     of the split)
+ 43. the masked kernel at the block shape 64 x 64 x 128 float32 with the
+     pmasks of a 2 x 2 block of the urban 128^3 case (IBM.load(...,
+     mesh=)), against its plain version, timed eagerly and in a CUDA graph
+     beside its bound
 The line before the last is a JSON object describing the kernels and the
 main paths; the last line is {"ok": true, "device": {...}}.
 """
@@ -1398,9 +1415,11 @@ def nccl_shared_rank(rank, port, out):
 
 
 def split_rank(rank, world, port, px, py, jobs, out):
-    """One rank of phases 37/38 on the shared card: the `world`-process
-    group, the px x py mesh, and each job of `jobs`; writes its results to
-    out/rank<r>.pkl."""
+    """One rank of phases 37/38 and 41/42 on the shared card: the
+    `world`-process group, the px x py mesh, and each job of `jobs` (the
+    flat case of `entry._build`, or a case directory through
+    ``load_case(..., mesh=)`` from the job's whole-domain "start" or from
+    ``cold_start``); writes its results to out/rank<r>.pkl."""
     import pickle
     import torch.distributed as dist
     from udales_tpu_torch import entry
@@ -1409,16 +1428,25 @@ def split_rank(rank, world, port, px, py, jobs, out):
     from udales_tpu_torch.parallel.mesh import gather_state, make_mesh
     from udales_tpu_torch.parallel.multihost import (init_distributed,
                                                      shard_state_global)
+    from udales_tpu_torch.run import load_case
     torch.cuda.set_device(0)
     init_distributed(f"localhost:{port}", world, rank, backend=SHARED_BACKEND,
                      device="cuda", timeout=60.0)
     mesh = make_mesh(px, py, host_staged=SHARED_STAGED)
     res = {}
     for job in jobs:
-        n, steps = job["n"], job["steps"]
-        model = entry._build(n, n, n, job["dtype"], mesh=mesh)  # the card
-        start = state_from_numpy(numpy_state(model.domain_grid, job["seed"]))
-        st = shard_state_global(start, mesh, device="cuda")
+        steps = job["steps"]
+        if "case" in job:
+            model = load_case(job["case"], "900", job["dtype"], mesh=mesh)
+            st = (model.cold_start(seed=job["seed"]) if job["start"] is None
+                  else shard_state_global(state_from_numpy(job["start"]),
+                                          mesh, device="cuda"))
+        else:
+            n = job["n"]
+            model = entry._build(n, n, n, job["dtype"], mesh=mesh)  # card
+            start = state_from_numpy(numpy_state(model.domain_grid,
+                                                 job["seed"]))
+            st = shard_state_global(start, mesh, device="cuda")
         st = model.run(st, job.get("warm", 0))
         torch.cuda.synchronize()
         dist.barrier()
@@ -1457,9 +1485,11 @@ def split_rank(rank, world, port, px, py, jobs, out):
     dist.destroy_process_group()
 
 
-def split_phases(smi, fused):
-    """Phases 36-39: the x/y split of the flat path (parallel/mesh.py,
-    parallel/multihost.py) on the one card."""
+def split_phases(smi, fused, urban_cases):
+    """Phases 36-43: the x/y split (parallel/mesh.py, parallel/multihost.py)
+    of the flat path and of the urban paths on the one card.
+    `urban_cases` maps "urban", "urban-EB", "dispersion" to their 32^3
+    case directories and "urban128" to the urban 128^3 one."""
     import pickle
     import tempfile
     import torch.distributed as dist
@@ -1470,12 +1500,20 @@ def split_phases(smi, fused):
     from udales_tpu_torch.parallel.multihost import (free_port,
                                                      init_distributed,
                                                      shard_state_global)
+    from udales_tpu_torch.run import load_case
     out = {}
     # the single-process reference on the card: 32^3 float64, 5 steps
     ref_model = entry._build(32, 32, 32, "float64")
     start = numpy_state(ref_model.grid, seed=7)
     ref = state_to_numpy(ref_model.run(state_from_numpy(start,
                                                         device="cuda"), 5))
+    # and of the urban cases at 32^3, from their cold starts
+    urban_start, urban_ref = {}, {}
+    for name in ("urban", "urban-EB", "dispersion"):
+        model = load_case(urban_cases[name], "900", "float64")
+        urban_start[name] = state_to_numpy(model.cold_start(seed=43))
+        urban_ref[name] = state_to_numpy(model.run(state_from_numpy(
+            urban_start[name], device="cuda"), 5))
 
     # 36. one rank, NCCL: the real NCCL calls on CUDA tensors (spectra too)
     init_distributed(f"localhost:{free_port()}", 1, 0, backend="nccl",
@@ -1489,6 +1527,18 @@ def split_phases(smi, fused):
         torch.cuda.synchronize()
         ncoll = mesh.collectives
         errs = leaf_errors(state_to_numpy(gather_state(st, mesh)), ref)
+        # 40. (printed below, in order) the urban case on the same group
+        umodel = load_case(urban_cases["urban"], "900", "float64", mesh=mesh)
+        ust = shard_state_global(state_from_numpy(urban_start["urban"]),
+                                 mesh, device="cuda")
+        fused.launch_count = fused.masked_launch_count = 0
+        mesh.reset_counts()
+        ust = umodel.run(ust, 5)
+        torch.cuda.synchronize()
+        u1x1 = dict(collectives=mesh.collectives,
+                    masked=fused.masked_launch_count,
+                    errs=leaf_errors(state_to_numpy(gather_state(ust, mesh)),
+                                     urban_ref["urban"]))
     finally:
         dist.destroy_process_group()
     worst = max(errs, key=errs.get)
@@ -1510,6 +1560,13 @@ def split_phases(smi, fused):
         parity = dict(name="parity", n=32, dtype="float64", steps=5, seed=7)
         main_job = dict(name="main", n=128, dtype="float32", steps=10,
                         warm=2, seed=43, divergence=True, sync_debug=True)
+        urban_jobs = [dict(name=name, case=str(urban_cases[name]),
+                           dtype="float64", steps=5,
+                           start=urban_start[name])
+                      for name in ("urban", "urban-EB", "dispersion")]
+        urban_main = dict(name="urban_main", case=str(urban_cases["urban128"]),
+                          dtype="float32", steps=10, warm=2, seed=43,
+                          start=None, divergence=True, sync_debug=True)
         started = []
 
         def group(fn, nprocs, args):
@@ -1532,7 +1589,8 @@ def split_phases(smi, fused):
                       flush=True)
             for ctx in small:
                 wait_ranks(ctx, 300)
-            wait_ranks(split_group(2, 2, [parity, main_job]), 600)
+            wait_ranks(split_group(2, 2, [parity, main_job, *urban_jobs,
+                                          urban_main]), 900)
         finally:                     # no rank outlives a failed phase
             for ctx in started:
                 for proc in ctx.processes:
@@ -1564,6 +1622,9 @@ def split_phases(smi, fused):
                 raise RuntimeError(f"the {px} x {py} split disagrees with "
                                    f"the single-process run")
         main = [r["main"] for r in ranks]
+        urban_split = {name: [r[name] for r in ranks]
+                       for name in ("urban", "urban-EB", "dispersion",
+                                    "urban_main")}
 
     # 38. flat 128^3 float32 on 2 x 2 (the ranks of the 2 x 2 group above)
     out["main_2x2"] = main
@@ -1597,6 +1658,90 @@ def split_phases(smi, fused):
     out["block"] = time_kernel(
         fused, random_ghosts(gb, torch.float32, "cuda", seed=40), gb, None,
         smi, f"block {gb.shape} float32", 39)
+
+    # 40. the urban case on the 1 x 1 NCCL mesh (run with phase 36)
+    worst = max(u1x1["errs"], key=u1x1["errs"].get)
+    out["urban_nccl_1x1"] = dict(max_rel_err=u1x1["errs"][worst], leaf=worst,
+                                 collectives=u1x1["collectives"],
+                                 masked=u1x1["masked"],
+                                 leaves=len(u1x1["errs"]))
+    phase(40, f"urban 32^3 float64 on mesh 1 x 1, backend nccl, 5 steps "
+              f"through load_case(..., mesh=): {u1x1['collectives']} NCCL "
+              f"collectives, {u1x1['masked']} masked launches; every one of "
+              f"{len(u1x1['errs'])} leaves against Model.run without a mesh "
+              f"within {u1x1['errs'][worst]:.3e} relative (worst {worst}; "
+              f"tolerance 1e-12)")
+    if not (u1x1["errs"][worst] <= 1e-12 and u1x1["masked"] == 15):
+        raise RuntimeError("the 1 x 1 NCCL urban split disagrees with "
+                           "Model.run")
+
+    # 41. urban, urban-EB and dispersion on the shared card's 2 x 2 mesh
+    out["urban_shared_2x2"] = {}
+    for name in ("urban", "urban-EB", "dispersion"):
+        ranks = urban_split[name]
+        errs = leaf_errors(ranks[0]["state"], urban_ref[name])
+        worst = max(errs, key=errs.get)
+        masked = [r["masked"] for r in ranks]
+        need = {"c.u", "pres", "fac.T"} if name == "urban-EB" else (
+            {"c.u", "pres", "c.sv", "m.sv"} if name == "dispersion"
+            else {"c.u", "pres"})
+        out["urban_shared_2x2"][name] = dict(max_rel_err=errs[worst],
+                                             leaf=worst, masked=masked,
+                                             leaves=len(errs))
+        phase(41, f"{name} 32^3 float64 on mesh 2 x 2 on one card, backend "
+                  f"{SHARED_BACKEND}, host_staged {SHARED_STAGED}, 5 steps: "
+                  f"every one of {len(errs)} leaves of the gathered State "
+                  f"against the single-process card run within "
+                  f"{errs[worst]:.3e} relative (worst {worst}; tolerance "
+                  f"1e-9); masked launches per rank {masked}")
+        if not (errs[worst] <= 1e-9 and need <= set(errs)
+                and all(m == 15 for m in masked)):
+            raise RuntimeError(f"the 2 x 2 split of {name} 32^3 disagrees "
+                               f"with the single-process run")
+
+    # 42. urban 128^3 float32 on 2 x 2 (the 2 x 2 group above)
+    um = urban_split["urban_main"]
+    out["urban_main_2x2"] = um
+    phase(42, f"urban 128^3 float32 on mesh 2 x 2, backend {SHARED_BACKEND}, "
+              f"host_staged {SHARED_STAGED}, 10 steps: gathered max|div u| "
+              f"{um[0]['max_div']:.3e} (bound 1e-5); masked launches per "
+              f"rank {[m['masked'] for m in um]} (= 3 x 10); one step under "
+              f"set_sync_debug_mode('error'): no host wait outside the "
+              f"collectives")
+    print("  4 ranks on one H100, host-staged: not a speed of the split. "
+          f"{smi}: ms/step per rank "
+          f"{[round(m['ms_per_step'], 3) for m in um]}; collectives a step "
+          f"{um[0]['collectives']:.1f}, {um[0]['bytes'] / 1e6:.3f} MB sent "
+          f"a step per rank; share of the step in the staged collectives "
+          f"{[round(m['comm_share'], 3) for m in um]}, waiting for the card "
+          f"before them {[round(m['wait_share'], 3) for m in um]}",
+          flush=True)
+    if not (all(m["finite"] and m["sync_debug"] for m in um)
+            and um[0]["max_div"] <= 1e-5
+            and all(m["masked"] == 30 and m["launches"] == 0 for m in um)):
+        raise RuntimeError("the 2 x 2 split of the urban 128^3 path failed "
+                           "its checks")
+
+    # 43. the masked kernel at the block shape, with a block's pmasks
+    from udales_tpu_torch.config import load_namoptions
+    from udales_tpu_torch.ibm.ibm import IBM
+    case = urban_cases["urban128"]
+    cfg = load_namoptions(case / "namoptions.900", dtype="float32")
+    d = cfg.domain
+    grid = Grid.from_prof_inp(case / "prof.inp.900", d.itot, d.jtot, d.ktot,
+                              d.xlen, d.ylen, dtype=np.float32)
+    block = SimpleNamespace(px=2, py=2, cx=1, cy=1)
+    ibm = IBM.load(case, "900", cfg, grid, device="cuda", mesh=block)
+    gb = ibm.grid
+    pm = dict(u=ibm.pmask_u, v=ibm.pmask_v, w=ibm.pmask_w)
+    solid = int((ibm.masks.c < 0.5).sum())
+    out["masked_block_err"] = check_kernel(
+        fused, random_ghosts(gb, torch.float32, "cuda", seed=43), gb, pm,
+        1e-5, f"masked, block {gb.shape} (1, 1) of urban 128^3 on 2 x 2, "
+              f"{solid} solid cells, float32", 43)
+    out["masked_block"] = time_kernel(
+        fused, random_ghosts(gb, torch.float32, "cuda", seed=44), gb, pm,
+        smi, f"masked, block {gb.shape} float32", 43)
     return out
 
 
@@ -1805,8 +1950,11 @@ def main():
     drv_out = driver_phases(smi, fused_diff_mom, div_bound, eb128, urban,
                             cases.stage_urban_driven(32, CACHE))
 
-    # 36.-39. the x/y split of the flat path
-    split = split_phases(smi, fused_diff_mom)
+    # 36.-43. the x/y split of the flat and the urban paths
+    split = split_phases(smi, fused_diff_mom, dict(
+        urban=urban[32], urban128=urban[128], **{"urban-EB": eb32},
+        dispersion=cases.stage_urban_dispersion(32, CACHE, purifiers=True,
+                                                heatpumps=True)))
 
     foreign = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "udales_tpu"))
@@ -1842,7 +1990,14 @@ def main():
          "launches_cli_urban_eb": drv_out["cli"]["masked"],
          "launches_simulation_dispersion": drv_out["sims"]["dispersion_masked"],
          "launches_simulation_driven": drv_out["sims"]["driven_masked"],
-         "max_abs_err_open_ghosts": drv["open_err"]["masked"]}],
+         "max_abs_err_open_ghosts": drv["open_err"]["masked"]},
+        {"name": "fused_diff_mom_masked_block_64x64x128", "route": "cuda",
+         "source": src, "replaces": "udales_tpu/ops/pallas_stencil.py:191",
+         "launches": sum(m["masked"] for m in split["urban_main_2x2"]),
+         "launches_per_rank": [m["masked"] for m in split["urban_main_2x2"]],
+         "max_abs_err": split["masked_block_err"],
+         **split["masked_block"], "bound_by": "bytes", "library_ms": None,
+         "path": "urban 128^3 float32 on a 2 x 2 mesh, 10 steps, 4 ranks"}],
         "main_path": rates(main), "main_path_256": rates(big),
         "urban_128": rates(urb),
         "urban_eb_128": {**rates(ueb), **{k: ueb[k] for k in (
@@ -1866,7 +2021,9 @@ def main():
                                            "max_div")}},
         "driver": drv_out,
         "split": {k: split[k] for k in ("nccl_1x1", "nccl_shared_card",
-                                        "shared", "main_2x2")}}))
+                                        "shared", "main_2x2",
+                                        "urban_nccl_1x1", "urban_shared_2x2",
+                                        "urban_main_2x2")}}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -8,11 +8,17 @@ case one step on meshes (2,1), (1,2), (2,2) and (4,2) agrees with the port's
 single-process step and with udales_tpu's ``make_mesh`` + ``shard_state``
 step on the conftest's 8 virtual devices to 1e-9, and 5 steps on (2,2) to
 1e-8.  On (2,2) also: a stretched z grid (the Thomas route of the Poisson
-solve) and an adaptive moist case with a pressure top and a fixed volume
+solve), an adaptive moist case with a pressure top and a fixed volume
 flow (the MAX all-reduce of dt, the slab means of ``masscorr`` and of the
-top pressure gradient), each against the port and udales_tpu on one
-device.  The ranks are processes of tests/torch_split_worker.py, which
-imports only torch and the port; JAX runs in this process.
+top pressure gradient), a moist case with the Newton-Raphson saturation
+(``lqlnr``: a MAX all-reduce an iteration) from a start with saturated
+cells, the flat case with shifted periodic BCs (``ds > 0``: the domain's
+outlet half, the y neighbour from the mesh) and a warm bubble advected by
+the kappa scheme (``iadv_thl``: a halo of 2), each against the
+port and udales_tpu on one device.  The ranks are processes of
+tests/torch_split_worker.py, which imports only torch and the port; JAX
+runs in this process.  The urban paths under the split are in
+tests/test_torch_split_urban.py.
 """
 import dataclasses
 from types import SimpleNamespace
@@ -34,13 +40,15 @@ from udales_tpu.parallel.mesh import shard_state as jshard_state
 from udales_tpu.run import Model as JModel
 
 import udales_tpu_torch.config as tconfig
-from udales_tpu_torch.convert import (FIELD_NAMES, state_from_numpy,
+from udales_tpu_torch.convert import (FACET_STATE_NAMES, FACSTAT_NAMES,
+                                      FIELD_NAMES, state_from_numpy,
                                       state_to_numpy)
 from udales_tpu_torch.grid import Grid as TGrid
 from udales_tpu_torch.parallel.mesh import _leaf_spec, map_state
 from udales_tpu_torch.run import Model as TModel
 
 from test_core import init_state
+from test_torch_eb import jax_leaves, stage_cube_case, synthetic_pair
 from torch_split_worker import finish, free_port, start
 
 MESHES = [(2, 1), (1, 2), (2, 2), (4, 2)]
@@ -64,6 +72,22 @@ def make_cfg(cm, name):
             physics=cm.PhysicsConfig(ltempeq=True, lbuoyancy=True,
                                      lmoist=True, luvolflowr=True,
                                      uflowrate=1.0))
+    if name == "lqlnr":
+        # the moist case of tests/test_torch_moist.py on this grid
+        cfg = dataclasses.replace(
+            cfg, physics=cm.PhysicsConfig(ltempeq=True, lmoist=True,
+                                          lbuoyancy=True),
+            dynamics=dataclasses.replace(cfg.dynamics, lqlnr=True),
+            bc=dataclasses.replace(cfg.bc, thls=290.0, qts=0.012,
+                                   wqsurf=2e-5))
+    if name == "ds":
+        cfg = dataclasses.replace(cfg, physics=dataclasses.replace(
+            cfg.physics, ds=1.0))
+    if name == "kappa":
+        cfg = dataclasses.replace(
+            cfg, physics=cm.PhysicsConfig(ltempeq=True, lbuoyancy=True),
+            dynamics=dataclasses.replace(cfg.dynamics,
+                                         iadv_thl=cm.IADV_KAPPA))
     return cfg
 
 
@@ -123,15 +147,31 @@ def split(tmp_path_factory):
     {mesh: [rank results]}, dryrun, jax = {(case, mesh or None): State})."""
     cases = {}
     for name, steps in (("flat", 1), ("flat5", 5), ("stretched", 1),
-                        ("physics", 2)):
+                        ("physics", 2), ("lqlnr", 2), ("ds", 2),
+                        ("kappa", 2)):
         base = "flat" if name == "flat5" else name
         st = init_state(jax_model(base))
+        if name == "kappa":
+            # a warm bubble, so that the limiter of the kappa scheme acts
+            k = np.arange(8)[None, None, :]
+            thl = 288.0 + 2.0 * np.exp(-((k - 2) / 1.5) ** 2) \
+                * np.random.default_rng(9).uniform(0, 1, st.c.thl.shape)
+            f = dataclasses.replace(st.c, thl=jax.numpy.asarray(thl))
+            st = st.replace(c=f, m=f)
+        if name == "lqlnr":
+            # a saturated layer aloft: the iteration runs where ql > 0
+            k = np.arange(8)[None, None, :]
+            qt = (0.010 + 0.006 * np.exp(-((k - 5) / 2.0) ** 2)
+                  + 5e-4 * np.random.default_rng(8).standard_normal(
+                      st.c.qt.shape))
+            f = dataclasses.replace(st.c, qt=jax.numpy.asarray(qt))
+            st = st.replace(c=f, m=f)
         cases[name] = dict(base=base, steps=steps, jstate=st,
                            start=to_numpy(st))
     started = {}
     for mesh in MESHES:
-        names = (["flat", "flat5", "stretched", "physics"]
-                 if mesh == (2, 2) else ["flat"])
+        names = (["flat", "flat5", "stretched", "physics", "lqlnr", "ds",
+                  "kappa"] if mesh == (2, 2) else ["flat"])
         job = dict(world=mesh[0] * mesh[1], address=f"localhost:{free_port()}",
                    backend="gloo", device="cpu", host_staged=False,
                    timeout=60.0, mesh=mesh, checks=True,
@@ -142,7 +182,8 @@ def split(tmp_path_factory):
                      host_staged=False, timeout=60.0, dryrun=True),
                 tmp_path_factory.mktemp("dryrun"))
     refs = {(n, None): jax_run(cases[n]) for n in ("flat", "stretched",
-                                                  "physics")}
+                                                  "physics", "lqlnr", "ds",
+                                                  "kappa")}
     refs.update({("flat", m): jax_run(cases["flat"], m) for m in MESHES})
     refs[("flat5", (2, 2))] = jax_run(cases["flat5"], (2, 2))
     return dict(cases=cases, jax=refs, dryrun=finish(dry),
@@ -199,6 +240,26 @@ def test_thomas_route_and_reductions_on_2x2(split, name):
         assert float(got["dt"]) < 2.0   # the adaptive limit acted
 
 
+@pytest.mark.parametrize("name", ["lqlnr", "ds", "kappa"])
+def test_lqlnr_shifted_pbcs_and_kappa_thl_on_2x2(split, name):
+    """The Newton-Raphson saturation (its convergence test all-reduced an
+    iteration), the shifted periodic BCs (the outlet half of the domain,
+    the y neighbour from the mesh) and kappa advection of thl (its halo of
+    2 from the mesh) on 2 x 2: the port on one process and udales_tpu on
+    one device, to 1e-9."""
+    got = split["runs"][(2, 2)][0]["cases"][name]["gathered"]
+    assert_states_close(got, port_single(split["cases"][name]), 1e-9,
+                        f"{name} vs port")
+    assert_states_close(got, split["jax"][(name, None)], 1e-9,
+                        f"{name} vs jax")
+    if name == "lqlnr":
+        jm = jax_model("lqlnr")
+        from udales_tpu.ops.thermo import thermodynamics
+        th = thermodynamics(split["cases"][name]["jstate"].c, jm.cfg,
+                            jm.grid)
+        assert float(np.asarray(th.ql0).max()) > 0   # saturated cells
+
+
 def test_each_rank_holds_its_block(split):
     """Every rank's own blocks are its slices of the gathered State."""
     for mesh, results in split["runs"].items():
@@ -238,8 +299,9 @@ def test_split_slab_means_equal_the_domain_means(split):
 
 def test_dryrun_multichip(split):
     """entry.dryrun_multichip(4) under torchrun's environment: a 2 x 2 mesh,
-    32^3 float32, one adaptive step, against the same step on one
-    process."""
+    32^3 float32, one adaptive step, against the same step on one process;
+    then the generated building case (16^3 float32, one step): finite u
+    and thl, the same on every rank."""
     from udales_tpu_torch import entry
     res = split["dryrun"]
     model = entry._build(32, 32, 32, device="cpu")
@@ -252,13 +314,28 @@ def test_dryrun_multichip(split):
             err = np.abs(got["c"][k] - ref["c"][k]).max()
             assert err <= 1e-5 * np.abs(ref["c"][k]).max(), (k, err)
         assert abs(float(got["dt"]) - float(ref["dt"])) <= 1e-6
+        ibm = r["dryrun_ibm"]
+        assert ibm["c"]["u"].shape == (16, 16, 16)
+        assert np.isfinite(ibm["c"]["u"]).all()
+        assert np.isfinite(ibm["c"]["thl"]).all()
+        np.testing.assert_array_equal(ibm["c"]["u"],
+                                      res[0]["dryrun_ibm"]["c"]["u"])
 
 
 def test_leaf_spec_agrees_with_jax():
-    """Every leaf of the flat State, and the Model's profiles, split as in
+    """Every leaf of the flat State, of a State with two passive scalars, a
+    facet state and its statistics, and the Model's profiles, split as in
     udales_tpu's table."""
+    import udales_tpu.state as jstate
     jm = jax_model("flat")
     jst = init_state(jm)
+    jeb, _ = synthetic_pair("sparse")
+    sv = jax.numpy.zeros((2, 16, 12, 8))
+    jst = jst.replace(
+        c=dataclasses.replace(jst.c, sv=sv),
+        m=dataclasses.replace(jst.m, sv=sv),
+        fac=jeb.initial_state(),
+        facstats=jstate.zero_facstats(jeb.nfcts, np.float64))
     want = {}
 
     def record(path, leaf):
@@ -267,9 +344,14 @@ def test_leaf_spec_agrees_with_jax():
         want[names] = tuple(jleaf_spec(path, leaf))
     jax.tree_util.tree_map_with_path(record, jst)
     got = {}
+    tst = to_numpy(jst)
+    tst["fac"] = jax_leaves(jst.fac, FACET_STATE_NAMES)
+    tst["facstats"] = jax_leaves(jst.facstats, FACSTAT_NAMES)
     map_state(lambda path, leaf: got.__setitem__(path,
                                                  _leaf_spec(path, leaf)),
-              state_from_numpy(to_numpy(jst)))
+              state_from_numpy(tst))
+    assert {"fac", "facstats"} <= {k[0] for k in got}
+    assert got[("c", "sv")] == (None, "x", "y", None)
     assert got and got == want
     prof = torch.zeros(8)
     assert _leaf_spec(("dpdxl",), prof) == tuple(jleaf_spec((), prof))
@@ -280,6 +362,9 @@ def fake_mesh(px=2, py=2):
                            axis_names=("x", "y"), shape=(px, py))
 
 
+# the configurations the split refused; the open boundaries, the inlet
+# generator, the driver and two Poisson routes still are, the urban and
+# long-tail features are lifted (LIFTED)
 REFUSED = {
     "an IBM": dict(run=dict(libm=True), walls=dict(nfcts=4)),
     "lEB": dict(eb=dict(lEB=True)),
@@ -299,25 +384,58 @@ REFUSED = {
     "POISS_FFT3D": dict(dynamics=dict(ipoiss=tconfig.POISS_FFT3D)),
     "BCzp=2": dict(bc=dict(BCzp=2)),
 }
+LIFTED = ("an IBM", "lEB", "nsv > 0", "lscasrc", "iadv_thl", "ds > 0",
+          "lqlnr", "ltrees", "lchem", "lpurif", "lheatpump")
+
+
+@pytest.fixture(scope="module")
+def cube(tmp_path_factory):
+    """The 16^3 single-cube case, staged by the port's prep."""
+    return stage_cube_case(tmp_path_factory.mktemp("cube"))
 
 
 @pytest.mark.parametrize("name", list(REFUSED))
-def test_refused_configurations_name_themselves(name):
+def test_refused_configurations_name_themselves(name, cube):
+    """Each configuration the split refused: those still refused raise
+    naming themselves under a mesh and build without one; the lifted ones
+    build under a mesh (an IBM as ``load_case(..., mesh=)`` builds it: the
+    cube case, the IBM of one 8 x 8 block)."""
     cfg = make_cfg(tconfig, "flat")
     cfg = dataclasses.replace(cfg, **{
         group: dataclasses.replace(getattr(cfg, group), **kw)
         for group, kw in REFUSED[name].items()})
     grid = TGrid.uniform(16, 12, 8, 16.0, 12.0, 8.0, dtype=np.float64)
+    if name == "an IBM":
+        from udales_tpu_torch.run import load_case
+        model = load_case(cube, "901", "float64", device="cpu",
+                          mesh=fake_mesh())
+        assert model.ibm.grid.shape == (8, 8, 16)
+        assert model.ibm.masks.c.shape == (8, 8, 16)
+        assert model.ibm.pmask_c.shape == (10, 10, 18)
+        with pytest.raises(ValueError, match="one mesh"):
+            TModel(model.cfg, model.domain_grid, model.ibm, device="cpu")
+        return
+    if name in LIFTED:
+        model = TModel(cfg, grid, device="cpu", mesh=fake_mesh())
+        assert model.grid.shape == (8, 6, 8)
+        return
     with pytest.raises(NotImplementedError, match=name):
         TModel(cfg, grid, device="cpu", mesh=fake_mesh())
-    if name != "an IBM":    # refused for the split alone
-        TModel(cfg, grid, device="cpu")
+    TModel(cfg, grid, device="cpu")
 
 
 @pytest.mark.parametrize("leaf", ["fac.T", "c.bx.u", "drv.u", "ig.u0",
                                   "c.sv", "facstats.pres"])
 def test_refused_state_leaves_name_themselves(leaf):
+    """The open-boundary leaves raise naming themselves; the facet state
+    and its statistics are now whole on every rank, the scalar stack split
+    along its x and y axes."""
     path = tuple(leaf.split("."))
+    accepted = {"fac.T": (), "facstats.pres": (),
+                "c.sv": (None, "x", "y", None)}
+    if leaf in accepted:
+        assert _leaf_spec(path, torch.zeros(2, 16, 12, 8)) == accepted[leaf]
+        return
     with pytest.raises(NotImplementedError, match=leaf.replace(".", r"\.")):
         _leaf_spec(path, torch.zeros(2, 16, 12, 8))
 

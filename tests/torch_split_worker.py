@@ -1,6 +1,7 @@
 """One rank of a split run of udales_tpu_torch, for tests/test_torch_split.py,
-tests/test_torch_multihost.py and the card case of tests/test_torch_step.py.
-It imports torch and udales_tpu_torch, never JAX or udales_tpu.
+tests/test_torch_split_urban.py, tests/test_torch_multihost.py and the card
+cases of tests/test_torch_step.py.  It imports torch and udales_tpu_torch,
+never JAX or udales_tpu.
 
     python tests/torch_split_worker.py JOB RANK
 
@@ -15,7 +16,15 @@ JOB is a pickle the test writes:
   - "cases": [{"name", "cfg" (a udales_tpu_torch Config), "zf", "dpdxl",
     "state" (numpy, as ``convert.state_to_numpy``), "steps"}], each taken
     from the whole-domain State by ``shard_state_global`` and run for
-    "steps" steps on the mesh;
+    "steps" steps on the mesh; a case with "case_dir", "expnr" and "dtype"
+    in place of "cfg", "zf" and "dpdxl" is built by
+    ``run.load_case(..., mesh=)``;
+  - "sections": [{"name", "case_dir", "expnr", "fields" (whole-domain u,
+    v, w, thl as numpy)}]: the IBM of each case on this rank's block, and
+    per grid the rows of the domain's sections it holds, their interpolated
+    u, v, w and air temperature from the ghosted blocks of "fields", and
+    how many of them are reconstruction sections and how many reach into
+    the block's ghost ring;
   - "checks": also hold the halo exchange (h = 1, 2) against ``pad_wrap``,
     ``gather_state(shard_state(.))`` against the identity (and the blocks
     against ``state_shardings``), and the split slab means against the
@@ -25,6 +34,7 @@ JOB is a pickle the test writes:
     coordinates, and per case this rank's block and the gathered State
     after the steps, the kernel's launches and the collectives.
 """
+import dataclasses
 import os
 import pickle
 import subprocess
@@ -49,7 +59,9 @@ from udales_tpu_torch.parallel.mesh import (gather_state,  # noqa: E402
                                             state_shardings)
 from udales_tpu_torch.parallel.multihost import (  # noqa: E402
     free_port, global_mesh, init_distributed, shard_state_global)
-from udales_tpu_torch.run import Model  # noqa: E402
+from udales_tpu_torch.ops.boundary import ghost_thl  # noqa: E402
+from udales_tpu_torch.run import Model, _velocity_ghosts, load_case  # noqa
+from udales_tpu_torch.state import Fields  # noqa: E402
 
 
 def start(job, out):
@@ -103,6 +115,9 @@ def launch(job, out, timeout=120):
 
 
 def build(case, device, mesh):
+    if "case_dir" in case:
+        return load_case(case["case_dir"], case["expnr"], case["dtype"],
+                         device=device, mesh=mesh)
     cfg = case["cfg"]
     d = cfg.domain
     grid = Grid(d.itot, d.jtot, d.ktot, d.xlen, d.ylen, case["zf"],
@@ -166,6 +181,42 @@ def reduction_errors(mesh, device):
     return max(float((a.cpu() - b).abs().max()) for a, b in pairs)
 
 
+def section_report(job, mesh, device):
+    """The block IBM's sections of one case and their interpolated values
+    (see the module docstring)."""
+    model = load_case(job["case_dir"], job["expnr"], "float64", device=device,
+                      mesh=mesh)
+    ibm, grid, cfg = model.ibm, model.grid, model.cfg
+    t = lambda a: grid.cut(torch.as_tensor(a, device=device)).contiguous()
+    f = {k: t(v) for k, v in job["fields"].items()}
+    fields = Fields(u=f["u"], v=f["v"], w=f["w"], thl=f["thl"],
+                    qt=torch.zeros_like(f["thl"]),
+                    e12=torch.zeros_like(f["thl"]),
+                    sv=f["thl"].new_zeros((0, *f["thl"].shape)))
+    g = dataclasses.replace(_velocity_ghosts(fields, cfg, grid), thl=ghost_thl(
+        fields.thl, torch.ones_like(fields.thl), cfg, grid, mesh=mesh))
+    out = {}
+    for which, s in ibm.lists.items():
+        rows = ibm.rows[which]
+        sec = ibm.sec[which]
+        rec = sec.rec[sec.active][rows]
+        r = dict(rows=rows, n_rec=int(rec.sum()), n_cross=0, values=None)
+        if s is not None:
+            r["values"] = [v.cpu().numpy() for v in ibm._interp(s, g)]
+            cross = np.zeros(len(rows), bool)
+            for name in ("u", "v", "w", "t"):
+                G = getattr(g, "thl" if name == "t" else name)
+                i, j, _ = np.unravel_index(
+                    getattr(s, f"idx_{name}").cpu().numpy(), G.shape)
+                ring = ((i == 0) | (i == G.shape[0] - 1) | (j == 0)
+                        | (j == G.shape[1] - 1))
+                cross |= (ring & (getattr(s, f"wgt_{name}").cpu().numpy()
+                                  != 0)).any(axis=1)
+            r["n_cross"] = int(cross.sum())
+        out[which] = r
+    return out
+
+
 def main(job_path, rank):
     job = pickle.loads(Path(job_path).read_bytes())
     device = torch.device(job["device"])
@@ -177,9 +228,10 @@ def main(job_path, rank):
     rank = dist.get_rank()
     res = {}
     if job.get("dryrun"):
-        mesh, out = entry.dryrun_multichip(job["world"], device=device,
-                                           host_staged=job["host_staged"])
+        mesh, out, iout = entry.dryrun_multichip(
+            job["world"], device=device, host_staged=job["host_staged"])
         res["dryrun"] = state_to_numpy(out)
+        res["dryrun_ibm"] = state_to_numpy(iout)
     else:
         mesh = (make_mesh(*job["mesh"], host_staged=job["host_staged"])
                 if job["mesh"] else global_mesh(host_staged=job["host_staged"]))
@@ -189,12 +241,16 @@ def main(job_path, rank):
             st = shard_state_global(state_from_numpy(case["state"]), mesh,
                                     device=device)
             fused_diff_mom.launch_count = 0
+            fused_diff_mom.masked_launch_count = 0
             mesh.reset_counts()
             out = model.run(st, case["steps"])
             res["cases"][case["name"]] = dict(
                 block=state_to_numpy(out), launches=fused_diff_mom.launch_count,
+                masked=fused_diff_mom.masked_launch_count,
                 collectives=mesh.collectives,
                 gathered=state_to_numpy(gather_state(out, mesh)))
+        res["sections"] = {s["name"]: section_report(s, mesh, device)
+                           for s in job.get("sections", [])}
         if job.get("checks"):
             res["halo"] = halo_errors(mesh, device)
             res["identity"] = identity_error(job["cases"][0], mesh, device)

@@ -3,7 +3,8 @@
     _build(itot, jtot, ktot, dtype, ladaptive, device, mesh) -> Model
     _init_state(model, seed, amp)                      -> State
     entry()                                            -> (step, (state,))
-    dryrun_multichip(n)    -> one step of the flat case split over n ranks
+    dryrun_multichip(n)    -> one step of the flat case and of a building
+                              case, each split over n ranks
 
 The case: periodic x/y, rough floor (wall function), Vreman closure, cd2
 advection, a uniform grid of 1 m cells and a -1e-4 large-scale pressure
@@ -62,12 +63,17 @@ def entry(device="cuda"):
 
 
 def dryrun_multichip(n_devices: int, device="cuda", host_staged=False):
-    """The flat part of udales_tpu's dry run (``__graft_entry__.py:50-82``):
-    `n_devices` ranks on a near-square px x py mesh (px <= py), a grid of
-    8 px py cells a side, one adaptive step of the flat case.  Every rank of
-    the group calls it (under torchrun, or after
-    ``parallel.multihost.init_distributed``).  Returns (mesh, the gathered
-    State after the step)."""
+    """The first two paths of udales_tpu's dry run
+    (``__graft_entry__.py:50-142``): `n_devices` ranks on a near-square
+    px x py mesh (px <= py); one adaptive step of the flat case on a grid of
+    8 px py cells a side, then one step of a building case generated by the
+    port's preprocessor (one box, ``ltempeq``, ``lbuoyancy``, facet wall
+    functions; a grid of 8 max(px, py) cells a side) through
+    ``run.load_case(..., mesh=)``.  Every rank of the group calls it (under
+    torchrun, or after ``parallel.multihost.init_distributed``) and stages
+    the building case in a temporary directory of its own.  Returns (mesh,
+    the gathered flat State, the gathered building State), each after its
+    step; a non-finite u or thl raises."""
     from .parallel.mesh import gather_state, make_mesh, shard_state
     from .parallel.multihost import init_distributed
     _, world = init_distributed(device=device)
@@ -88,4 +94,67 @@ def dryrun_multichip(n_devices: int, device="cuda", host_staged=False):
     if mesh.rank == 0:
         print(f"dryrun_multichip OK: mesh {px}x{py}, grid {n}x{n}x{n}, "
               f"dt={float(out.dt):.4f}", flush=True)
-    return mesh, out
+
+    # the building case: masks, facet sections, wall functions under the
+    # same mesh (udales_tpu's second path)
+    import tempfile
+    from pathlib import Path
+    from .prep.prep import PrepConfig, make_box_stl, prepare_case
+    from .run import load_case
+    nib = 8 * max(px, py)
+    with tempfile.TemporaryDirectory(prefix="udales_dryrun_") as td:
+        tmp = Path(td)
+        make_box_stl(tmp / "geom.stl", nib // 4, nib // 2, nib // 4,
+                     nib // 2, nib // 4, float(nib), float(nib))
+        counts = prepare_case(tmp / "geom.stl", tmp, PrepConfig(
+            itot=nib, jtot=nib, ktot=nib, xlen=float(nib), ylen=float(nib),
+            zsize=float(nib), expnr="902", u0=1.0, dpdx=1e-4,
+            with_radiation=False))
+        (tmp / "namoptions.902").write_text(_BOX_NAMELIST.format(
+            n=nib, walls="\n".join(
+                [f"nfcts = {counts['nfcts']}"]
+                + [f"{k}_{w} = {counts[f'{k}_{w}']}" for k in (
+                    "nsolpts", "nbndpts", "nfctsecs") for w in "uvwc"])))
+        ibm_model = load_case(tmp, "902", "float32", device=device,
+                              mesh=mesh)
+        iout = gather_state(ibm_model.step(ibm_model.cold_start(seed=1)),
+                            mesh)
+    if not all(bool(torch.isfinite(f).all()) for f in (iout.c.u,
+                                                        iout.c.thl)):
+        raise RuntimeError("dryrun_multichip: non-finite u or thl after "
+                           "the building step")
+    if mesh.rank == 0:
+        print(f"dryrun_multichip OK (IBM): mesh {px}x{py}, grid {nib}^3, "
+              f"nfcts={counts['nfcts']}, dt={float(iout.dt):.4f}",
+              flush=True)
+    return mesh, out, iout
+
+
+# the building case of `dryrun_multichip` (udales_tpu's, __graft_entry__.py)
+_BOX_NAMELIST = """
+&RUN
+iexpnr = 902
+ladaptive = .true.
+dtmax = 0.1
+/
+&DOMAIN
+itot = {n}
+jtot = {n}
+ktot = {n}
+xlen = {n}.
+ylen = {n}.
+/
+&PHYSICS
+ltempeq = .true.
+lbuoyancy = .true.
+/
+&WALLS
+{walls}
+iwalltemp = 2
+/
+&BC
+thls = 290.
+z0 = 0.05
+z0h = 0.00035
+/
+"""

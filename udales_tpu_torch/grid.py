@@ -14,7 +14,8 @@ Index conventions (0-based):
 
 ``block(mesh)`` gives one rank's share of the grid under an x/y process split
 (``parallel.mesh``): its ``itot``/``jtot`` and x/y coordinates are the
-block's, ``global_shape``, ``xlen`` and ``ylen`` the domain's.
+block's, ``global_shape``, ``xlen`` and ``ylen`` the domain's; ``cut``
+takes the block's part of a whole-domain array.
 """
 from __future__ import annotations
 
@@ -152,6 +153,16 @@ class Grid:
         g.yh = self.yh[g.j0: g.j0 + g.jtot + 1]
         g.yf = self.yf[g.j0: g.j0 + g.jtot]
         return g
+
+    def cut(self, a, ring: int = 0):
+        """This block's part of the whole-domain array `a` (NumPy or a
+        tensor) whose x and y axes are -3 and -2, with `ring` more planes on
+        each side when `a` is ghosted by `ring`; `a` itself on a
+        whole-domain grid.  A view: clone it for a contiguous copy."""
+        if self.mesh is None:
+            return a
+        return a[..., self.i0: self.i0 + self.itot + 2 * ring,
+                 self.j0: self.j0 + self.jtot + 2 * ring, :]
 
     # -- tensor views -----------------------------------------------------
     def t(self, name: str, device) -> torch.Tensor:

@@ -30,6 +30,15 @@ integrates (one more ``index_add_`` over the facet id), the domain totals
 for ``periodic_eb_corr``, the latent flux of moist walls (fixed, or the
 green-roof resistances of the facet state) and the ``lwritefac`` facet
 statistics.
+
+Under an x/y process split (``IBM.load(..., mesh=)``, ``parallel.mesh``)
+the geometry is prepared on the domain grid as on one device and then cut:
+each rank keeps its block of the masks, its block of the ghosted masks with
+their one-cell ring, and the sections whose boundary point lies in its
+block, their gather points re-based to its ghosted block.  The periodic
+pads of ibmnorm are the mesh's halo exchange, and the per-facet sums and
+domain totals of `wallfun` are summed over the ranks in one all-reduce, so
+every rank returns the domain's.
 """
 from __future__ import annotations
 
@@ -276,18 +285,58 @@ def _reconstruction_data(ijk, dist, norms, z0, dir_align, grid: Grid):
     return ok, recdist, interp
 
 
+def _block_stencils(ijk, stencils: dict, dom: Grid, blk: Grid, which: str):
+    """The sections of one grid whose boundary point lies in the block of
+    `blk` (``Grid.block``): (their points in block coordinates, their
+    stencils {name: (points, weights)} re-based to the block, the boolean
+    selection).  A stencil point is stored either as a -1 / n ghost index
+    (`_interp_stencils`) or wrapped modulo n (`_tri_axis`'s corners), so
+    each is re-based from its offset to the boundary point, unwrapped.  A
+    point of weight 0 (a trilinear corner two cells away when the
+    reconstruction point lies on a face of the staggered grid) reads the
+    boundary point's own cell instead; a weighted point outside the
+    block's one-cell ring raises ValueError."""
+    bx, by = blk.itot, blk.jtot
+    mine = ((ijk[:, 0] >= blk.i0) & (ijk[:, 0] < blk.i0 + bx)
+            & (ijk[:, 1] >= blk.j0) & (ijk[:, 1] < blk.j0 + by))
+    bp = ijk[mine]
+    local = bp - np.array([blk.i0, blk.j0, 0])
+    out = {}
+    for name, (pts, wgt) in stencils.items():
+        pts, wgt = pts[mine].copy(), wgt[mine]
+        for ax, n, b in ((0, dom.itot, bx), (1, dom.jtot, by)):
+            d = pts[..., ax] - bp[:, None, ax]
+            d = np.where(wgt != 0, (d + n // 2) % n - n // 2, 0)
+            p = local[:, None, ax] + d
+            bad = (p < -1) | (p > b)
+            if bad.any():
+                raise ValueError(
+                    f"interpolation of {which} sections: {int(bad.sum())} "
+                    f"stencil point(s) beyond the one-cell ring of the "
+                    f"{bx} x {by} block at ({blk.i0}, {blk.j0})")
+            pts[..., ax] = p
+        out[name] = (pts, wgt)
+    return local, out, mine
+
+
 class IBM:
     """Static IBM geometry of one case and its run-time operators."""
 
     def __init__(self, cfg: Config, grid: Grid, masks_np: dict, sec: dict,
                  facnorm, facz0, facz0h, facT, faca, faclGR=None,
-                 device="cpu"):
+                 device="cpu", mesh=None):
+        """`grid` is the domain's; with a `mesh` the IBM is this rank's
+        block of it (``grid`` the block grid, ``domain_grid`` the
+        domain's)."""
         self.cfg = cfg
-        self.grid = grid
+        self.domain_grid = grid
+        self.mesh = mesh
+        self.grid = grid.block(mesh) if mesh is not None else grid
         self.device = torch.device(device)
         kw = dict(dtype=grid.torch_dtype, device=self.device)
-        self.masks = Masks(**{k: torch.as_tensor(masks_np[k], **kw)
-                              for k in GRIDS})
+        whole = {k: torch.as_tensor(masks_np[k], **kw) for k in GRIDS}
+        self.masks = Masks(**{k: self.grid.cut(m).clone(
+            memory_format=torch.contiguous_format) for k, m in whole.items()})
         self.sec = sec                 # grid name -> SecData (host)
         self.facnorm = np.asarray(facnorm, np.float64)   # (nfcts, 3)
         self.facz0 = np.asarray(facz0, np.float64)
@@ -298,7 +347,9 @@ class IBM:
         self.faclGR = (np.zeros(self.nfcts, bool) if faclGR is None
                        else np.asarray(faclGR, bool))
         self.faca_t = torch.as_tensor(self.faca, **kw)
-        self._prep_pmasks()
+        self._prep_pmasks(Masks(**whole))
+        # per grid, the rows of the domain's active sections this IBM holds
+        self.rows = {}
         self.lists = {k: self._sections(k, masks_np["c"]) for k in GRIDS}
 
     # ------------------------------------------------------------------
@@ -306,9 +357,11 @@ class IBM:
     # ------------------------------------------------------------------
     @classmethod
     def load(cls, case_dir, expnr: str, cfg: Config, grid: Grid,
-             device="cpu") -> "IBM":
+             device="cpu", mesh=None) -> "IBM":
         """Read the masks, facets and sections of a case directory
-        (udales_tpu ``IBM.load``, ibm.py:192-278)."""
+        (udales_tpu ``IBM.load``, ibm.py:192-278) on the domain `grid`;
+        with a `mesh` (``parallel.mesh.Mesh``) the IBM of this rank's
+        block."""
         case_dir = Path(case_dir)
         nx, ny, nz = grid.shape
         w = cfg.walls
@@ -384,32 +437,62 @@ class IBM:
 
         sec = {k: load_sec(k) for k in GRIDS}
         return cls(cfg, grid, masks, sec, facnorm, facz0, facz0h, facT, faca,
-                   faclGR=faclGR, device=device)
+                   faclGR=faclGR, device=device, mesh=mesh)
 
-    def _prep_pmasks(self):
+    def _prep_pmasks(self, masks: Masks):
         """Ghosted masks for the neighbour logic (udales_tpu ``_prep_pmasks``,
-        ibm.py:577-591): periodic x/y; k ghosts bottom solid, top fluid
-        (modibm.f90:156-159).  pmask_w has no bottom ghost: index k is face
-        k, with one fluid ghost face above the top."""
+        ibm.py:577-591) from the domain's `masks`: periodic x/y; k ghosts
+        bottom solid, top fluid (modibm.f90:156-159).  pmask_w has no bottom
+        ghost: index k is face k, with one fluid ghost face above the top.
+        On a block, its part with the one-cell ring, contiguous (the kernel
+        takes no strided mask)."""
         def padm(m):
             mp = pad_periodic_xy(m, 1)
             return torch.cat([torch.zeros_like(mp[:, :, :1]), mp,
                               torch.ones_like(mp[:, :, :1])], dim=2)
-        self.pmask_u = padm(self.masks.u)
-        self.pmask_v = padm(self.masks.v)
-        self.pmask_c = padm(self.masks.c)
-        mw = pad_periodic_xy(self.masks.w, 1)
-        self.pmask_w = torch.cat([mw, torch.ones_like(mw[:, :, :1])], dim=2)
+        mw = pad_periodic_xy(masks.w, 1)
+        cut = lambda m: self.grid.cut(m, ring=1).clone(
+            memory_format=torch.contiguous_format)
+        self.pmask_u = cut(padm(masks.u))
+        self.pmask_v = cut(padm(masks.v))
+        self.pmask_c = cut(padm(masks.c))
+        self.pmask_w = cut(torch.cat([mw, torch.ones_like(mw[:, :, :1])],
+                                     dim=2))
 
     def _sections(self, which: str, mask_c: np.ndarray) -> Sections | None:
-        """Device section list of one grid (active sections only)."""
+        """Device section list of one grid (active sections only; on a
+        block, those whose boundary point lies in it).  The stencils are
+        built on the domain grid, so the mask values and the reconstruction
+        corners are the domain's."""
         s = self.sec[which]
         act = s.active
+        self.rows[which] = np.arange(int(act.sum()))
         if not act.any():
             return None
-        g, cfg = self.grid, self.cfg
-        nx, ny, nz = g.shape
+        dom, g, cfg = self.domain_grid, self.grid, self.cfg
         ijk = s.ijk[act]
+        # gather points into the unghosted domain fields; rec sections take
+        # the 8 trilinear corners of their reconstruction point (zero-weight
+        # padding for the others)
+        rec = s.rec[act]
+        stencils = {}
+        for name, (pts, wgt) in _interp_stencils(which, ijk, mask_c,
+                                                 dom).items():
+            if rec.any():
+                cpts, cwgt = s.interp["c" if name == "t" else name]
+                pts = np.concatenate([pts, np.repeat(pts[:, :1], 4, 1)], 1)
+                wgt = np.concatenate([wgt, np.zeros_like(wgt)], 1)
+                pts[rec], wgt[rec] = cpts[act][rec], cwgt[act][rec]
+            stencils[name] = (pts, wgt)
+        if self.mesh is not None:
+            ijk, stencils, mine = _block_stencils(ijk, stencils, dom, g,
+                                                  which)
+            self.rows[which] = np.flatnonzero(mine)
+            if not mine.any():
+                return None
+            act = act.copy()
+            act[act] = mine
+        nx, ny, nz = g.shape
         fid = s.fac[act]
         shape = (nx, ny, nz + 1) if which == "w" else (nx, ny, nz)
         flat = _flat_index(ijk, shape, f"facet_sections_{which}.txt")
@@ -419,18 +502,9 @@ class IBM:
                                        device=self.device)
 
         # gather tables into the ghosted fields: G[1+i, 1+j, 1+k] for the
-        # cell fields, W[1+i, 1+j, k] for w; rec sections take the 8
-        # trilinear corners of their reconstruction point (zero-weight
-        # padding for the others)
-        rec = s.rec[act]
+        # cell fields, W[1+i, 1+j, k] for w
         tables = {}
-        for name, (pts, wgt) in _interp_stencils(which, ijk, mask_c,
-                                                 g).items():
-            if rec.any():
-                cpts, cwgt = s.interp["c" if name == "t" else name]
-                pts = np.concatenate([pts, np.repeat(pts[:, :1], 4, 1)], 1)
-                wgt = np.concatenate([wgt, np.zeros_like(wgt)], 1)
-                pts[rec], wgt[rec] = cpts[act][rec], cwgt[act][rec]
+        for name, (pts, wgt) in stencils.items():
             face = name == "w"
             gshape = (nx + 2, ny + 2, nz + 1 if face else nz + 2)
             idx = _flat_index(pts.reshape(-1, 3) + (1, 1, 0 if face else 1),
@@ -493,7 +567,9 @@ class IBM:
         unless `need_fac` or ``lperiodicEBcorr``) and the lwritefac
         diagnostics dict (None unless `need_facstats`; modibm.f90:
         1416-1430, 1475-1476, 1539-1540).  Without a facet state and
-        without those outputs no per-facet or domain sum is formed."""
+        without those outputs no per-facet or domain sum is formed.  On a
+        block the sums are the domain's: this rank's sections' sums, added
+        over the ranks in one all-reduce."""
         cfg = self.cfg
         facT = fac.T[:, 0] if fac is not None else None
         hf_tot = ef_tot = (self.faca_t.new_zeros(())
@@ -518,11 +594,21 @@ class IBM:
             sc = self.lists["c"]
             if sc is not None and pres is not None:
                 pcell = pres.reshape(-1)[sc.flat]
-                fstats["pres"] = self._facsum(sc, pcell) / self.faca_t
-                fstats["pres2"] = self._facsum(sc, pcell * pcell) \
-                    / self.faca_t
+                fstats["pres"] = self._facsum(sc, pcell)
+                fstats["pres2"] = self._facsum(sc, pcell * pcell)
             for key in FACSTAT_FIELDS:
                 fstats.setdefault(key, zf)
+        sums = [fachf, facef, hf_tot, ef_tot] + (
+            [fstats[k] for k in FACSTAT_FIELDS] if need_facstats else [])
+        live = [v for v in sums if v is not None]
+        if self.mesh is not None and live:
+            summed = iter(self.mesh.allreduce_parts(live))
+            sums = [None if v is None else next(summed) for v in sums]
+        fachf, facef, hf_tot, ef_tot = sums[:4]
+        if need_facstats:
+            # the statistics are facet-area averages of the summed values
+            fstats = {k: v / self.faca_t
+                      for k, v in zip(FACSTAT_FIELDS, sums[4:])}
         return du, dv, dw, dthl, dqt, fachf, facef, hf_tot, ef_tot, fstats
 
     def _facsum(self, s: Sections, vals):
@@ -557,8 +643,9 @@ class IBM:
 
     def _wallfunmom(self, which, g, tend, facT=None, need_tau=False):
         """wallfunmom (modibm.f90:1286-1433) on one grid, added to `tend`.
-        With `need_tau` also the per-facet signed stress sums over the facet
-        area (fac_tau_x/y/z), else None."""
+        With `need_tau` also the per-facet area-weighted sums of the signed
+        stress (fac_tau_x/y/z once `wallfun` divides them by the facet
+        area), else None."""
         s = self.lists[which]
         if s is None:
             return tend, (torch.zeros_like(self.faca_t) if need_tau
@@ -577,8 +664,7 @@ class IBM:
                                  0.0)
         tend = tend.reshape(-1).index_add(0, s.flat, -stress_dir * s.coef) \
             .view(tend.shape)
-        tau = (self._facsum(s, stress_dir) / self.faca_t if need_tau
-               else None)
+        tau = self._facsum(s, stress_dir) if need_tau else None
         return tend, tau
 
     def _wallfunheat(self, g, dthl, dqt, fac=None, bctf=None,
@@ -586,7 +672,8 @@ class IBM:
         """wallfunheat (modibm.f90:1436-1606): the sensible heat flux at the
         c-sections added to `dthl` and, on moist walls, the latent flux
         added to `dqt`.  Returns (dthl, dqt, hf_tot, ef_tot, fachf, facef,
-        stats) as `wallfun` documents them; stats holds htc and cth."""
+        stats) as `wallfun` documents them; stats holds the per-facet sums
+        of htc and cth that `wallfun` divides by the facet area."""
         cfg = self.cfg
         need_tot = need_fac or cfg.eb.lperiodicEBcorr
         zt = self.faca_t.new_zeros(()) if need_tot else None
@@ -623,10 +710,8 @@ class IBM:
                         and fac is not None))
                 if need_stats:
                     stats = dict(
-                        htc=self._facsum(s, torch.where(ok, htc, 0.0))
-                        / self.faca_t,
-                        cth=self._facsum(s, torch.where(ok, cth, 0.0))
-                        / self.faca_t)
+                        htc=self._facsum(s, torch.where(ok, htc, 0.0)),
+                        cth=self._facsum(s, torch.where(ok, cth, 0.0)))
             fl = torch.where(ok, flux, 0.0)
             dthl = scatter(dthl, fl)
             if need_tot:
@@ -693,12 +778,13 @@ class IBM:
         """`solid` (modibm.f90:748-826): solid cells take the average of
         their fluid neighbours (value and tendency), or `val` (tendency 0)
         when enclosed (udales_tpu ``_solid_fill_full``, ibm.py:1518).
-        `var` and `rhs` may carry a leading stack axis."""
+        `var` and `rhs` may carry a leading stack axis; both are padded in
+        one halo exchange."""
         Mp = self.pmask_c
         s = _shifts(var.shape)
+        pv, pr = _pad_scalar(torch.stack([var, rhs]), self.mesh).unbind(0)
 
-        def navg(f):
-            fp = _pad_scalar(f)
+        def navg(fp):
             tot = (s(fp, 1, 0, 0) * s(Mp, 1, 0, 0)
                    + s(fp, -1, 0, 0) * s(Mp, -1, 0, 0)
                    + s(fp, 0, 1, 0) * s(Mp, 0, 1, 0)
@@ -709,8 +795,8 @@ class IBM:
                    + s(Mp, 0, -1, 0) + s(Mp, 0, 0, 1) + s(Mp, 0, 0, -1))
             return tot, cnt
 
-        tot_v, cnt = navg(var)
-        tot_r, _ = navg(rhs)
+        tot_v, cnt = navg(pv)
+        tot_r, _ = navg(pr)
         has = cnt > 0
         den = torch.clamp(cnt, min=1.0)
         fill_v = torch.where(has, tot_v / den, val)
@@ -725,11 +811,12 @@ class IBM:
         grid = self.grid
         nz = grid.ktot
         dev = var.device
-        up = pad_periodic_xy(c.u, 1)
-        vp = pad_periodic_xy(c.v, 1)
+        up = pad_periodic_xy(c.u, 1, self.mesh)
+        vp = pad_periodic_xy(c.v, 1, self.mesh)
         kv = lambda name, lo: grid.t(name, dev)[lo: lo + nz][None, None, :]
         return dict(
-            vp=_pad_scalar(var), u_ip=up[2:, 1:-1, :], u_i=up[1:-1, 1:-1, :],
+            vp=_pad_scalar(var, self.mesh), u_ip=up[2:, 1:-1, :],
+            u_i=up[1:-1, 1:-1, :],
             v_jp=vp[1:-1, 2:, :], v_j=vp[1:-1, 1:-1, :],
             w_t=c.w[:, :, 1:], w_b=c.w[:, :, :nz],
             dzf_k=kv("dzf_g", 1), dzf_kp=kv("dzf_g", 2),
@@ -805,10 +892,13 @@ def _shifts(shape):
                                    1 + dj: 1 + dj + ny, 1 + dk: 1 + dk + nz]
 
 
-def _pad_scalar(f):
-    """Periodic x/y halo and zero-gradient k ghosts of a cell field (or of
-    a stack of them along a leading axis)."""
-    return pad_edge(pad_wrap(pad_wrap(f, -3, 1), -2, 1), -1, 1)
+def _pad_scalar(f, mesh=None):
+    """Periodic x/y halo (from the neighbouring ranks of `mesh`) and
+    zero-gradient k ghosts of a cell field (or of a stack of them along a
+    leading axis)."""
+    fx = (mesh.wrap_xy(f, 1) if mesh is not None
+          else pad_wrap(pad_wrap(f, -3, 1), -2, 1))
+    return pad_edge(fx, -1, 1)
 
 
 # ---------------------------------------------------------------------------

@@ -9,8 +9,8 @@ convective outlet (modboundary.f90:688-996 in x, :1017-1190 in y).  For an
 open direction the ghost planes come from a context dict built per substep
 (see ops/openbc.py): ``openx = {"inlet": {...interior-k planes...}, "bx":
 XPlanes}``, ``openy = {"inlet": {...}, "by": YPlanes}``.  Under an x/y
-process split (``parallel.mesh``; the flat path only) the periodic wrap is
-the mesh's halo exchange.
+process split (``parallel.mesh``; periodic x and y only) the periodic wrap
+is the mesh's halo exchange, of width 2 for the kappa ghosts.
 """
 from __future__ import annotations
 
@@ -239,10 +239,10 @@ def ghost_e12(e12, cfg: Config, h: int = 1, openx=None, openy=None,
 
 
 def _ghost_kappa(c, cfg: Config, h: int, hk: int, xin=None, xout=None,
-                 yin=None, yout=None):
+                 yin=None, yout=None, mesh=None):
     """Kappa-layout ghosts of `c` (..., nx, ny, nz): replicated k ghosts,
-    and in x/y the periodic wrap or the open planes `xin`/`xout` (...,
-    ny, nz) and `yin`/`yout` (..., nx, nz)."""
+    and in x/y the periodic wrap (over the ranks of `mesh`) or the open
+    planes `xin`/`xout` (..., ny, nz) and `yin`/`yout` (..., nx, nz)."""
     g = pad_edge(c, -1, hk)
     kg2 = lambda p: pad_edge(p, -1, hk)
     xlo = xhi = ylo = yhi = None
@@ -256,11 +256,11 @@ def _ghost_kappa(c, cfg: Config, h: int, hk: int, xin=None, xout=None,
         # ysi_profile (modboundary.f90:1065-1097)
         ylo = 2.0 * kg2(yin) - kg2(c[..., :, 0, :])
         yhi = kg2(yout)
-    return _dispatch(g, h, cfg, xlo, xhi, ylo, yhi)
+    return _dispatch(g, h, cfg, xlo, xhi, ylo, yhi, mesh)
 
 
 def ghost_scalar_kappa(c, cfg: Config, h: int = 2, hk: int = 2, openx=None,
-                       openy=None, sv_index: int = 0):
+                       openy=None, sv_index: int = 0, mesh=None):
     """Scalar ghosts for the kappa scheme: halo 2 in x/y and 2 ghost cells
     in k (reference ihc=jhc=khc=2).  The open-boundary planes are read from
     the ``sv`` slot of the contexts at `sv_index`."""
@@ -271,10 +271,10 @@ def ghost_scalar_kappa(c, cfg: Config, h: int = 2, hk: int = 2, openx=None,
     if openy is not None:
         yin = openy["inlet"]["sv"][sv_index]
         yout = openy["by"].sv[sv_index]
-    return _ghost_kappa(c, cfg, h, hk, xin, xout, yin, yout)
+    return _ghost_kappa(c, cfg, h, hk, xin, xout, yin, yout, mesh)
 
 
-def ghost_sv(sv, cfg: Config, openx=None, openy=None):
+def ghost_sv(sv, cfg: Config, openx=None, openy=None, mesh=None):
     """Kappa ghosts of every passive scalar at once: `sv` (nsv, nx, ny, nz)
     -> (nsv, nx+4, ny+4, nz+4), each scalar as ``ghost_scalar_kappa`` with
     its own index gives it (udales_tpu ``make_ghosts``, boundary.py:310-316),
@@ -284,7 +284,7 @@ def ghost_sv(sv, cfg: Config, openx=None, openy=None):
         xin, xout = openx["inlet"]["sv"], openx["bx"].sv
     if openy is not None:
         yin, yout = openy["inlet"]["sv"], openy["by"].sv
-    return _ghost_kappa(sv, cfg, 2, 2, xin, xout, yin, yout)
+    return _ghost_kappa(sv, cfg, 2, 2, xin, xout, yin, yout, mesh)
 
 
 def ghost_ek(ekm, ekh, cfg: Config, grid: Grid, h: int = 1, openx=None,
@@ -340,7 +340,7 @@ def make_ghosts(f: Fields, ekm, ekh, cfg: Config, grid: Grid,
         thl=ghost_thl(f.thl, ekh, cfg, grid, h, openx, openy, mesh),
         qt=ghost_qt(f.qt, ekh, cfg, grid, h, openx, openy, mesh),
         e12=ghost_e12(f.e12, cfg, h, openx, openy, mesh),
-        sv=(ghost_sv(f.sv, cfg, openx, openy) if f.sv.shape[0] > 0
+        sv=(ghost_sv(f.sv, cfg, openx, openy, mesh) if f.sv.shape[0] > 0
             else f.sv),
         ekm=gm,
         ekh=gh,

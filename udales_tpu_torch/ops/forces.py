@@ -230,18 +230,25 @@ def fixuinf1(c, grid: Grid, cfg: Config, dt, u0av, v0av):
 
 def shifted_pbcs(c, grid: Grid, cfg: Config, rk3coef, u0av, ds: float):
     """Spanwise-shift nudging near the outlet half of the domain
-    (modforces.f90:953-980), used with shifted periodic BCs."""
-    nx, ny, nz = grid.shape
+    (modforces.f90:953-980), used with shifted periodic BCs.  The outlet
+    half is the domain's; on a block (``Grid.block``) the rank takes its
+    part of the profile and its y neighbours from the mesh."""
+    nx = grid.global_shape[0]
     ih = nx // 2
-    xh = grid.xh
+    xh = np.arange(nx + 1) * grid.dx      # the domain's (Grid.__init__)
     vsx = np.zeros(nx)
     vsx[ih + 1:] = (0.5 * np.pi * ds / (0.5 * grid.xlen)
                     * np.sin(np.pi * (xh[ih + 1: nx] - xh[ih])
                              / (0.5 * grid.xlen)))
+    vsx = vsx[grid.i0: grid.i0 + grid.itot]
     vs = torch.as_tensor(vsx, dtype=c.u.dtype,
                          device=c.u.device)[:, None, None] \
         * u0av[None, None, :]
-    dyj = lambda f: (f - torch.roll(f, 1, dims=1)) * grid.dyi
+    mesh = grid.mesh
+    if mesh is None:
+        dyj = lambda f: (f - torch.roll(f, 1, dims=1)) * grid.dyi
+    else:
+        dyj = lambda f: (f - mesh.wrap(f, 1, 1, "y")[:, :-2]) * grid.dyi
     du = -vs * dyj(c.u)
     dv = -vs * dyj(c.v)
     dw = -torch.cat([vs, vs[:, :, -1:]], dim=2) * dyj(c.w)

@@ -56,25 +56,27 @@ def _qsat_tetens(T, pressure):
     return const.ep * es / (pressure - (1.0 - const.ep) * es)
 
 
-def ql_sat_adjust(thl, qt, pressure, exner, lqlnr: bool = False):
+def ql_sat_adjust(thl, qt, pressure, exner, lqlnr: bool = False, mesh=None):
     """All-or-nothing liquid water (modthermodynamics.f90:478-501), or the
-    Newton-Raphson temperature iteration when ``lqlnr`` (:449-476)."""
+    Newton-Raphson temperature iteration when ``lqlnr`` (:449-476), whose
+    convergence test is the domain's over the ranks of `mesh`."""
     tl = torch.clamp(thl * exner, min=100.0)
     if lqlnr:
-        return _ql_newton_raphson(tl, qt, pressure)
+        return _ql_newton_raphson(tl, qt, pressure, mesh=mesh)
     qsl = _qsat_tetens(tl, pressure)
     b1 = const.rlv ** 2 / (tl ** 2 * const.cp * const.rv)
     qs = qsl * (1.0 + b1 * qt) / (1.0 + b1 * qsl)
     return torch.clamp(qt - qs, min=0.0)
 
 
-def _ql_newton_raphson(tl, qt, pressure, maxit: int = 50):
+def _ql_newton_raphson(tl, qt, pressure, maxit: int = 50, mesh=None):
     """Newton-Raphson saturation temperature (modthermodynamics.f90:449-476):
     iterate T until the largest relative update drops below 1e-5, at most
     `maxit` times.  The reference package stops a while-loop on that global
     error; here all `maxit` iterations run and a device-side flag
     freezes T once the error has dropped, which gives the same T without a
-    host synchronisation per iteration."""
+    host synchronisation per iteration.  On a block the largest update is
+    the domain's (a MAX all-reduce an iteration)."""
     T = tl
     done = torch.zeros((), dtype=torch.bool, device=tl.device)
     for _ in range(maxit):
@@ -83,6 +85,8 @@ def _ql_newton_raphson(tl, qt, pressure, maxit: int = 50):
                   - (const.rlv / const.cp) * qt) \
             / (1.0 + (const.rlv ** 2 * qs) / (const.rv * const.cp * T ** 2))
         err = torch.max(torch.abs(Tn - T) / Tn)
+        if mesh is not None:
+            err = mesh.allreduce_max(err)
         T = torch.where(done, T, Tn)
         done = done | ~(err > 1e-5)
     return torch.clamp(qt - _qsat_tetens(T, pressure), min=0.0)
@@ -184,7 +188,7 @@ def thermodynamics(c, cfg: Config, grid: Grid, masks=None) -> ThermoDiag:
         presf, _, exnf, _, _ = hydrostatic_profiles(
             thl0av_e, qt0av_e, ql0av, grid, cfg, thvs, ps)
         ql0 = ql_sat_adjust(c.thl, c.qt, presf[None, None, :nz],
-                            exnf[None, None, :nz], cfg.dynamics.lqlnr)
+                            exnf[None, None, :nz], cfg.dynamics.lqlnr, mesh)
         ql0av = ext(avexy_masked(ql0, IIc, mesh=mesh))
         th0av_e = thl0av_e + (const.rlv / const.cp) * ql0av / exnf
     presf, presh, exnf, exnh, _ = hydrostatic_profiles(
@@ -207,7 +211,7 @@ def thermodynamics(c, cfg: Config, grid: Grid, masks=None) -> ThermoDiag:
     if lmoist:
         qt0h = halflev(c.qt, qts)
         ql0h = ql_sat_adjust(thl0h, qt0h, presh[None, None, :],
-                             exnh[None, None, :], cfg.dynamics.lqlnr)
+                             exnh[None, None, :], cfg.dynamics.lqlnr, mesh)
         # calthv moist branch (:142-200)
         thv0h = (thl0h + const.rlv * ql0h / (const.cp * exnh[None, None, :])) \
             * (1.0 + (const.rv / const.rd - 1.0) * qt0h

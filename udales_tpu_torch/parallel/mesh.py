@@ -24,7 +24,10 @@ divmod(r, py), the row-major order of udales_tpu's ``make_mesh``.
 
 ``shard_state`` / ``gather_state`` cut a whole-domain State into this rank's
 blocks and put it back together; ``_leaf_spec`` says how each State leaf is
-split, with udales_tpu's table, for the leaves the flat path has.
+split, with udales_tpu's table: the fields and the passive-scalar stack
+along x and y, the facet state and its statistics whole on every rank.
+``IBM.load(..., mesh=)`` and the block constructors of ``physics.py`` cut
+the static geometry the same way.
 """
 from __future__ import annotations
 
@@ -35,9 +38,9 @@ from contextlib import contextmanager
 import torch
 import torch.distributed as dist
 
-# State parts of the paths whose split is not ported yet
-_REFUSED = ("fac", "facstats", "bx", "by", "drv", "ig", "dense", "surf",
-            "ibmp")
+# State parts of the paths whose split is not ported yet: the outlet planes,
+# the driver window and the inlet generator of the open boundaries
+_REFUSED = ("bx", "by", "drv", "ig")
 
 
 @contextmanager
@@ -191,6 +194,14 @@ class Mesh:
         t = t.contiguous()
         return self._run(lambda r, x: dist.all_reduce(r), t, t)
 
+    def allreduce_parts(self, parts):
+        """`allreduce_sum` of every tensor of the list `parts` (any shapes,
+        one dtype) in one collective; returns the summed tensors in their
+        shapes."""
+        flat = self.allreduce_sum(torch.cat([p.reshape(-1) for p in parts]))
+        return [t.view(p.shape) for p, t in zip(
+            parts, flat.split([p.numel() for p in parts]))]
+
     def allreduce_max(self, t):
         """Max of `t` over every rank (t is overwritten and returned)."""
         t = t.contiguous()
@@ -287,20 +298,22 @@ def field_spec(ndim: int, leading_batch: bool = False) -> tuple:
 
 
 def _leaf_spec(path, leaf) -> tuple:
-    """How one State leaf is split, as udales_tpu's table gives it for the
-    leaves of the flat path: the fields of ``c``, ``m``, ``pres`` and the
-    ``taud`` diagnostics along x and y, ``dt``, ``timee``, ``ctl`` and the
-    profiles whole.  The leaves of paths whose split is not ported (the
-    facet state, outlet planes, driver window, inlet generator, IBM stacks,
-    passive scalars) raise NotImplementedError naming the leaf."""
+    """How one State leaf is split, as udales_tpu's table gives it
+    (``udales_tpu/parallel/mesh.py`` ``_leaf_spec``): the fields of ``c``,
+    ``m``, ``pres`` and the ``taud`` diagnostics along x and y, the scalar
+    stack ``sv`` (nsv, nx, ny, nz) along its x and y axes, the facet state
+    ``fac`` and the ``facstats`` accumulators whole (every rank holds the
+    same copy), ``dt``, ``timee``, ``ctl`` and the profiles whole.  The
+    leaves of the open-boundary paths, whose split is not ported (outlet
+    planes, driver window, inlet generator), raise NotImplementedError
+    naming the leaf."""
     names = [str(p) for p in path]
     nd = getattr(leaf, "ndim", 0)
-    if any(n in _REFUSED for n in names) or (
-            "sv" in names and leaf.numel() > 0):
+    if any(n in _REFUSED for n in names):
         raise NotImplementedError(
             f"the x/y split of State leaf {'.'.join(names)} is not ported "
-            f"to udales_tpu_torch yet (the flat path only)")
-    if "ctl" in names:
+            f"to udales_tpu_torch yet (the open boundaries)")
+    if "ctl" in names or "fac" in names or "facstats" in names:
         return ()
     if nd == 4:
         return field_spec(4, leading_batch=True)

@@ -13,9 +13,19 @@ made at load, so that a step makes no host synchronisation:
   - the heat pumps' index and value tensors live on the device; their
     scatter into ``dthl`` sums duplicate points (``index_put_`` with
     ``accumulate=True``, as JAX's ``.at[].add``).
+
+Under an x/y process split (``parallel.mesh``) each is built on the domain
+grid as on one device and then cut to the rank's block (``block(grid)``
+with the block grid of ``Grid.block``): the source field and the
+vegetation arrays like fields, the heat pumps to their points in the
+block, the purifier boxes clipped to it.  The vegetation's periodic
+neighbours come from the mesh's halo exchange, and a purifier's intake
+plane, which may lie on another rank, from one all-reduce of every box's
+intake.
 """
 from __future__ import annotations
 
+import copy
 from dataclasses import dataclass, replace
 from pathlib import Path
 
@@ -131,6 +141,11 @@ class ScalarSources:
         pts, lns = cls.read(case_dir, expnr, cfg)
         return cls.build(cfg, grid, pts, lns, device=device)
 
+    def block(self, grid: Grid) -> "ScalarSources":
+        """The sources of the block of `grid` (``Grid.block``)."""
+        return ScalarSources(grid.cut(self.field).clone(
+            memory_format=torch.contiguous_format))
+
 
 # ---------------------------------------------------------------------------
 # Purifiers
@@ -155,10 +170,60 @@ _EFFS_AFTER_FIRST = [0.7, 0.0, 0.65]
 
 
 class Purifiers:
+    """The purifier boxes of a case on the domain `grid`; ``block(grid)``
+    the same boxes applied to one rank's block."""
+
     def __init__(self, cfg: Config, grid: Grid, purifs):
         self.cfg = cfg
         self.grid = grid
         self.purifs = list(purifs)
+        self.blk = None     # the block grid under an x/y split
+
+    def block(self, grid: Grid) -> "Purifiers":
+        """These purifiers on the block of `grid` (``Grid.block``); their
+        geometry stays the domain's."""
+        p = copy.copy(self)
+        p.blk = grid
+        return p
+
+    def _clip(self, box):
+        """(the block's part of the domain slices `box` (x, y, z) in block
+        indices, the offsets of that part in the box along x and y), or
+        None when the box misses the block; on the whole domain the box
+        itself."""
+        g = self.blk
+        if g is None:
+            return box, (0, 0)
+        out, off = [], []
+        for s, b0, bn, n in ((box[0], g.i0, g.itot, self.grid.itot),
+                             (box[1], g.j0, g.jtot, self.grid.jtot)):
+            lo, hi, _ = s.indices(n)
+            a, b = max(lo, b0), min(hi, b0 + bn)
+            if a >= b:
+                return None
+            out.append(slice(a - b0, b - b0))
+            off.append(a - lo)
+        return (out[0], out[1], box[2]), tuple(off)
+
+    def _intake_slabs(self, sv):
+        """The intake slab (nsv, ...) of every box.  On a block each rank
+        fills the part it holds and one all-reduce sums them, so every rank
+        has the whole slab of every box."""
+        intakes = [self.geometry(p)[4] for p in self.purifs]
+        if self.blk is None:
+            return [sv[(slice(None),) + s] for s in intakes]
+        dom = self.grid.shape
+        bufs = []
+        for s in intakes:
+            buf = sv.new_zeros((sv.shape[0], *(
+                len(range(*a.indices(n))) for a, n in zip(s, dom))))
+            part = self._clip(s)
+            if part is not None:
+                (lx, ly, lz), (ox, oy) = part
+                buf[:, ox: ox + lx.stop - lx.start,
+                    oy: oy + ly.stop - ly.start] = sv[:, lx, ly, lz]
+            bufs.append(buf)
+        return self.blk.mesh.allreduce_parts(bufs)
 
     @staticmethod
     def read(case_dir, expnr: str):
@@ -209,7 +274,8 @@ class Purifiers:
         (their tendencies zeroed, so the integration keeps them) and scrub
         the scalars drawn in at the intake (modpurifiers.f90:63-268).
         Called between the projection and the integrate step.  Returns new
-        (m, c, du, dv, dw, dsv); the arguments are not modified."""
+        (m, c, du, dv, dw, dsv); the arguments are not modified.  On a
+        block each box is clipped to it."""
         if not self.purifs:
             return m, c, du, dv, dw, dsv
         epu = self.cfg.purifs.epu
@@ -222,25 +288,36 @@ class Purifiers:
             if key not in new:
                 new[key] = src.clone()
             return new[key]
-        sv_in = m.sv
         nsv = dsv.shape[0]
         effs = [epu] + _EFFS_AFTER_FIRST
-        for p in self.purifs:
-            Apu, dpu, vel, faces, intake, axis = self.geometry(p)
+        # the intake slabs are read from m.sv as it was on entry
+        slabs = self._intake_slabs(m.sv) if nsv else None
+        for q, p in enumerate(self.purifs):
+            Apu, dpu, vel, faces, _, axis = self.geometry(p)
             name = vel_name[axis]
-            target("m", name, getattr(m, name))[faces] = vel
-            target("c", name, getattr(c, name))[faces] = vel
-            target("d", name, (du, dv, dw)[axis])[faces] = 0.0
-            if nsv == 0:
+            part = self._clip(faces)
+            if part is not None:
+                fl = part[0]
+                target("m", name, getattr(m, name))[fl] = vel
+                target("c", name, getattr(c, name))[fl] = vel
+                target("d", name, (du, dv, dw)[axis])[fl] = 0.0
+            part = self._clip((slice(p.il, p.iu + 1), slice(p.jl, p.ju + 1),
+                               slice(p.kl, p.ku + 1)))
+            if nsv == 0 or part is None:
                 continue
-            # the intake slab is read from m.sv as it was on entry
-            slab = sv_in[(slice(None),) + intake]
+            (bx, by, bz), (ox, oy) = part
+            # the slab's part across this block's share of the box (the
+            # flow axis has one plane, which broadcasts)
+            slab = slabs[q]
+            if axis != 0:
+                slab = slab[:, ox: ox + bx.stop - bx.start]
+            if axis != 1:
+                slab = slab[:, :, oy: oy + by.stop - by.start]
             for n in range(nsv):
                 e = effs[n] if n < len(effs) else 0.0
                 if e == 0.0:
                     continue
-                box = (n, slice(p.il, p.iu + 1), slice(p.jl, p.ju + 1),
-                       slice(p.kl, p.ku + 1))
+                box = (n, bx, by, bz)
                 t = target("d", "sv", dsv)
                 t[box] = t[box] + (-(Qpu / Apu) * e * slab[n] / dpu)
         fields = lambda which, f: replace(f, **{
@@ -284,6 +361,27 @@ class HeatPumps:
     def load(cls, case_dir, expnr, cfg, grid, device="cpu"):
         pts = read_sparse_ijk(Path(case_dir) / f"heatpump.inp.{expnr}")
         return cls(cfg, grid, pts, device=device)
+
+    def block(self, grid: Grid) -> "HeatPumps":
+        """The heat pumps of the block of `grid` (``Grid.block``): its
+        points in block indices, each extracting and blowing as on the
+        domain (the shares of the domain's count)."""
+        i, j, _ = self.ijk.T
+        keep = ((i >= grid.i0) & (i < grid.i0 + grid.itot)
+                & (j >= grid.j0) & (j < grid.j0 + grid.jtot))
+        hp = copy.copy(self)
+        hp.grid = grid
+        hp.ijk = self.ijk[keep] - np.array([grid.i0, grid.j0, 0])
+        dev = self.thl_src.device
+        li = lambda a: torch.as_tensor(a, dtype=torch.int64, device=dev)
+        i, j, k = hp.ijk.T
+        hp.idx = (li(i), li(j), li(k))
+        hp.idx_w = (li(i), li(j), li(k + 1))
+        sel = torch.as_tensor(keep, device=dev)
+        hp.thl_src = self.thl_src[sel]
+        hp.w_vals = self.w_vals[sel]
+        hp.zeros = self.zeros[sel]
+        return hp
 
     def apply(self, m, c, dw, dthl):
         """heatpump.f90:60-90: with ``lfan_hp`` the w face above each point
@@ -385,6 +483,19 @@ class Vegetation:
         return cls(cfg, grid, lad, dcoef, ud, lsize, rs, sveg=sveg,
                    device=device)
 
+    def block(self, grid: Grid) -> "Vegetation":
+        """The canopy of the block of `grid` (``Grid.block``): the arrays
+        built on the domain (face averages included), cut; ``has_canopy``
+        stays the domain's, so every rank takes the same path."""
+        veg = copy.copy(self)
+        veg.grid = grid
+        for name in ("lad", "dcoef_u", "dcoef_v", "dcoef_w", "ud", "lsize",
+                     "rs", "sveg", "dep", "active"):
+            a = getattr(self, name)
+            setattr(veg, name, None if a is None else grid.cut(a).clone(
+                memory_format=torch.contiguous_format))
+        return veg
+
     def _moist_eb(self, cfg):
         return (cfg.physics.lmoist and cfg.physics.ltempeq
                 and self.sveg is not None)
@@ -395,10 +506,11 @@ class Vegetation:
         balance :500-540).  Returns new (du, dv, dw, dthl, dqt, dsv); `dthl`
         and `dqt` may be None where their equation is off."""
         nz = grid.ktot
+        mesh = grid.mesh
         # quadratic drag at the faces with the reference's interpolations
-        gu = pad_periodic_xy(m.u, 1)
-        gv = pad_periodic_xy(m.v, 1)
-        gw = pad_periodic_xy(m.w, 1)
+        gu = pad_periodic_xy(m.u, 1, mesh)
+        gv = pad_periodic_xy(m.v, 1, mesh)
+        gw = pad_periodic_xy(m.w, 1, mesh)
         # u faces
         v_at_u = 0.25 * (gv[1:-1, 1:-1, :] + gv[1:-1, 2:, :]
                          + gv[:-2, 1:-1, :] + gv[:-2, 2:, :])
@@ -414,10 +526,12 @@ class Vegetation:
         spd_v = torch.sqrt(m.v ** 2 + u_at_v ** 2 + w_at_v ** 2)
         dv = dv - self.dcoef_v * m.v * spd_v
         # w faces 0..nz-1 (the cell below face 0 repeats cell 0)
-        gu2 = pad_periodic_xy(torch.cat([m.u[..., :1], m.u], dim=2), 1)
+        gu2 = pad_periodic_xy(torch.cat([m.u[..., :1], m.u], dim=2), 1,
+                              mesh)
         u_at_w = 0.25 * (gu2[1:-1, 1:-1, 1:] + gu2[2:, 1:-1, 1:]
                          + gu2[1:-1, 1:-1, :-1] + gu2[2:, 1:-1, :-1])
-        gv2 = pad_periodic_xy(torch.cat([m.v[..., :1], m.v], dim=2), 1)
+        gv2 = pad_periodic_xy(torch.cat([m.v[..., :1], m.v], dim=2), 1,
+                              mesh)
         v_at_w = 0.25 * (gv2[1:-1, 1:-1, 1:] + gv2[1:-1, 2:, 1:]
                          + gv2[1:-1, 1:-1, :-1] + gv2[1:-1, 2:, :-1])
         w_lo = m.w[..., :nz]
@@ -450,8 +564,13 @@ class Vegetation:
         e_vap = (m.qt * const.pref0) / (0.378 * m.qt + 0.622)
         d_vap = torch.clamp(e_sat - e_vap, min=0.0)
         slope = (4098 * e_sat) / ((m.thl - 35.85) ** 2)
-        uc2 = 0.5 * (m.u + torch.roll(m.u, -1, dims=0))
-        vc2 = 0.5 * (m.v + torch.roll(m.v, -1, dims=1))
+        mesh = self.grid.mesh
+        if mesh is None:
+            uc2 = 0.5 * (m.u + torch.roll(m.u, -1, dims=0))
+            vc2 = 0.5 * (m.v + torch.roll(m.v, -1, dims=1))
+        else:
+            uc2 = 0.5 * (m.u + mesh.wrap(m.u, 0, 1, "x")[2:])
+            vc2 = 0.5 * (m.v + mesh.wrap(m.v, 1, 1, "y")[:, 2:])
         wc2 = 0.5 * (m.w[..., :nz] + m.w[..., 1:])
         wind2 = torch.clamp(uc2 ** 2 + vc2 ** 2 + wc2 ** 2, min=1e-12)
         r_a = 130.0 * torch.sqrt(self.lsize / torch.sqrt(wind2))

@@ -46,13 +46,18 @@ substep keeps the wall-stress diagnostics in ``State.taud``, as udales_tpu's
 run.py:356-403 does.  An IBM case built without its IBM raises
 NotImplementedError when the Model is built.
 
-``Model(..., mesh=...)`` splits the flat periodic path over the ranks of a
-``parallel.mesh.Mesh``, as udales_tpu's Model takes a device mesh
-(run.py:46-65): the Model keeps this rank's block grid (``Grid.block``),
-the State holds this rank's blocks (``parallel.mesh.shard_state``), the
+``Model(..., mesh=...)`` and ``load_case(..., mesh=...)`` split the
+periodic paths over the ranks of a ``parallel.mesh.Mesh``, as udales_tpu's
+Model takes a device mesh (run.py:46-65): the Model keeps this rank's block
+grid (``Grid.block``), the State holds this rank's blocks
+(``parallel.mesh.shard_state``; the facet state whole on every rank), the
 periodic halos, slab means, the dt limit and the Poisson transposes go
 through the mesh's collectives, and each rank launches the kernel on its
-ghosted block.  `_split_unsupported` names what the split refuses.
+ghosted block.  The IBM, the scalar sources, the vegetation, the purifiers
+and the heat pumps are those of the rank's block (their ``block``
+constructors), the facet sums of the wall functions are the domain's, and
+every rank runs the energy balance on the same facet state.
+`_split_unsupported` names what the split refuses.
 """
 from __future__ import annotations
 
@@ -103,26 +108,15 @@ def _unsupported(cfg: Config, ibm=None):
     return [name for name, on in checks.items() if on]
 
 
-def _split_unsupported(cfg: Config, ibm=None):
+def _split_unsupported(cfg: Config):
     """Names of the configured features whose x/y split is not ported: the
-    split covers the flat periodic path only."""
-    sc = cfg.scalars
+    split covers the periodic paths (flat, IBM, energy balance, scalars and
+    the long-tail physics), not the open boundaries."""
     checks = {
-        "an IBM": ibm is not None or (cfg.run.libm and cfg.walls.nfcts > 0),
-        "the facet energy balance (lEB)": cfg.eb.lEB,
         "an open x boundary (BCxm)": cfg.bc.BCxm != BC_PERIODIC,
         "an open y boundary (BCym)": cfg.bc.BCym != BC_PERIODIC,
         "the inlet generator (iinletgen)": cfg.driver.iinletgen != 0,
         "a driver inlet (idriver)": cfg.driver.idriver != 0,
-        "passive scalars (nsv > 0)": sc.nsv > 0,
-        "scalar sources (lscasrc, lscasrcl)": sc.lscasrc or sc.lscasrcl,
-        "kappa advection of thl (iadv_thl)": cfg.iadv_thl == IADV_KAPPA,
-        "shifted periodic BCs (ds > 0)": cfg.physics.ds > 0,
-        "Newton-Raphson saturation (lqlnr)": cfg.dynamics.lqlnr,
-        "vegetation (ltrees)": cfg.trees.ltrees,
-        "chemistry (lchem)": cfg.chem.lchem,
-        "purifiers (lpurif)": cfg.purifs.lpurif,
-        "heat pumps (lheatpump)": cfg.heatpump.lheatpump,
     }
     return [name for name, on in checks.items() if on]
 
@@ -135,7 +129,8 @@ class Model:
     no card the constructor raises.  The static profiles are zero until set
     (`load_case` reads them; see also ``convert.load_profiles``).  With a
     `mesh` (``parallel.mesh.Mesh``) the Model steps this rank's block of the
-    whole-domain `grid` (``domain_grid``), held in ``grid``."""
+    whole-domain `grid` (``domain_grid``), held in ``grid``; its `ibm` is
+    then the block's (``IBM.load(..., mesh=mesh)``)."""
 
     def __init__(self, cfg: Config, grid: Grid, ibm=None, device="cuda",
                  mesh=None):
@@ -144,11 +139,14 @@ class Model:
             raise NotImplementedError(
                 "not ported to udales_tpu_torch yet: " + ", ".join(missing))
         if mesh is not None:
-            missing = _split_unsupported(cfg, ibm)
+            missing = _split_unsupported(cfg)
             if missing:
                 raise NotImplementedError(
                     "the x/y split is not ported to udales_tpu_torch yet "
                     "for " + ", ".join(missing))
+        if ibm is not None and getattr(ibm, "mesh", None) is not mesh:
+            raise ValueError("the IBM and the Model must be on one mesh: "
+                             "build it with IBM.load(..., mesh=mesh)")
         self.cfg = cfg
         self.mesh = mesh
         self.domain_grid = grid
@@ -322,7 +320,8 @@ class Model:
         dthl = None
         if ltemp and cfg.iadv_thl == IADV_KAPPA:
             dthl = adv.adv_kappa(_kappa_ghost_scalar(c.thl, cfg, openx,
-                                                     openy), g, grid)
+                                                     openy, grid.mesh),
+                                 g, grid)
         elif ltemp:
             dthl = adv.adv_c2(g.thl, g, grid)
         dqt = adv.adv_c2(g.qt, g, grid) if lmoist else None
@@ -380,7 +379,7 @@ class Model:
         # --- large-scale subsidence/advection (modforces.lstend) -----------
         if self.has_lstend:
             IIc = ibm.masks.c if ibm is not None else None
-            sv0av = (torch.stack([avexy_masked(c.sv[n], IIc)
+            sv0av = (torch.stack([avexy_masked(c.sv[n], IIc, mesh=grid.mesh)
                                   for n in range(nsv)])
                      if nsv else c.sv.new_zeros((0, nz)))
             sv0av = torch.where(sv0av < -900.0, 0.0, sv0av)
@@ -785,14 +784,16 @@ def _case_profiles(inputs, cfg: Config, grid: Grid) -> dict:
 
 
 def load_case(case_dir, expnr: str | None = None, dtype: str = "float32",
-              device="cuda") -> Model:
+              device="cuda", mesh=None) -> Model:
     """Build a Model from a case directory (namoptions and inputs), as
     udales_tpu ``load_case`` (run.py:772-901) does: grid from prof.inp,
     profiles from prof.inp and lscale.inp (and scalar.inp), the IBM when
     ``libm`` and ``nfcts > 0``, with ``lEB`` its facet energy balance, the
     time-dependent series whose switches are on and whose files exist, the
     scalar sources, vegetation, purifiers and heat pumps whose switches are
-    on and whose files exist, and the open-boundary inlet."""
+    on and whose files exist, and the open-boundary inlet.  With a `mesh`
+    (``parallel.mesh.Mesh``) the Model of this rank's block: each of those
+    is built on the domain grid and cut to the block."""
     case_dir = Path(case_dir)
     if expnr is None:
         expnr = sorted(case_dir.glob("namoptions.*"))[0].suffix[1:]
@@ -806,8 +807,11 @@ def load_case(case_dir, expnr: str | None = None, dtype: str = "float32",
     ibm = None
     if cfg.run.libm and cfg.walls.nfcts > 0:
         from .ibm.ibm import IBM
-        ibm = IBM.load(case_dir, expnr, cfg, grid, device=device)
-    model = Model(cfg, grid, ibm, device=device)
+        ibm = IBM.load(case_dir, expnr, cfg, grid, device=device, mesh=mesh)
+    model = Model(cfg, grid, ibm, device=device, mesh=mesh)
+    blk = model.grid
+    cut = (lambda part: part) if mesh is None else (
+        lambda part: part.block(blk))
     load_profiles(model, _case_profiles(inputs, cfg, grid))
     model.inputs = inputs
     model.has_lstend = bool(np.any(inputs.lscale["wfls"] != 0)
@@ -818,17 +822,17 @@ def load_case(case_dir, expnr: str | None = None, dtype: str = "float32",
                                  dtype=grid.torch_dtype, device=device)
     # the long-tail physics (udales_tpu run.py:800-810)
     if cfg.scalars.nsv > 0 and (cfg.scalars.lscasrc or cfg.scalars.lscasrcl):
-        model.scalsources = ScalarSources.load(case_dir, expnr, cfg, grid,
-                                               device=device)
+        model.scalsources = cut(ScalarSources.load(case_dir, expnr, cfg,
+                                                   grid, device=device))
     if cfg.trees.ltrees and (case_dir / f"veg.inp.{expnr}").exists():
-        model.vegetation = Vegetation.load(case_dir, expnr, cfg, grid,
-                                           device=device)
+        model.vegetation = cut(Vegetation.load(case_dir, expnr, cfg, grid,
+                                               device=device))
     if cfg.purifs.lpurif and (case_dir / f"purifs.inp.{expnr}").exists():
-        model.purifiers = Purifiers.load(case_dir, expnr, cfg, grid)
+        model.purifiers = cut(Purifiers.load(case_dir, expnr, cfg, grid))
     if (cfg.heatpump.lheatpump
             and (case_dir / f"heatpump.inp.{expnr}").exists()):
-        model.heatpumps = HeatPumps.load(case_dir, expnr, cfg, grid,
-                                         device=device)
+        model.heatpumps = cut(HeatPumps.load(case_dir, expnr, cfg, grid,
+                                             device=device))
     _load_inlet(model, case_dir, inputs)
     return model
 
@@ -927,9 +931,10 @@ def _velocity_ghosts(f: Fields, cfg: Config, grid: Grid, openx=None,
                   thl=None, qt=None, e12=None, sv=None, ekm=None, ekh=None)
 
 
-def _kappa_ghost_scalar(cfield, cfg: Config, openx=None, openy=None):
+def _kappa_ghost_scalar(cfield, cfg: Config, openx=None, openy=None,
+                        mesh=None):
     """Kappa-layout ghosts of thl, which rides through the sv slot of the
-    open-boundary contexts."""
+    open-boundary contexts (periodic over the ranks of `mesh`)."""
     if openx is not None:
         openx = {**openx,
                  "inlet": {**openx["inlet"],
@@ -941,7 +946,7 @@ def _kappa_ghost_scalar(cfield, cfg: Config, openx=None, openy=None):
                            "sv": openy["inlet"]["thl"][None]},
                  "by": replace(openy["by"], sv=openy["by"].thl[None])}
     return ghost_scalar_kappa(cfield, cfg, openx=openx, openy=openy,
-                              sv_index=0)
+                              sv_index=0, mesh=mesh)
 
 
 def _pad_pres(p, openx=None, openy=None, mesh=None):
