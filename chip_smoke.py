@@ -10,7 +10,8 @@ planes, and of the same array as a street-canyon dispersion case (passive
 scalars, chemistry, trees, purifiers, heat pumps, the one-equation
 closure), and checks both variants of the hand-written CUDA
 diffusion kernel on the way.  The x/y process split runs the flat path
-(phases 36-39) and the urban paths (phases 40-43) over meshes of ranks.  Then the run-time driver: ``python -m
+(phases 36-39), the urban paths (phases 40-43) and the open boundaries
+(phases 44-48) over meshes of ranks.  Then the run-time driver: ``python -m
 udales_tpu_torch`` with every output, restart continuation, the output
 families on the other cases, the driver's cost and the runmodes.  Phases, one line each; any failure raises and
 the script exits non-zero without a result line:
@@ -126,12 +127,42 @@ the script exits non-zero without a result line:
      pmasks of a 2 x 2 block of the urban 128^3 case (IBM.load(...,
      mesh=)), against its plain version, timed eagerly and in a CUDA graph
      beside its bound
+ 44. the open split on one rank with NCCL: mesh 1 x 1, driven urban 32^3
+     float64 (records 0.05 s apart, 4 a window) through load_case(...,
+     mesh=), 5 steps, every State leaf (the outlet planes and the driver
+     window included) against Model.run without a mesh (1e-12); then one
+     step under torch.cuda.set_sync_debug_mode("error") with the refill
+     outside it
+ 45. the open family at 32^3 float64 on the 2 x 2 mesh of ranks that share
+     the card (gloo, host-staged), 5 steps each: driven urban (the window
+     refilled), a box behind an open-x profile inlet, open y, both open,
+     the rescale-recycle generator (iinletgen = 1, BCxm = 2), BCzp = 2 and
+     POISS_FFT3D; the gathered State against the single-process card run
+     (1e-9), bx, by, ig and drv included
+ 46. driven urban 128^3 float32 on 2 x 2 from t = 1.1 s, 10 steps: the
+     gathered inlet face against the interpolated driver plane, interior
+     and top max|div u| with the outlet face, the window refilled, 3 masked
+     launches a step on each rank, one step under
+     torch.cuda.set_sync_debug_mode("error") with the refill outside it,
+     ms/step per rank, collectives and bytes a step, the staged share (4
+     ranks on one card: not a speed of the split)
+ 47. the masked kernel on the cx == 0 block (64 x 64 x 128 float32) of
+     driven urban 128^3 on 2 x 2: the block's pmasks and ghosts, the inlet
+     planes on its open x edge, against its plain version, timed eagerly
+     and in a CUDA graph beside its bound
+ 48. Simulation on a split Model: driven urban 32^3 float64 on 2 x 2 with
+     field dumps, xytdump, tkedump and the monitor, against the
+     single-process Simulation (every array handed to a writer and the
+     final State, 1e-9); the Fortran restart of the gathered State (outlet
+     planes in the halo) continued for 3 steps in one process against the
+     uninterrupted run (1e-9); host ms a gather
 The line before the last is a JSON object describing the kernels and the
 main paths; the last line is {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -666,8 +697,9 @@ def open_boundary_phases(smi, fused, div_bound, pm128):
             dthvdz=th.dthvdz, thl=c.thl, thvs=cfg.bc.thls)
         return make_ghosts(c, ekm, ekh, cfg, grid, openx=openx, openy=openy)
     pm32 = dict(u=m32.ibm.pmask_u, v=m32.ibm.pmask_v, w=m32.ibm.pmask_w)
+    ghosts128 = open_ghosts(dm, st)
     open_err = {
-        "masked": check_kernel(fused, open_ghosts(dm, st), dm.grid, pm128,
+        "masked": check_kernel(fused, ghosts128, dm.grid, pm128,
                                1e-5, "masked, driven urban 128^3 ghosts, "
                                "float32", 24),
         "unmasked": check_kernel(fused, open_ghosts(rm, rst), rm.grid, None,
@@ -677,7 +709,7 @@ def open_boundary_phases(smi, fused, div_bound, pm128):
                  1e-12, "masked, driven urban 32^3 ghosts, float64", 24)
     open_xy_ghost_check(fused)
     return dict(driven=driven, recycle=recycle, replay=replay,
-                open_err=open_err)
+                open_err=open_err, case128=d128, ghosts128=ghosts128)
 
 
 def leaf_errors(got, ref, prefix=""):
@@ -994,7 +1026,7 @@ def continuation(case, dtype, tmp, nsteps, label, n, fmt="fortran"):
     uninterrupted one's."""
     from udales_tpu_torch import cases
     from udales_tpu_torch.convert import state_to_numpy
-    from udales_tpu_torch.io.restart import write_fortran_restart
+    from udales_tpu_torch.io.restart import write_state_fortran
     from udales_tpu_torch.run import load_case
     from udales_tpu_torch.sim import Simulation
     model = load_case(case, "900", dtype=dtype)              # on the card
@@ -1018,13 +1050,7 @@ def continuation(case, dtype, tmp, nsteps, label, n, fmt="fortran"):
     if fmt == "h5":
         (resumed / start).write_bytes((tmp / "leg1" / start).read_bytes())
     else:
-        c, d, host = first.c, model.cfg.domain, lambda a: a.cpu().numpy()
-        write_fortran_restart(
-            resumed, {"u": host(c.u), "v": host(c.v), "w": host(c.w),
-                      "pres": host(first.pres), "thl": host(c.thl),
-                      "e12": host(c.e12), "qt": host(c.qt)},
-            float(first.timee), float(first.dt), "900", d.itot, d.jtot,
-            d.ktot, ntrun=nsteps)
+        write_state_fortran(resumed, first, "900", model.cfg, ntrun=nsteps)
     rc, out, err, secs = run_cli(
         ["--resume", str(resumed), "--dtype", dtype, "--outdir",
          str(tmp / "leg2"), "--runtime", repr(stop(2 * nsteps) - times[nsteps - 1]),
@@ -1370,6 +1396,117 @@ def open_xy_ghost_check(fused):
 SHARED_BACKEND = "gloo"
 SHARED_STAGED = True
 SPLIT_MESHES = [(2, 1), (1, 2), (2, 2)]
+# phase 48: the Simulation's run time and the steps of its continuation
+SIM48_RUNTIME, SIM48_MORE = 0.5, 3
+# phase 48: the second moments <ab> - <a><b> of xytdump and the means (a, b)
+# each is formed from; such a difference rounds as max|a| max|b| does,
+# which can be far above its own size (thl'thl' of a thl near 300 K)
+MOMENTS = {"upwpxyt": [("uxyt", "wxyt")], "wpthlpxyt": [("wxyt", "thlxyt")],
+           "vpwpxyt": [("vxyt", "wxyt")], "upvpxyt": [("uxyt", "vxyt")],
+           "wpqtpxyt": [("wxyt", "qtxyt")],
+           "thlpthlptxy": [("thlxyt", "thlxyt")],
+           "qtpqtptxy": [("qtxyt", "qtxyt")], "upuptxyc": [("uxyt", "uxyt")],
+           "vpvptxyc": [("vxyt", "vxyt")], "wpwptxyc": [("wxyt", "wxyt")],
+           "tketxyc": [("uxyt", "uxyt"), ("vxyt", "vxyt"), ("wxyt", "wxyt")]}
+
+
+def record_scale(name, data):
+    """What the array `name` of a writer's record `data` is held relative
+    to: its largest value, or, for a second moment, the product of the
+    largest values of the means it is formed from where that is larger."""
+    peak = lambda k: float(np.abs(data[k]).max(initial=0.0))
+    return max([peak(name)] + [peak(a) * peak(b)
+                               for a, b in MOMENTS.get(name, ())])
+
+
+_OPEN_X = dict(BCxm=2, BCxT=2, BCxq=2, BCxs=2)
+_OPEN_Y = dict(BCym=2, BCyT=2, BCyq=2, BCys=2)
+_FLAT_NAMELIST = """&RUN
+iexpnr = 900
+ladaptive = .true.
+dtmax = 0.1
+/
+&DOMAIN
+itot = {n}
+jtot = {n}
+ktot = {n}
+xlen = {n}.
+ylen = {n}.
+/
+&WALLS
+{walls}
+/
+&PHYSICS
+ltempeq = .true.
+lbuoyancy = .true.
+/
+&BC
+thls = 288.
+z0 = 0.01
+z0h = 0.001
+/
+"""
+
+
+def stage_open_family(n):
+    """Phase 45's open family at n^3 under .bench_cache/open{n}/ (experiment
+    900): "driven" (``cases.stage_urban_driven`` with records 0.05 s apart
+    read 4 at a time, so that a few steps refill the window),
+    "open_x_cube" (one box, generated by the port's preprocessor, behind
+    an open-x profile inlet with a convective outlet), and on a flat floor
+    "open_y", "open_xy", "recycle" (``iinletgen = 1``, ``BCxm = 2``, its
+    recycle plane on the second x rank of 2 x 2), "bczp2" (``BCzp = 2``)
+    and "fft3d" (``POISS_FFT3D``)."""
+    import shutil
+    from udales_tpu_torch import cases
+    from udales_tpu_torch.prep.prep import (PrepConfig, make_box_stl,
+                                            prepare_case)
+    root = CACHE / f"open{n}"
+    shutil.rmtree(root, ignore_errors=True)
+    z = np.arange(n) + 0.5
+
+    def inputs(d):
+        rows = "\n".join(f"{zk:.4f} {288 + 0.05 * zk:.4f} 0.001 "
+                         f"{1 + 0.05 * zk:.4f} 0.1 0.00005" for zk in z)
+        (d / "prof.inp.900").write_text("# prof\n# z thl qt u v tke\n"
+                                        + rows + "\n")
+        (d / "lscale.inp.900").write_text(
+            "# lscale\n# z ug vg pgx pgy wfls dqtdx dqtdy dqtdt dthlrad\n"
+            + "\n".join(f"{zk:.4f} 0 0 0.0001 0 0 0 0 0 0" for zk in z)
+            + "\n")
+    flat = root / "flat"
+    flat.mkdir(parents=True)
+    (flat / "namoptions.900").write_text(_FLAT_NAMELIST.format(
+        n=n, walls="lbottom = .true."))
+    inputs(flat)
+    out = {"driven": cases.stage_urban_driven(n, CACHE, nt=40, chunk=4,
+                                              dtdriver=0.05)}
+    cube = root / "cube_base"
+    cube.mkdir()
+    make_box_stl(cube / "geom.stl", n // 4, n // 2, n // 4, n // 2, n // 4,
+                 float(n), float(n))
+    counts = prepare_case(cube / "geom.stl", cube, PrepConfig(
+        itot=n, jtot=n, ktot=n, xlen=float(n), ylen=float(n),
+        zsize=float(n), expnr="900", u0=1.0, dpdx=1e-4,
+        with_radiation=False))
+    (cube / "namoptions.900").write_text(_FLAT_NAMELIST.format(
+        n=n, walls="\n".join(
+            [f"nfcts = {counts['nfcts']}", "iwalltemp = 2"]
+            + [f"{k}_{w} = {counts[f'{k}_{w}']}" for k in (
+                "nsolpts", "nbndpts", "nfctsecs") for w in "uvwc"])))
+    out["open_x_cube"] = cases.with_namelist(cube, root / "open_x_cube",
+                                             BC=_OPEN_X)
+    variants = {
+        "open_y": dict(BC=_OPEN_Y),
+        "open_xy": dict(BC={**_OPEN_X, **_OPEN_Y}),
+        "recycle": dict(BC=dict(thl_top=290.0, Uinf=2.0, **_OPEN_X),
+                        DRIVER=dict(iinletgen=1, iplane=3 * n // 4),
+                        INLET=dict(di=n / 2)),
+        "bczp2": dict(BC=dict(BCzp=2)),
+        "fft3d": dict(DYNAMICS=dict(ipoiss=2))}
+    for name, groups in variants.items():
+        out[name] = cases.with_namelist(flat, root / name, **groups)
+    return out
 
 
 def start_ranks(fn, nprocs, args):
@@ -1415,16 +1552,18 @@ def nccl_shared_rank(rank, port, out):
 
 
 def split_rank(rank, world, port, px, py, jobs, out):
-    """One rank of phases 37/38 and 41/42 on the shared card: the
+    """One rank of phases 37/38, 41/42 and 45/46/48 on the shared card: the
     `world`-process group, the px x py mesh, and each job of `jobs` (the
     flat case of `entry._build`, or a case directory through
     ``load_case(..., mesh=)`` from the job's whole-domain "start" or from
-    ``cold_start``); writes its results to out/rank<r>.pkl."""
+    ``cold_start``; a job with "sim" runs ``Simulation`` instead,
+    `split_simulation`); writes its results to out/rank<r>.pkl."""
     import pickle
     import torch.distributed as dist
     from udales_tpu_torch import entry
     from udales_tpu_torch.convert import state_from_numpy, state_to_numpy
     from udales_tpu_torch.ops.fused_diff import fused_diff_mom
+    from udales_tpu_torch.ops.openbc import driver_window_planes
     from udales_tpu_torch.parallel.mesh import gather_state, make_mesh
     from udales_tpu_torch.parallel.multihost import (init_distributed,
                                                      shard_state_global)
@@ -1435,12 +1574,20 @@ def split_rank(rank, world, port, px, py, jobs, out):
     mesh = make_mesh(px, py, host_staged=SHARED_STAGED)
     res = {}
     for job in jobs:
+        if "sim" in job:
+            res[job["name"]] = split_simulation(job, mesh)
+            continue
         steps = job["steps"]
         if "case" in job:
-            model = load_case(job["case"], "900", job["dtype"], mesh=mesh)
+            model = load_case(job["case"], job.get("expnr", "900"),
+                              job["dtype"], mesh=mesh)
             st = (model.cold_start(seed=job["seed"]) if job["start"] is None
                   else shard_state_global(state_from_numpy(job["start"]),
                                           mesh, device="cuda"))
+            if "t0" in job:
+                # the window of t = 0, then a later time
+                st = model.driver_stream.ensure(st).replace(
+                    timee=torch.full_like(st.timee, job["t0"]))
         else:
             n = job["n"]
             model = entry._build(n, n, n, job["dtype"], mesh=mesh)  # card
@@ -1450,6 +1597,8 @@ def split_rank(rank, world, port, px, py, jobs, out):
         st = model.run(st, job.get("warm", 0))
         torch.cuda.synchronize()
         dist.barrier()
+        stream = model.driver_stream
+        refills = stream.refills if stream is not None else 0
         fused_diff_mom.launch_count = fused_diff_mom.masked_launch_count = 0
         mesh.reset_counts()
         t0 = time.perf_counter()
@@ -1465,14 +1614,24 @@ def split_rank(rank, world, port, px, py, jobs, out):
                  wait_share=mesh.wait_seconds / wall)
         whole = gather_state(st, mesh)
         if job.get("divergence"):
-            r["max_div"] = max_divergence(
-                SimpleNamespace(grid=model.domain_grid), whole.c)[0]
+            r["max_div"], r["top_div"] = max_divergence(
+                SimpleNamespace(grid=model.domain_grid), whole.c)
             r["finite"] = all(bool(torch.isfinite(getattr(whole.c, k)).all())
                               for k in ("u", "v", "w", "thl", "e12"))
         else:
             r["state"] = state_to_numpy(whole)
+        if stream is not None:
+            # the driver window: refilled within the timed steps, and the
+            # gathered inlet face is its interpolated plane
+            want = driver_window_planes(whole.drv, whole.timee)["u"]
+            r["refills"] = stream.refills - refills
+            r["inlet_err"] = float((whole.c.u[0] - want).abs().max())
         if job.get("sync_debug"):
-            # a host wait outside the mesh's collectives raises here
+            # a host wait outside the mesh's collectives raises here; the
+            # window refill is the one host wait a step, outside the step
+            if stream is not None:
+                st = stream.ensure(st)
+                torch.cuda.synchronize()
             torch.cuda.set_sync_debug_mode("error")
             try:
                 st = model.step(st)
@@ -1485,22 +1644,75 @@ def split_rank(rank, world, port, px, py, jobs, out):
     dist.destroy_process_group()
 
 
+def recording_writers(records):
+    """Make every ``NCWriter.append`` of this process also keep the arrays
+    it is handed, in float64 before the file's float32 cast, in
+    `records` {file name: [(time, {variable: array})]}; returns the call
+    that undoes it."""
+    from udales_tpu_torch.io import netcdf
+    append = netcdf.NCWriter.append
+
+    def recording(self, time, data):
+        records.setdefault(Path(self.path).name, []).append(
+            (time, {k: np.array(v, np.float64) for k, v in data.items()}))
+        return append(self, time, data)
+    netcdf.NCWriter.append = recording
+    return lambda: setattr(netcdf.NCWriter, "append", append)
+
+
+def split_simulation(job, mesh):
+    """Phase 48 on one rank: ``Simulation.run`` of a split Model from the
+    job's whole-domain start for job["runtime"] s into job["sim"], every
+    writer's arrays recorded on rank 0; rank 0 then writes the gathered
+    State's Fortran restart files into job["restart"]."""
+    from udales_tpu_torch.convert import state_from_numpy, state_to_numpy
+    from udales_tpu_torch.io.restart import write_state_fortran
+    from udales_tpu_torch.ops.fused_diff import fused_diff_mom
+    from udales_tpu_torch.parallel.mesh import gather_state
+    from udales_tpu_torch.parallel.multihost import shard_state_global
+    from udales_tpu_torch.run import load_case
+    from udales_tpu_torch.sim import Simulation
+    records = {}
+    if mesh.rank == 0:
+        recording_writers(records)
+    model = load_case(job["case"], "900", job["dtype"], mesh=mesh)
+    st = shard_state_global(state_from_numpy(job["start"]), mesh,
+                            device="cuda")
+    sim = Simulation(model, job["sim"])
+    fused_diff_mom.launch_count = fused_diff_mom.masked_launch_count = 0
+    st = sim.run(st, runtime=job["runtime"])
+    whole = gather_state(st, mesh)
+    if mesh.rank == 0:
+        Path(job["restart"]).mkdir(parents=True, exist_ok=True)
+        write_state_fortran(job["restart"], whole, "900", model.cfg,
+                            ntrun=sim.ntrun)
+    return dict(state=state_to_numpy(whole), records=records,
+                steps=sim.ntrun, gathers=sim.gathers,
+                gather_ms=1e3 * sim.gather_seconds / max(sim.gathers, 1),
+                masked=fused_diff_mom.masked_launch_count)
+
+
 def split_phases(smi, fused, urban_cases):
-    """Phases 36-43: the x/y split (parallel/mesh.py, parallel/multihost.py)
-    of the flat path and of the urban paths on the one card.
-    `urban_cases` maps "urban", "urban-EB", "dispersion" to their 32^3
-    case directories and "urban128" to the urban 128^3 one."""
+    """Phases 36-48: the x/y split (parallel/mesh.py, parallel/multihost.py)
+    of the flat path, of the urban paths and of the open boundaries on the
+    one card.  `urban_cases` maps "urban", "urban-EB", "dispersion" to their
+    32^3 case directories, "urban128" to the urban 128^3 one, "open" to the
+    open family of phase 45 ({name: 32^3 case directory}, "driven" among
+    them), "driven128" to the driven urban 128^3 case of phase 18 and
+    "ghosts128" to the ghosts of its whole domain after phase 20."""
     import pickle
     import tempfile
     import torch.distributed as dist
     from udales_tpu_torch import entry
     from udales_tpu_torch.convert import state_from_numpy, state_to_numpy
     from udales_tpu_torch.grid import Grid
+    from udales_tpu_torch.io.restart import warmstart_state
     from udales_tpu_torch.parallel.mesh import gather_state, make_mesh
     from udales_tpu_torch.parallel.multihost import (free_port,
                                                      init_distributed,
                                                      shard_state_global)
     from udales_tpu_torch.run import load_case
+    from udales_tpu_torch.sim import Simulation
     out = {}
     # the single-process reference on the card: 32^3 float64, 5 steps
     ref_model = entry._build(32, 32, 32, "float64")
@@ -1514,6 +1726,31 @@ def split_phases(smi, fused, urban_cases):
         urban_start[name] = state_to_numpy(model.cold_start(seed=43))
         urban_ref[name] = state_to_numpy(model.run(state_from_numpy(
             urban_start[name], device="cuda"), 5))
+    # and of the open family at 32^3 (a fresh Model for each run: a stream
+    # keeps its last window)
+    open_cases = urban_cases["open"]
+    open_start, open_ref = {}, {}
+    for name, case in open_cases.items():
+        model = load_case(case, "900", "float64")
+        open_start[name] = state_to_numpy(model.cold_start(seed=43))
+        model = load_case(case, "900", "float64")
+        open_ref[name] = state_to_numpy(model.run(state_from_numpy(
+            open_start[name], device="cuda"), 5))
+    # the single-process Simulation of phase 48 and its continuation
+    sim_case = urban_cases["simulation"]
+    sim_records = {}
+    undo = recording_writers(sim_records)
+    model = load_case(sim_case, "900", "float64")
+    CACHE.mkdir(exist_ok=True)
+    sim_tmp = Path(tempfile.mkdtemp(prefix="sim48_", dir=CACHE))
+    sim = Simulation(model, sim_tmp / "one")
+    sim_ref = state_to_numpy(sim.run(state_from_numpy(
+        open_start["driven"], device="cuda"), runtime=SIM48_RUNTIME))
+    undo()
+    sim_steps = sim.ntrun
+    model = load_case(sim_case, "900", "float64")
+    sim_more = state_to_numpy(model.run(state_from_numpy(
+        open_start["driven"], device="cuda"), sim_steps + SIM48_MORE))
 
     # 36. one rank, NCCL: the real NCCL calls on CUDA tensors (spectra too)
     init_distributed(f"localhost:{free_port()}", 1, 0, backend="nccl",
@@ -1539,6 +1776,31 @@ def split_phases(smi, fused, urban_cases):
                     masked=fused.masked_launch_count,
                     errs=leaf_errors(state_to_numpy(gather_state(ust, mesh)),
                                      urban_ref["urban"]))
+        # 44. (printed below) the driven case on the same group
+        dmodel = load_case(open_cases["driven"], "900", "float64", mesh=mesh)
+        dst = shard_state_global(state_from_numpy(open_start["driven"]),
+                                 mesh, device="cuda")
+        fused.launch_count = fused.masked_launch_count = 0
+        mesh.reset_counts()
+        dst = dmodel.run(dst, 5)
+        torch.cuda.synchronize()
+        d1x1 = dict(collectives=mesh.collectives,
+                    masked=fused.masked_launch_count,
+                    refills=dmodel.driver_stream.refills,
+                    errs=leaf_errors(state_to_numpy(gather_state(dst, mesh)),
+                                     open_ref["driven"]))
+        # and one more step under sync-debug mode on NCCL: a host wait
+        # raises; the window refill, the one host wait a step, stays
+        # outside the step
+        dst = dmodel.driver_stream.ensure(dst)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            dst = dmodel.step(dst)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        d1x1["sync_debug"] = True
     finally:
         dist.destroy_process_group()
     worst = max(errs, key=errs.get)
@@ -1567,6 +1829,21 @@ def split_phases(smi, fused, urban_cases):
         urban_main = dict(name="urban_main", case=str(urban_cases["urban128"]),
                           dtype="float32", steps=10, warm=2, seed=43,
                           start=None, divergence=True, sync_debug=True)
+        open_jobs = [dict(name=f"open_{name}", case=str(case),
+                          dtype="float64", steps=5, start=open_start[name])
+                     for name, case in open_cases.items()]
+        # the first window (records 0-15, 0.1 s apart) loaded at t = 0,
+        # then on from t = 1.1 s: it is refilled at 1.4 s, within the
+        # timed steps
+        driven_main = dict(name="driven_main",
+                           case=str(urban_cases["driven128"]),
+                           dtype="float32", steps=10, warm=2, seed=43,
+                           t0=1.1, start=None, divergence=True,
+                           sync_debug=True)
+        sim_job = dict(name="simulation", sim=str(sim_tmp / "split"),
+                       case=str(sim_case), dtype="float64",
+                       start=open_start["driven"], runtime=SIM48_RUNTIME,
+                       restart=str(sim_tmp / "restart"))
         started = []
 
         def group(fn, nprocs, args):
@@ -1590,7 +1867,8 @@ def split_phases(smi, fused, urban_cases):
             for ctx in small:
                 wait_ranks(ctx, 300)
             wait_ranks(split_group(2, 2, [parity, main_job, *urban_jobs,
-                                          urban_main]), 900)
+                                          urban_main, *open_jobs,
+                                          driven_main, sim_job]), 900)
         finally:                     # no rank outlives a failed phase
             for ctx in started:
                 for proc in ctx.processes:
@@ -1624,7 +1902,9 @@ def split_phases(smi, fused, urban_cases):
         main = [r["main"] for r in ranks]
         urban_split = {name: [r[name] for r in ranks]
                        for name in ("urban", "urban-EB", "dispersion",
-                                    "urban_main")}
+                                    "urban_main", "driven_main",
+                                    "simulation",
+                                    *(f"open_{n}" for n in open_cases))}
 
     # 38. flat 128^3 float32 on 2 x 2 (the ranks of the 2 x 2 group above)
     out["main_2x2"] = main
@@ -1742,6 +2022,172 @@ def split_phases(smi, fused, urban_cases):
     out["masked_block"] = time_kernel(
         fused, random_ghosts(gb, torch.float32, "cuda", seed=44), gb, pm,
         smi, f"masked, block {gb.shape} float32", 43)
+
+    # 44. the driven case on the 1 x 1 NCCL mesh (run with phase 36)
+    worst = max(d1x1["errs"], key=d1x1["errs"].get)
+    out["open_nccl_1x1"] = dict(max_rel_err=d1x1["errs"][worst], leaf=worst,
+                                collectives=d1x1["collectives"],
+                                masked=d1x1["masked"],
+                                refills=d1x1["refills"],
+                                leaves=len(d1x1["errs"]),
+                                sync_debug=d1x1["sync_debug"])
+    phase(44, f"driven urban 32^3 float64 on mesh 1 x 1, backend nccl, 5 "
+              f"steps through load_case(..., mesh=): {d1x1['collectives']} "
+              f"NCCL collectives, {d1x1['masked']} masked launches, "
+              f"{d1x1['refills']} window loads; every one of "
+              f"{len(d1x1['errs'])} leaves against Model.run without a mesh "
+              f"within {d1x1['errs'][worst]:.3e} relative (worst {worst}; "
+              f"tolerance 1e-12); one more step under "
+              f"set_sync_debug_mode('error') with the refill outside it: no "
+              f"host wait")
+    if not (d1x1["errs"][worst] <= 1e-12 and d1x1["masked"] == 15
+            and {"c.bx.u", "drv.u"} <= set(d1x1["errs"])):
+        raise RuntimeError("the 1 x 1 NCCL driven split disagrees with "
+                           "Model.run")
+
+    # 45. the open family on the shared card's 2 x 2 mesh
+    out["open_shared_2x2"] = {}
+    need = {"driven": {"c.bx.u", "m.bx.thl", "drv.u"},
+            "open_x_cube": {"c.bx.u"}, "open_y": {"c.by.v"},
+            "open_xy": {"c.bx.u", "c.by.v"},
+            "recycle": {"ig.u0", "ig.Utav", "ig.Urec", "c.bx.u"},
+            "bczp2": {"pres"}, "fft3d": {"pres"}}
+    for name in open_cases:
+        ranks = urban_split[f"open_{name}"]
+        errs = leaf_errors(ranks[0]["state"], open_ref[name])
+        worst = max(errs, key=errs.get)
+        launches = [r["masked"] + r["launches"] for r in ranks]
+        out["open_shared_2x2"][name] = dict(max_rel_err=errs[worst],
+                                            leaf=worst, launches=launches,
+                                            leaves=len(errs))
+        phase(45, f"{name} 32^3 float64 on mesh 2 x 2 on one card, backend "
+                  f"{SHARED_BACKEND}, host_staged {SHARED_STAGED}, 5 steps: "
+                  f"every one of {len(errs)} leaves of the gathered State "
+                  f"against the single-process card run within "
+                  f"{errs[worst]:.3e} relative (worst {worst}; tolerance "
+                  f"1e-9); kernel launches per rank {launches}")
+        if not (errs[worst] <= 1e-9 and need[name] <= set(errs)
+                and all(n == 15 for n in launches)):
+            raise RuntimeError(f"the 2 x 2 split of {name} 32^3 disagrees "
+                               f"with the single-process run")
+    # the first window load and at least one refill
+    if not urban_split["open_driven"][0]["refills"] >= 2:
+        raise RuntimeError("the driven 32^3 window was not refilled on 2 x 2")
+
+    # 46. driven urban 128^3 float32 on 2 x 2 (the 2 x 2 group above)
+    dm = urban_split["driven_main"]
+    out["driven_main_2x2"] = dm
+    phase(46, f"driven urban 128^3 float32 on mesh 2 x 2, backend "
+              f"{SHARED_BACKEND}, host_staged {SHARED_STAGED}, 10 steps: "
+              f"gathered inlet face within {dm[0]['inlet_err']:.3e} of the "
+              f"interpolated driver plane (tolerance 1e-5), interior "
+              f"max|div u| {dm[0]['max_div']:.3e} (bound 1e-5), top level "
+              f"{dm[0]['top_div']:.3e} (bound 1e-2), window refills "
+              f"{[m['refills'] for m in dm]}; masked launches per rank "
+              f"{[m['masked'] for m in dm]} (= 3 x 10); one step under "
+              f"set_sync_debug_mode('error') with the refill outside it: no "
+              f"host wait outside the collectives")
+    print("  4 ranks on one H100, host-staged: not a speed of the split. "
+          f"{smi}: ms/step per rank "
+          f"{[round(m['ms_per_step'], 3) for m in dm]}; collectives a step "
+          f"{dm[0]['collectives']:.1f}, {dm[0]['bytes'] / 1e6:.3f} MB sent "
+          f"a step per rank; share of the step in the staged collectives "
+          f"{[round(m['comm_share'], 3) for m in dm]}, waiting for the card "
+          f"before them {[round(m['wait_share'], 3) for m in dm]}",
+          flush=True)
+    if not (all(m["finite"] and m["sync_debug"] and m["refills"] >= 1
+                and m["masked"] == 30 and m["launches"] == 0 for m in dm)
+            and dm[0]["inlet_err"] <= 1e-5 and dm[0]["max_div"] <= 1e-5
+            and dm[0]["top_div"] <= 1e-2):
+        raise RuntimeError("the 2 x 2 split of the driven 128^3 path failed "
+                           "its checks")
+
+    # 47. the masked kernel on the cx == 0 block of driven urban 128^3: its
+    # pmasks and its ghosts, the inlet planes on the domain's open x edge
+    case = urban_cases["driven128"]
+    cfg = load_namoptions(case / "namoptions.900", dtype="float32")
+    d = cfg.domain
+    grid = Grid.from_prof_inp(case / "prof.inp.900", d.itot, d.jtot, d.ktot,
+                              d.xlen, d.ylen, dtype=np.float32)
+    block = SimpleNamespace(px=2, py=2, cx=0, cy=0)
+    ibm = IBM.load(case, "900", cfg, grid, device="cuda", mesh=block)
+    gb = ibm.grid
+    pm = dict(u=ibm.pmask_u, v=ibm.pmask_v, w=ibm.pmask_w)
+    g = urban_cases["ghosts128"]
+    gblock = SimpleNamespace(**{k: gb.cut(getattr(g, k), ring=1).contiguous()
+                                for k in ("u", "v", "w", "ekm")})
+    out["open_block_err"] = check_kernel(
+        fused, gblock, gb, pm, 1e-5, f"masked, block {gb.shape} (0, 0) of "
+        f"driven urban 128^3 on 2 x 2 with its inlet ghosts, float32", 47)
+    out["open_block"] = time_kernel(
+        fused, gblock, gb, pm, smi, f"masked, open block {gb.shape} float32",
+        47)
+
+    # 48. Simulation on the split Model against the single process, and
+    # its restart continued in one process
+    # (each variable of each record to 1e-9 of its largest value, a
+    # second moment of the means it is formed from: `record_scale`)
+    sim_ranks = urban_split["simulation"]
+    got = sim_ranks[0]
+    rec_worst, rec_at, files = 0.0, None, 0
+    if sorted(got["records"]) != sorted(sim_records):
+        raise RuntimeError(f"Simulation on 2 x 2 wrote "
+                           f"{sorted(got['records'])}, the single process "
+                           f"{sorted(sim_records)}")
+    for fname, recs in sim_records.items():
+        mine = got["records"][fname]
+        if len(mine) != len(recs):
+            raise RuntimeError(f"{fname}: {len(mine)} records on 2 x 2, "
+                               f"{len(recs)} in one process")
+        files += 1
+        for (tg, dg), (tr, dr) in zip(mine, recs):
+            if abs(tg - tr) > 1e-12 * max(abs(tr), 1.0):
+                raise RuntimeError(f"{fname}: a record at t = {tg}, the "
+                                   f"single process's at {tr}")
+            for k, r in dr.items():
+                scale = record_scale(k, dr)
+                err = float(np.abs(dg[k] - r).max(initial=0.0))
+                err = err / scale if scale > 0 else (0.0 if err == 0
+                                                     else math.inf)
+                if err >= rec_worst:
+                    rec_worst, rec_at = err, f"{fname}:{k}"
+    errs = leaf_errors(got["state"], sim_ref)
+    worst = max(errs, key=errs.get)
+    model = load_case(sim_case, "900", "float64")
+    st = warmstart_state(sim_tmp / "restart",
+                         f"initd{got['steps']:08d}_xxx_xxx.900", "900",
+                         model.cfg, model.grid, device="cuda", model=model)
+    more = state_to_numpy(model.run(st, SIM48_MORE))
+    cont = leaf_errors(more, sim_more)
+    cont = {k: v for k, v in cont.items() if not k.startswith("drv.")}
+    cworst = max(cont, key=cont.get)
+    out["simulation_2x2"] = dict(
+        steps=got["steps"], files=files, max_err_records=rec_worst,
+        record=rec_at,
+        max_rel_err_state=errs[worst], leaf=worst,
+        max_rel_err_continued=cont[cworst],
+        gathers=[r["gathers"] for r in sim_ranks],
+        gather_ms_per_sample=[r["gather_ms"] for r in sim_ranks],
+        masked=[r["masked"] for r in sim_ranks])
+    phase(48, f"Simulation of driven urban 32^3 float64 on mesh 2 x 2 "
+              f"({got['steps']} steps, field dumps, xytdump, tkedump, "
+              f"monitor): {files} files, every array handed to a writer "
+              f"within {rec_worst:.3e} of its largest value (a second "
+              f"moment: of the means it is formed from) of the "
+              f"single-process Simulation's (worst {rec_at}; tolerance "
+              f"1e-9), final State within {errs[worst]:.3e} "
+              f"(worst {worst}); its Fortran restart (outlet planes in the "
+              f"halo) continued {SIM48_MORE} steps in one process within "
+              f"{cont[cworst]:.3e} of the uninterrupted run (worst {cworst}; "
+              f"tolerance 1e-9); gathers per rank "
+              f"{out['simulation_2x2']['gathers']}, host ms a gather "
+              f"{[round(r['gather_ms'], 3) for r in sim_ranks]}; masked "
+              f"launches per rank {out['simulation_2x2']['masked']}")
+    if not (files >= 3 and rec_worst <= 1e-9 and errs[worst] <= 1e-9
+            and cont[cworst] <= 1e-9 and got["steps"] == sim_steps
+            and all(r["masked"] == 3 * got["steps"] for r in sim_ranks)):
+        raise RuntimeError("Simulation on the split Model disagrees with "
+                           "the single process")
     return out
 
 
@@ -1951,10 +2397,17 @@ def main():
                             cases.stage_urban_driven(32, CACHE))
 
     # 36.-43. the x/y split of the flat and the urban paths
+    open32 = stage_open_family(32)
     split = split_phases(smi, fused_diff_mom, dict(
         urban=urban[32], urban128=urban[128], **{"urban-EB": eb32},
         dispersion=cases.stage_urban_dispersion(32, CACHE, purifiers=True,
-                                                heatpumps=True)))
+                                                heatpumps=True),
+        open=open32, driven128=drv["case128"], ghosts128=drv["ghosts128"],
+        simulation=cases.with_namelist(
+            open32["driven"], CACHE / "urban32drv_sim48",
+            OUTPUT=dict(lfielddump=True, fieldvars="u0,v0,w0,th,pr",
+                        tfielddump=0.1, lxytdump=True, ltkedump=True,
+                        tsample=0.05, tstatsdump=0.1, tcheck=0.1))))
 
     foreign = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "udales_tpu"))
@@ -1990,7 +2443,12 @@ def main():
          "launches_cli_urban_eb": drv_out["cli"]["masked"],
          "launches_simulation_dispersion": drv_out["sims"]["dispersion_masked"],
          "launches_simulation_driven": drv_out["sims"]["driven_masked"],
-         "max_abs_err_open_ghosts": drv["open_err"]["masked"]},
+         "max_abs_err_open_ghosts": drv["open_err"]["masked"],
+         "launches_split_driven_2x2_per_rank": [
+             m["masked"] for m in split["driven_main_2x2"]],
+         "max_abs_err_block_open_ghosts": split["open_block_err"],
+         **{f"{k}_block_open_ghosts": v
+            for k, v in split["open_block"].items()}},
         {"name": "fused_diff_mom_masked_block_64x64x128", "route": "cuda",
          "source": src, "replaces": "udales_tpu/ops/pallas_stencil.py:191",
          "launches": sum(m["masked"] for m in split["urban_main_2x2"]),
@@ -2023,7 +2481,9 @@ def main():
         "split": {k: split[k] for k in ("nccl_1x1", "nccl_shared_card",
                                         "shared", "main_2x2",
                                         "urban_nccl_1x1", "urban_shared_2x2",
-                                        "urban_main_2x2")}}))
+                                        "urban_main_2x2", "open_nccl_1x1",
+                                        "open_shared_2x2", "driven_main_2x2",
+                                        "simulation_2x2")}}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

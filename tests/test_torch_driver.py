@@ -158,6 +158,24 @@ def test_stream_clamps_past_series_end(series_dir):
                    driverstore=20, device="cpu").chunk == 4
 
 
+def test_stream_gives_a_fresh_state_the_window_of_its_time(series_dir):
+    """A stream that served a late window, handed a State without a window
+    (a second cold start, a warm start): the window of that State's own
+    time, whose planes are the full series' (it once kept its last window
+    and clamped the interpolation to that window's first record)."""
+    out, times, _ = series_dir
+    ts = TStream(out, 777, NY, NZ, torch.float64, chunk=8, device="cpu")
+    ts.ensure(FakeState(float(times[-10])))
+    d = tfiles.read_driver_files(out, 777, NY, NZ)
+    inlet = inlet_from_numpy({"mode": tconfig.BC_DRIVER, **d})
+    early = float(times[3]) + 0.1
+    st = ts.ensure(FakeState(early))
+    got = topen.driver_window_planes(st.drv, t(early))
+    want = inlet.planes(t(early), NY, NZ)
+    for k in ("u", "v", "w", "thl"):
+        assert torch.equal(got[k], want[k]), k
+
+
 # --- whole steps with a driver inlet ---------------------------------------
 
 def driven_pair(**physics):

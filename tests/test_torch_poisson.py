@@ -55,7 +55,7 @@ def laplacian(grid, p):
 @pytest.mark.parametrize("kind", ["uniform", "stretched"])
 def test_solve_matches_reference(kind):
     jgrid, tgrid = grids(kind)
-    jpois, tpois = JSolver(jgrid, CFG), TSolver(tgrid, CFG)
+    jpois, tpois = JSolver(jgrid, CFG), TSolver(tgrid, CFG, device="cpu")
     assert tpois.diag_z == jpois.diag_z == (kind == "uniform")
     rhs = np.random.default_rng(4).standard_normal((NX, NY, NZ))
     rhs -= rhs.mean()
@@ -69,7 +69,8 @@ def test_solve_inverts_laplacian(kind):
     _, tgrid = grids(kind)
     p = np.random.default_rng(6).standard_normal((NX, NY, NZ))
     p -= p.mean()
-    ps = TSolver(tgrid, CFG).solve(torch.tensor(laplacian(tgrid, p))).numpy()
+    ps = TSolver(tgrid, CFG, device="cpu").solve(
+        torch.tensor(laplacian(tgrid, p))).numpy()
     ps -= ps.mean()
     assert np.abs(ps - p).max() < 1e-8
 
@@ -106,9 +107,9 @@ def test_every_path_matches_reference(path, kind):
         with pytest.raises(ValueError):
             JSolver(jgrid, cfg)
         with pytest.raises(ValueError):
-            TSolver(tgrid, cfg)
+            TSolver(tgrid, cfg, device="cpu")
         return
-    jpois, tpois = JSolver(jgrid, cfg), TSolver(tgrid, cfg)
+    jpois, tpois = JSolver(jgrid, cfg), TSolver(tgrid, cfg, device="cpu")
     assert (tpois.diag_z, tpois.bczp2, tpois.fft3d) == (
         jpois.diag_z, jpois.bczp2, jpois.fft3d)
     rhs = np.random.default_rng(8).standard_normal((NX, NY, NZ))
@@ -129,7 +130,7 @@ def test_gradients_agree_across_paths():
     _, tgrid = grids("uniform")
     rhs = np.random.default_rng(9).standard_normal((NX, NY, NZ))
     rhs -= rhs.mean()
-    ps = [TSolver(tgrid, dataclasses.replace(CFG, **kw))
+    ps = [TSolver(tgrid, dataclasses.replace(CFG, **kw), device="cpu")
           .solve(torch.tensor(rhs)).numpy()
           for kw in ({}, PATHS["bczp2"], PATHS["pressure_top"])]
     g0 = grad(ps[0], tgrid)

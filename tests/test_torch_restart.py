@@ -51,19 +51,6 @@ def assert_states_equal(got, ref, rtol=0.0, skip=()):
         assert err <= rtol * float(np.abs(r).max(initial=0.0)), (name, err)
 
 
-def write_state_fortran_restart(case_dir, state, expnr, cfg, ntrun=0):
-    """`write_fortran_restart` of a State's current fields, pressure, time
-    and step."""
-    n = lambda a: a.detach().cpu().numpy()
-    c, d = state.c, cfg.domain
-    fields = {"u": n(c.u), "v": n(c.v), "w": n(c.w), "pres": n(state.pres),
-              "thl": n(c.thl), "e12": n(c.e12), "qt": n(c.qt)}
-    trestart.write_fortran_restart(
-        case_dir, fields, float(state.timee), float(state.dt), expnr, d.itot,
-        d.jtot, d.ktot, cfg.run.nprocx, cfg.run.nprocy, ntrun=ntrun,
-        sv=n(c.sv) if c.sv.shape[0] else None)
-
-
 @pytest.fixture(scope="module")
 def eb_case(tmp_path_factory):
     root = tmp_path_factory.mktemp("restart")
@@ -148,7 +135,7 @@ def test_checkpoint_loads_in_the_other_package(eb_case, tmp_path, direction):
 def test_fortran_restart_roundtrips(tmp_path, nproc):
     """The reference's per-rank initd/inits files: the port's writer gives
     the reference writer's bytes, each package reads the other's files back
-    exactly, and ``write_state_fortran_restart`` -> ``warmstart_state``
+    exactly, and ``write_state_fortran`` -> ``warmstart_state``
     returns the State's fields, pressure, time and step."""
     from udales_tpu.io import restart as jrestart
     from udales_tpu_torch.config import (Config, DomainConfig, RunConfig,
@@ -193,10 +180,107 @@ def test_fortran_restart_roundtrips(tmp_path, nproc):
     st = State(m=Fields(**f), c=Fields(**f), pres=t(fields["pres"]),
                dt=torch.tensor(0.125, dtype=torch.float64),
                timee=torch.tensor(3.25, dtype=torch.float64))
-    write_state_fortran_restart(tmp_path, st, "901", cfg, ntrun=9)
+    trestart.write_state_fortran(tmp_path, st, "901", cfg, ntrun=9)
     back = trestart.warmstart_state(tmp_path, "initd00000009_xxx_xxx.901",
-                                    "901", cfg, grid)
+                                    "901", cfg, grid, device="cpu")
     assert_states_equal(state_to_numpy(back), state_to_numpy(st))
+
+
+@pytest.mark.parametrize("fmt", ["h5", "fortran"])
+def test_open_boundary_state_roundtrips(tmp_path, fmt):
+    """A State of an open case through a native checkpoint (outlet planes
+    of x and y, the inlet generator's state) or through the Fortran files
+    on 2 x 2 ranks (the outlet planes in the halo past the domain's last
+    cells, ``write_state_fortran`` -> ``warmstart_state(model=)``): every
+    leaf back exactly."""
+    from types import SimpleNamespace
+    from udales_tpu_torch.config import (Config, DomainConfig, RunConfig,
+                                         ScalarsConfig)
+    from udales_tpu_torch.grid import Grid
+    from udales_tpu_torch.ops.inletgen import INLETGEN_NAMES, InletGen
+    from udales_tpu_torch.ops.openbc import XPlanes, YPlanes
+    from udales_tpu_torch.state import Fields, State
+    nx, ny, nz, nsv = 8, 6, 5, 2
+    rng = np.random.default_rng(11)
+    t = lambda *shape: torch.as_tensor(rng.standard_normal(shape))
+    planes = lambda cls, n: cls(u=t(n, nz), v=t(n, nz), w=t(n, nz + 1),
+                                thl=t(n, nz), qt=t(n, nz), e12=t(n, nz),
+                                sv=t(nsv, n, nz))
+    f = Fields(u=t(nx, ny, nz), v=t(nx, ny, nz), w=t(nx, ny, nz + 1),
+               thl=t(nx, ny, nz), qt=t(nx, ny, nz), e12=t(nx, ny, nz),
+               sv=t(nsv, nx, ny, nz), bx=planes(XPlanes, ny),
+               by=planes(YPlanes, nx))
+    shapes = dict(Wrec=(nz + 1,), Utav=(nx, nz), displ=(nx,), u0=(ny, nz),
+                  v0=(ny, nz), w0=(ny, nz + 1), t0=(ny, nz), utaui=(),
+                  ttaui=(), ddispdx=())
+    ig = InletGen(**{k: t(*shapes.get(k, (nz,))) for k in INLETGEN_NAMES})
+    st = State(m=f, c=f, pres=t(nx, ny, nz),
+               dt=torch.tensor(0.125, dtype=torch.float64),
+               timee=torch.tensor(3.25, dtype=torch.float64),
+               ig=ig if fmt == "h5" else None)
+    cfg = Config(domain=DomainConfig(itot=nx, jtot=ny, ktot=nz,
+                                     xlen=float(nx), ylen=float(ny)),
+                 run=RunConfig(nprocx=2, nprocy=2),
+                 scalars=ScalarsConfig(nsv=nsv), dtype="float64")
+    grid = Grid.uniform(nx, ny, nz, float(nx), float(ny), float(nz),
+                        dtype=np.float64)
+    model = SimpleNamespace(cfg=cfg, device="cpu", eb=None, ibm=None,
+                            mesh=None, inlet=object(), inlet_y=object())
+    if fmt == "h5":
+        pytest.importorskip("h5py")
+        trestart.save_checkpoint(tmp_path / "ck.h5", st, 9)
+        back = trestart.load_checkpoint(tmp_path / "ck.h5", grid,
+                                        model=model)
+    else:
+        trestart.write_state_fortran(tmp_path, st, "901", cfg, ntrun=9)
+        back = trestart.warmstart_state(tmp_path,
+                                        "initd00000009_xxx_xxx.901", "901",
+                                        cfg, grid, model=model)
+    got, want = state_to_numpy(back), state_to_numpy(st)
+    assert {"bx", "by"} <= set(got["c"]) and got["c"]["bx"] is not None
+    assert ("ig" in got) == (fmt == "h5")
+    assert_states_equal(got, want)
+
+
+@pytest.mark.parametrize("fmt", ["h5", "fortran"])
+def test_restart_lands_on_the_models_device(tmp_path, fmt):
+    """Read with a `model` and no `device`, a restart State lands on the
+    model's device (here the meta device, which no default would pick);
+    with neither, on the card."""
+    from types import SimpleNamespace
+    from udales_tpu_torch.config import Config, DomainConfig, RunConfig
+    from udales_tpu_torch.grid import Grid
+    from udales_tpu_torch.state import Fields, State
+    nx, ny, nz = 4, 4, 3
+    rng = np.random.default_rng(5)
+    t = lambda *shape: torch.as_tensor(rng.standard_normal(shape))
+    f = Fields(u=t(nx, ny, nz), v=t(nx, ny, nz), w=t(nx, ny, nz + 1),
+               thl=t(nx, ny, nz), qt=t(nx, ny, nz), e12=t(nx, ny, nz),
+               sv=t(0, nx, ny, nz))
+    st = State(m=f, c=f, pres=t(nx, ny, nz),
+               dt=torch.tensor(0.125, dtype=torch.float64),
+               timee=torch.tensor(3.25, dtype=torch.float64))
+    cfg = Config(domain=DomainConfig(itot=nx, jtot=ny, ktot=nz,
+                                     xlen=float(nx), ylen=float(ny)),
+                 run=RunConfig(nprocx=1, nprocy=1), dtype="float64")
+    grid = Grid.uniform(nx, ny, nz, float(nx), float(ny), float(nz),
+                        dtype=np.float64)
+    model = SimpleNamespace(cfg=cfg, device="meta", eb=None, ibm=None,
+                            mesh=None, inlet=None, inlet_y=None)
+    if fmt == "h5":
+        pytest.importorskip("h5py")
+        trestart.save_checkpoint(tmp_path / "ck.h5", st, 9)
+        back = trestart.load_checkpoint(tmp_path / "ck.h5", grid,
+                                        model=model)
+    else:
+        trestart.write_state_fortran(tmp_path, st, "901", cfg, ntrun=9)
+        back = trestart.warmstart_state(tmp_path,
+                                        "initd00000009_xxx_xxx.901", "901",
+                                        cfg, grid, model=model)
+    assert {x.device.type for x in (back.c.u, back.m.w, back.pres, back.dt,
+                                    back.timee)} == {"meta"}
+    assert trestart._device(None, None) == "cuda"
+    assert trestart._device("cpu", model) == "cpu"
 
 
 def test_checkpoint_without_h5py_raises(monkeypatch, tmp_path):
@@ -250,8 +334,8 @@ def test_continued_run_equals_uninterrupted_run(tmp_path, fmt):
         ck = tmp_path / "leg1" / start
     else:
         start = "initd00000003_xxx_xxx.900"
-        write_state_fortran_restart(tmp_path / "leg1", first, "900",
-                                    model.cfg, ntrun=3)
+        trestart.write_state_fortran(tmp_path / "leg1", first, "900",
+                                     model.cfg, ntrun=3)
         ck = tmp_path / "leg1" / "initd00000003_000_000.900"
     resumed = cases.with_namelist(case, tmp_path / "resumed",
                                   RUN=dict(lwarmstart=True, startfile=start))

@@ -18,7 +18,8 @@ the kappa scheme (``iadv_thl``: a halo of 2), each against the
 port and udales_tpu on one device.  The ranks are processes of
 tests/torch_split_worker.py, which imports only torch and the port; JAX
 runs in this process.  The urban paths under the split are in
-tests/test_torch_split_urban.py.
+tests/test_torch_split_urban.py, the open boundaries in
+tests/test_torch_split_open.py.
 """
 import dataclasses
 from types import SimpleNamespace
@@ -40,15 +41,15 @@ from udales_tpu.parallel.mesh import shard_state as jshard_state
 from udales_tpu.run import Model as JModel
 
 import udales_tpu_torch.config as tconfig
-from udales_tpu_torch.convert import (FACET_STATE_NAMES, FACSTAT_NAMES,
-                                      FIELD_NAMES, state_from_numpy,
+from udales_tpu_torch.convert import (FIELD_NAMES, state_from_numpy,
                                       state_to_numpy)
 from udales_tpu_torch.grid import Grid as TGrid
 from udales_tpu_torch.parallel.mesh import _leaf_spec, map_state
 from udales_tpu_torch.run import Model as TModel
 
 from test_core import init_state
-from test_torch_eb import jax_leaves, stage_cube_case, synthetic_pair
+from test_torch_eb import stage_cube_case, synthetic_pair
+from test_torch_openbc import jtree
 from torch_split_worker import finish, free_port, start
 
 MESHES = [(2, 1), (1, 2), (2, 2), (4, 2)]
@@ -300,8 +301,9 @@ def test_split_slab_means_equal_the_domain_means(split):
 def test_dryrun_multichip(split):
     """entry.dryrun_multichip(4) under torchrun's environment: a 2 x 2 mesh,
     32^3 float32, one adaptive step, against the same step on one process;
-    then the generated building case (16^3 float32, one step): finite u
-    and thl, the same on every rank."""
+    then the generated building case (16^3 float32, one step) and the
+    driven case (16^3 float32, two steps through the driver window): finite
+    u and thl, the same on every rank."""
     from udales_tpu_torch import entry
     res = split["dryrun"]
     model = entry._build(32, 32, 32, device="cpu")
@@ -320,22 +322,46 @@ def test_dryrun_multichip(split):
         assert np.isfinite(ibm["c"]["thl"]).all()
         np.testing.assert_array_equal(ibm["c"]["u"],
                                       res[0]["dryrun_ibm"]["c"]["u"])
+        drv = r["dryrun_driven"]
+        assert drv["c"]["u"].shape == (16, 16, 16)
+        assert drv["c"]["bx"]["u"].shape == (16, 16)
+        assert drv["drv"]["u"].shape == (8, 16, 16)
+        assert np.isfinite(drv["c"]["u"]).all()
+        np.testing.assert_array_equal(drv["c"]["u"],
+                                      res[0]["dryrun_driven"]["c"]["u"])
 
 
 def test_leaf_spec_agrees_with_jax():
     """Every leaf of the flat State, of a State with two passive scalars, a
-    facet state and its statistics, and the Model's profiles, split as in
-    udales_tpu's table."""
+    facet state and its statistics, the outlet planes of both open
+    directions, a driver window and an inlet generator, and the Model's
+    profiles, split as in udales_tpu's table."""
     import udales_tpu.state as jstate
+    from udales_tpu.ops import openbc as jopen
+    from udales_tpu.ops.inletgen import InletGen as JInletGen
     jm = jax_model("flat")
     jst = init_state(jm)
     jeb, _ = synthetic_pair("sparse")
-    sv = jax.numpy.zeros((2, 16, 12, 8))
+    z = jax.numpy.zeros
+    sv = z((2, 16, 12, 8))
+    planes = lambda cls, n: cls(u=z((n, 8)), v=z((n, 8)), w=z((n, 9)),
+                                thl=z((n, 8)), qt=z((n, 8)), e12=z((n, 8)),
+                                sv=z((2, n, 8)))
+    open_fields = lambda f: dataclasses.replace(
+        f, sv=sv, bx=planes(jopen.XPlanes, 12), by=planes(jopen.YPlanes, 16))
+    W = 4
+    drv = jopen.DriverWindow(t=z(W), u=z((W, 12, 8)), v=z((W, 12, 8)),
+                             w=z((W, 12, 9)), thl=z((W, 12, 8)),
+                             qt=z((W, 12, 8)), sv=z((W, 2, 12, 8)))
+    ig = JInletGen(Urec=z(8), Wrec=z(9), Trec=z(8), Uinl=z(8), Tinl=z(8),
+                   Utav=z((16, 8)), utaui=z(()), ttaui=z(()), displ=z(16),
+                   ddispdx=z(()), u0=z((12, 8)), v0=z((12, 8)),
+                   w0=z((12, 9)), t0=z((12, 8)))
     jst = jst.replace(
-        c=dataclasses.replace(jst.c, sv=sv),
-        m=dataclasses.replace(jst.m, sv=sv),
+        c=open_fields(jst.c), m=open_fields(jst.m),
         fac=jeb.initial_state(),
-        facstats=jstate.zero_facstats(jeb.nfcts, np.float64))
+        facstats=jstate.zero_facstats(jeb.nfcts, np.float64),
+        drv=drv, ig=ig)
     want = {}
 
     def record(path, leaf):
@@ -344,14 +370,15 @@ def test_leaf_spec_agrees_with_jax():
         want[names] = tuple(jleaf_spec(path, leaf))
     jax.tree_util.tree_map_with_path(record, jst)
     got = {}
-    tst = to_numpy(jst)
-    tst["fac"] = jax_leaves(jst.fac, FACET_STATE_NAMES)
-    tst["facstats"] = jax_leaves(jst.facstats, FACSTAT_NAMES)
     map_state(lambda path, leaf: got.__setitem__(path,
                                                  _leaf_spec(path, leaf)),
-              state_from_numpy(tst))
-    assert {"fac", "facstats"} <= {k[0] for k in got}
+              state_from_numpy(jtree(jst)))
+    assert {"fac", "facstats", "drv", "ig"} <= {k[0] for k in got}
     assert got[("c", "sv")] == (None, "x", "y", None)
+    assert got[("c", "bx", "w")] == ("y", None)
+    assert got[("m", "by", "sv")] == (None, "x", None)
+    assert got[("drv", "sv")] == (None, None, "y", None)
+    assert got[("ig", "Utav")] == ("x", None)
     assert got and got == want
     prof = torch.zeros(8)
     assert _leaf_spec(("dpdxl",), prof) == tuple(jleaf_spec((), prof))
@@ -362,9 +389,9 @@ def fake_mesh(px=2, py=2):
                            axis_names=("x", "y"), shape=(px, py))
 
 
-# the configurations the split refused; the open boundaries, the inlet
-# generator, the driver and two Poisson routes still are, the urban and
-# long-tail features are lifted (LIFTED)
+# the configurations the split refused; every one is lifted (LIFTED): the
+# urban and long-tail features, the open boundaries, the inlet generator,
+# the driver and the BCzp = 2 and POISS_FFT3D routes of the Poisson solve
 REFUSED = {
     "an IBM": dict(run=dict(libm=True), walls=dict(nfcts=4)),
     "lEB": dict(eb=dict(lEB=True)),
@@ -385,7 +412,8 @@ REFUSED = {
     "BCzp=2": dict(bc=dict(BCzp=2)),
 }
 LIFTED = ("an IBM", "lEB", "nsv > 0", "lscasrc", "iadv_thl", "ds > 0",
-          "lqlnr", "ltrees", "lchem", "lpurif", "lheatpump")
+          "lqlnr", "ltrees", "lchem", "lpurif", "lheatpump", "BCxm", "BCym",
+          "iinletgen", "idriver", "POISS_FFT3D", "BCzp=2")
 
 
 @pytest.fixture(scope="module")
@@ -399,7 +427,8 @@ def test_refused_configurations_name_themselves(name, cube):
     """Each configuration the split refused: those still refused raise
     naming themselves under a mesh and build without one; the lifted ones
     build under a mesh (an IBM as ``load_case(..., mesh=)`` builds it: the
-    cube case, the IBM of one 8 x 8 block)."""
+    cube case, the IBM of one 8 x 8 block), and `_split_unsupported` names
+    none of them."""
     cfg = make_cfg(tconfig, "flat")
     cfg = dataclasses.replace(cfg, **{
         group: dataclasses.replace(getattr(cfg, group), **kw)
@@ -416,6 +445,8 @@ def test_refused_configurations_name_themselves(name, cube):
             TModel(model.cfg, model.domain_grid, model.ibm, device="cpu")
         return
     if name in LIFTED:
+        from udales_tpu_torch.run import _split_unsupported
+        assert _split_unsupported(cfg) == []
         model = TModel(cfg, grid, device="cpu", mesh=fake_mesh())
         assert model.grid.shape == (8, 6, 8)
         return
@@ -427,17 +458,21 @@ def test_refused_configurations_name_themselves(name, cube):
 @pytest.mark.parametrize("leaf", ["fac.T", "c.bx.u", "drv.u", "ig.u0",
                                   "c.sv", "facstats.pres"])
 def test_refused_state_leaves_name_themselves(leaf):
-    """The open-boundary leaves raise naming themselves; the facet state
-    and its statistics are now whole on every rank, the scalar stack split
-    along its x and y axes."""
+    """The leaves the split once refused take udales_tpu's specs: the
+    facet state and its statistics whole on every rank, the scalar stack
+    split along its x and y axes, the outlet planes (ny, nz) along y, the
+    driver window (W, ny, nz) along y and the generator's planes (ny, nz)
+    along y."""
+    from udales_tpu.parallel.mesh import _leaf_spec as jspec
     path = tuple(leaf.split("."))
+    shape = {"fac.T": (7, 4), "facstats.pres": (7,), "c.bx.u": (12, 8),
+             "drv.u": (4, 12, 8), "ig.u0": (12, 8)}.get(leaf, (2, 16, 12, 8))
     accepted = {"fac.T": (), "facstats.pres": (),
-                "c.sv": (None, "x", "y", None)}
-    if leaf in accepted:
-        assert _leaf_spec(path, torch.zeros(2, 16, 12, 8)) == accepted[leaf]
-        return
-    with pytest.raises(NotImplementedError, match=leaf.replace(".", r"\.")):
-        _leaf_spec(path, torch.zeros(2, 16, 12, 8))
+                "c.sv": (None, "x", "y", None), "c.bx.u": ("y", None),
+                "drv.u": (None, "y", None), "ig.u0": ("y", None)}
+    assert _leaf_spec(path, torch.zeros(shape)) == accepted[leaf]
+    jpath = [SimpleNamespace(name=p) for p in path]
+    assert tuple(jspec(jpath, np.zeros(shape))) == accepted[leaf]
 
 
 @pytest.mark.parametrize("mesh,cond", [((3, 1), "itot % px"),
@@ -450,7 +485,7 @@ def test_grid_block_names_the_failed_condition(mesh, cond):
         grid.block(fake_mesh(*mesh))
 
 
-def test_block_grid_and_runmode_1003_print_the_mesh(capsys):
+def test_block_grid_and_runmode_1003_print_the_mesh(capsys, tmp_path):
     from udales_tpu_torch.sim import Simulation, execute_runmode_actions
     cfg = make_cfg(tconfig, "flat")
     cfg = dataclasses.replace(cfg, run=dataclasses.replace(cfg.run,
@@ -466,5 +501,7 @@ def test_block_grid_and_runmode_1003_print_the_mesh(capsys):
     assert execute_runmode_actions(model, ".") == 0
     out = capsys.readouterr().out
     assert "mesh {'x': 2, 'y': 2}" in out and "grid 8x6x8" in out
-    with pytest.raises(NotImplementedError, match="split over a mesh"):
-        Simulation(model)
+    # a Simulation of the split Model builds: its writers would read the
+    # whole domain (rank 0 of the mesh)
+    sim = Simulation(model, tmp_path)
+    assert sim.root and sim.view.grid is grid and sim.gathers == 0

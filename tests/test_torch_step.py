@@ -11,8 +11,10 @@ The tests marked ``cuda`` hold one step on the card against the same step
 on the CPU (16^3 float64, 1e-9): the driven urban case, the rescale-recycle
 inlet and the three variants of the dispersion case; one step of two
 ranks that share the card on a 2 x 1 mesh (gloo, host-staged) against the
-single-process step on the card, and one step of the urban 16^3 case on
-four such ranks (2 x 2) against the same.  They skip without a card.  JAX and the JAX package are imported only inside the tests that need
+single-process step on the card, one step of the urban 16^3 case on
+four such ranks (2 x 2) against the same, and three steps of the driven
+urban 16^3 case (its window refilled) on them.  They skip without a
+card.  JAX and the JAX package are imported only inside the tests that need
 them, so the file runs where JAX is not installed:
 
     python -m pytest --noconftest -m cuda tests/test_torch_step.py
@@ -442,6 +444,47 @@ def test_urban_split_on_shared_card_matches_one_process(cuda, tmp_path):
     for r in res:
         out = r["cases"]["urban"]
         assert out["masked"] == 3 and out["launches"] == 0
+        for name, got in leaves(out["gathered"]):
+            scale = float(np.abs(want[name]).max(initial=0.0))
+            err = float(np.abs(got - want[name]).max(initial=0.0))
+            assert err <= 1e-9 * max(scale, 1e-300), (name, err, scale)
+
+
+@pytest.mark.cuda
+def test_driven_split_on_shared_card_matches_one_process(cuda, tmp_path):
+    """Four ranks that share the card on a 2 x 2 mesh, each loading the
+    driven urban 16^3 case (records 0.05 s apart, 4 a window, so that the
+    window is refilled) with ``load_case(..., mesh=)``: 3 steps, gathered,
+    against the single-process steps on the card (every leaf, the outlet
+    planes and the window included, to 1e-9); the masked kernel launches 3
+    times a step on each rank."""
+    from udales_tpu_torch import cases
+    from udales_tpu_torch.run import load_case
+    from torch_split_worker import free_port, launch
+    case = cases.stage_urban_driven(16, tmp_path, nt=40, chunk=4,
+                                    dtdriver=0.05)
+    model = load_case(case, "900", dtype="float64", device="cuda")
+    start = state_to_numpy(model.cold_start(seed=43))
+    ref = state_to_numpy(model.run(state_from_numpy(start, device="cuda"),
+                                   3))
+    job = dict(name="driven", case_dir=str(case), expnr="900",
+               dtype="float64", state=start, steps=3)
+    res = launch(dict(world=4, address=f"localhost:{free_port()}",
+                      backend="gloo", device="cuda", host_staged=True,
+                      timeout=60.0, mesh=(2, 2), cases=[job]),
+                 tmp_path / "ranks", timeout=300)
+
+    def leaves(tree, prefix=""):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                yield from leaves(v, f"{prefix}{k}.")
+            elif v is not None:
+                yield f"{prefix}{k}", v
+    want = dict(leaves(ref))
+    assert {"c.bx.u", "drv.u"} <= set(want)
+    for r in res:
+        out = r["cases"]["driven"]
+        assert out["masked"] == 9 and out["launches"] == 0
         for name, got in leaves(out["gathered"]):
             scale = float(np.abs(want[name]).max(initial=0.0))
             err = float(np.abs(got - want[name]).max(initial=0.0))

@@ -1,7 +1,8 @@
 """One rank of a split run of udales_tpu_torch, for tests/test_torch_split.py,
-tests/test_torch_split_urban.py, tests/test_torch_multihost.py and the card
-cases of tests/test_torch_step.py.  It imports torch and udales_tpu_torch,
-never JAX or udales_tpu.
+tests/test_torch_split_urban.py, tests/test_torch_split_{open,recycle,
+driven}.py, tests/test_torch_multihost.py and the card cases of
+tests/test_torch_step.py.  It imports torch and udales_tpu_torch, never JAX
+or udales_tpu.
 
     python tests/torch_split_worker.py JOB RANK
 
@@ -16,9 +17,16 @@ JOB is a pickle the test writes:
   - "cases": [{"name", "cfg" (a udales_tpu_torch Config), "zf", "dpdxl",
     "state" (numpy, as ``convert.state_to_numpy``), "steps"}], each taken
     from the whole-domain State by ``shard_state_global`` and run for
-    "steps" steps on the mesh; a case with "case_dir", "expnr" and "dtype"
-    in place of "cfg", "zf" and "dpdxl" is built by
-    ``run.load_case(..., mesh=)``;
+    "steps" steps on the mesh (a streamed driver window refilled before
+    each step); a case with "case_dir", "expnr" and "dtype" in place of
+    "cfg", "zf" and "dpdxl" is built by ``run.load_case(..., mesh=)``; a
+    case with "sim" (an output directory) and "runtime" in place of "steps"
+    runs ``sim.Simulation`` for that long instead, and with "restart" (a
+    directory) rank 0 then writes the gathered State's Fortran restart
+    files there (``io.restart.write_state_fortran``), which every rank
+    then reads back into the mesh and steps "continue" steps further; it
+    returns every array its writers were handed, in float64
+    (`recording_writers`);
   - "sections": [{"name", "case_dir", "expnr", "fields" (whole-domain u,
     v, w, thl as numpy)}]: the IBM of each case on this rank's block, and
     per grid the rows of the domain's sections it holds, their interpolated
@@ -36,6 +44,7 @@ JOB is a pickle the test writes:
 """
 import dataclasses
 import os
+from contextlib import contextmanager
 import pickle
 import subprocess
 import sys
@@ -60,7 +69,10 @@ from udales_tpu_torch.parallel.mesh import (gather_state,  # noqa: E402
 from udales_tpu_torch.parallel.multihost import (  # noqa: E402
     free_port, global_mesh, init_distributed, shard_state_global)
 from udales_tpu_torch.ops.boundary import ghost_thl  # noqa: E402
+from udales_tpu_torch.io.restart import (warmstart_state,  # noqa: E402
+                                         write_state_fortran)
 from udales_tpu_torch.run import Model, _velocity_ghosts, load_case  # noqa
+from udales_tpu_torch.sim import Simulation  # noqa: E402
 from udales_tpu_torch.state import Fields  # noqa: E402
 
 
@@ -217,6 +229,49 @@ def section_report(job, mesh, device):
     return out
 
 
+@contextmanager
+def recording_writers():
+    """Within the block every ``NCWriter.append`` also keeps the arrays it
+    is handed in float64 (before the file's float32 cast), in the dict
+    {file name: [(time, {variable: array})]} the block receives."""
+    from udales_tpu_torch.io import netcdf
+    records, append = {}, netcdf.NCWriter.append
+
+    def recording(self, time, data):
+        records.setdefault(Path(self.path).name, []).append(
+            (time, {k: np.array(v, np.float64) for k, v in data.items()}))
+        return append(self, time, data)
+    netcdf.NCWriter.append = recording
+    try:
+        yield records
+    finally:
+        netcdf.NCWriter.append = append
+
+
+def run_simulation(case, model, st, mesh):
+    """`Simulation.run` of the split Model from the block State `st` for
+    case["runtime"] s into case["sim"]; the restart files of "restart"."""
+    with recording_writers() as records:
+        sim = Simulation(model, case["sim"])
+        whole = gather_state(sim.run(st, runtime=case["runtime"]), mesh)
+    out = dict(gathered=state_to_numpy(whole), gathers=sim.gathers,
+               gather_seconds=sim.gather_seconds, ntrun=sim.ntrun,
+               records=records)
+    if case.get("restart"):
+        if mesh.rank == 0:
+            Path(case["restart"]).mkdir(parents=True, exist_ok=True)
+            write_state_fortran(case["restart"], whole, case["expnr"],
+                                model.cfg, ntrun=sim.ntrun)
+        dist.barrier()
+        st = warmstart_state(
+            case["restart"], f"initd{sim.ntrun:08d}_xxx_xxx.{case['expnr']}",
+            case["expnr"], model.cfg, model.grid, device=model.device,
+            model=model)
+        out["continued"] = state_to_numpy(gather_state(
+            model.run(st, case["continue"]), mesh))
+    return out
+
+
 def main(job_path, rank):
     job = pickle.loads(Path(job_path).read_bytes())
     device = torch.device(job["device"])
@@ -228,10 +283,11 @@ def main(job_path, rank):
     rank = dist.get_rank()
     res = {}
     if job.get("dryrun"):
-        mesh, out, iout = entry.dryrun_multichip(
+        mesh, out, iout, dout = entry.dryrun_multichip(
             job["world"], device=device, host_staged=job["host_staged"])
         res["dryrun"] = state_to_numpy(out)
         res["dryrun_ibm"] = state_to_numpy(iout)
+        res["dryrun_driven"] = state_to_numpy(dout)
     else:
         mesh = (make_mesh(*job["mesh"], host_staged=job["host_staged"])
                 if job["mesh"] else global_mesh(host_staged=job["host_staged"]))
@@ -243,6 +299,10 @@ def main(job_path, rank):
             fused_diff_mom.launch_count = 0
             fused_diff_mom.masked_launch_count = 0
             mesh.reset_counts()
+            if "sim" in case:
+                res["cases"][case["name"]] = run_simulation(case, model, st,
+                                                            mesh)
+                continue
             out = model.run(st, case["steps"])
             res["cases"][case["name"]] = dict(
                 block=state_to_numpy(out), launches=fused_diff_mom.launch_count,

@@ -4,7 +4,8 @@
     _init_state(model, seed, amp)                      -> State
     entry()                                            -> (step, (state,))
     dryrun_multichip(n)    -> one step of the flat case and of a building
-                              case, each split over n ranks
+                              case, and two of a driven case, each split
+                              over n ranks
 
 The case: periodic x/y, rough floor (wall function), Vreman closure, cd2
 advection, a uniform grid of 1 m cells and a -1e-4 large-scale pressure
@@ -63,17 +64,20 @@ def entry(device="cuda"):
 
 
 def dryrun_multichip(n_devices: int, device="cuda", host_staged=False):
-    """The first two paths of udales_tpu's dry run
-    (``__graft_entry__.py:50-142``): `n_devices` ranks on a near-square
-    px x py mesh (px <= py); one adaptive step of the flat case on a grid of
-    8 px py cells a side, then one step of a building case generated by the
-    port's preprocessor (one box, ``ltempeq``, ``lbuoyancy``, facet wall
-    functions; a grid of 8 max(px, py) cells a side) through
-    ``run.load_case(..., mesh=)``.  Every rank of the group calls it (under
-    torchrun, or after ``parallel.multihost.init_distributed``) and stages
-    the building case in a temporary directory of its own.  Returns (mesh,
-    the gathered flat State, the gathered building State), each after its
-    step; a non-finite u or thl raises."""
+    """The three paths of udales_tpu's dry run (``__graft_entry__.py:50-
+    218``): `n_devices` ranks on a near-square px x py mesh (px <= py); one
+    adaptive step of the flat case on a grid of 8 px py cells a side, then
+    one step of a building case generated by the port's preprocessor (one
+    box, ``ltempeq``, ``lbuoyancy``, facet wall functions; a grid of 8
+    max(px, py) cells a side) through ``run.load_case(..., mesh=)``, then
+    two steps of a driven case on that grid (a ``BCxm = 3`` driver inlet
+    and a convective outlet, replayed from synthesized precursor planes
+    through an ``lchunkread`` window of 8 records, refilled between the
+    steps).  Every rank of the group calls it (under torchrun, or after
+    ``parallel.multihost.init_distributed``) and stages the cases in
+    temporary directories of its own.  Returns (mesh, the gathered flat
+    State, the gathered building State, the gathered driven State), each
+    after its steps; a non-finite u or thl raises."""
     from .parallel.mesh import gather_state, make_mesh, shard_state
     from .parallel.multihost import init_distributed
     _, world = init_distributed(device=device)
@@ -127,7 +131,48 @@ def dryrun_multichip(n_devices: int, device="cuda", host_staged=False):
         print(f"dryrun_multichip OK (IBM): mesh {px}x{py}, grid {nib}^3, "
               f"nfcts={counts['nfcts']}, dt={float(iout.dt):.4f}",
               flush=True)
-    return mesh, out, iout
+
+    # the driven case: precursor planes replayed through the rolling window
+    # (State.drv split along y) into a driver inlet and a convective outlet
+    from .io.driverfiles import write_driver_files
+    with tempfile.TemporaryDirectory(prefix="udales_dryrun_drv_") as td:
+        tmp = Path(td)
+        rng = np.random.default_rng(5)
+        nt = 24
+        base = 1.0 + 0.1 * np.sin(np.arange(nib) / 3.0)
+        mk = lambda a: a + 0.01 * rng.standard_normal((nt, nib, nib))
+        planes = dict(u=mk(base[None, :, None]), v=mk(0.0),
+                      w=np.concatenate([np.zeros((nt, nib, 1)), mk(0.0)],
+                                       axis=2),
+                      thl=mk(288.0))
+        write_driver_files(tmp, "903", np.arange(nt) * 0.05, planes, nib,
+                           nib)
+        zc = np.arange(nib) + 0.5
+        prof = np.column_stack([zc, np.full(nib, 288.0), np.zeros(nib),
+                                np.full(nib, 1.0), np.zeros(nib),
+                                np.full(nib, 5e-5)])
+        np.savetxt(tmp / "prof.inp.903", prof, fmt="%14.6e",
+                   header="profiles\nz thl qt u v tke")
+        np.savetxt(tmp / "lscale.inp.903",
+                   np.column_stack([zc] + [np.zeros(nib)] * 9),
+                   fmt="%14.6e", header="lscale\n"
+                   "z uq vq pqx pqy wfls dqtdxls dqtdyls dqtdtls dthl")
+        (tmp / "namoptions.903").write_text(
+            _DRIVEN_NAMELIST.format(n=nib))
+        dmodel = load_case(tmp, "903", "float32", device=device, mesh=mesh)
+        dst = dmodel.cold_start(seed=2)
+        for _ in range(2):
+            dst = dmodel.driver_stream.ensure(dst)
+            dst = dmodel.step(dst)
+        dout = gather_state(dst, mesh)
+    if not all(bool(torch.isfinite(f).all()) for f in (dout.c.u,
+                                                        dout.c.thl)):
+        raise RuntimeError("dryrun_multichip: non-finite u or thl after "
+                           "the driven steps")
+    if mesh.rank == 0:
+        print(f"dryrun_multichip OK (driven stream): mesh {px}x{py}, grid "
+              f"{nib}^3, chunk=8, dt={float(dout.dt):.4f}", flush=True)
+    return mesh, out, iout, dout
 
 
 # the building case of `dryrun_multichip` (udales_tpu's, __graft_entry__.py)
@@ -156,5 +201,33 @@ iwalltemp = 2
 thls = 290.
 z0 = 0.05
 z0h = 0.00035
+/
+"""
+
+
+# the driven case of `dryrun_multichip` (udales_tpu's, __graft_entry__.py)
+_DRIVEN_NAMELIST = """
+&RUN
+iexpnr = 903
+ladaptive = .true.
+dtmax = 0.05
+runtime = 1.0
+/
+&DOMAIN
+itot = {n}
+jtot = {n}
+ktot = {n}
+xlen = {n}.
+ylen = {n}.
+/
+&BC
+BCxm = 3
+/
+&DRIVER
+idriver = 2
+driverjobnr = 903
+tdriverstart = 0.
+lchunkread = .true.
+chunkread_size = 8
 /
 """

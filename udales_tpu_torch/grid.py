@@ -15,7 +15,9 @@ Index conventions (0-based):
 ``block(mesh)`` gives one rank's share of the grid under an x/y process split
 (``parallel.mesh``): its ``itot``/``jtot`` and x/y coordinates are the
 block's, ``global_shape``, ``xlen`` and ``ylen`` the domain's; ``cut``
-takes the block's part of a whole-domain array.
+takes the block's part of a whole-domain array; ``edge_xlo``,
+``edge_xhi``, ``edge_ylo`` and ``edge_yhi`` say whether the block holds the
+domain's first or last x or y cells (all four on a whole-domain grid).
 """
 from __future__ import annotations
 
@@ -109,6 +111,7 @@ class Grid:
         self.mesh = None
         self.i0 = self.j0 = 0
         self.global_shape = (itot, jtot, ktot)
+        self.edge_xlo = self.edge_xhi = self.edge_ylo = self.edge_yhi = True
 
     # -- constructors -----------------------------------------------------
     @classmethod
@@ -148,6 +151,8 @@ class Grid:
         g.mesh = mesh
         g.itot, g.jtot = self.itot // px, self.jtot // py
         g.i0, g.j0 = mesh.cx * g.itot, mesh.cy * g.jtot
+        g.edge_xlo, g.edge_xhi = mesh.cx == 0, mesh.cx == px - 1
+        g.edge_ylo, g.edge_yhi = mesh.cy == 0, mesh.cy == py - 1
         g.xh = self.xh[g.i0: g.i0 + g.itot + 1]
         g.xf = self.xf[g.i0: g.i0 + g.itot]
         g.yh = self.yh[g.j0: g.j0 + g.jtot + 1]

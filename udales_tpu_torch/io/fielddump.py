@@ -60,10 +60,14 @@ class FieldDump:
             self.writer.define(name, dims, units)
         self.tnext = cfg.output.tfielddump
 
+    def due(self, t: float) -> bool:
+        """Whether the simulated time `t` has reached the cadence."""
+        return t >= self.tnext
+
     def maybe_dump(self, state, t: float, th=None):
         """Dump when the simulated time `t` (the host copy of
         ``state.timee``) has reached the cadence."""
-        if t < self.tnext:
+        if not self.due(t):
             return False
         self.tnext += self.cfg.output.tfielddump
         self.dump(state, th, t)

@@ -11,6 +11,15 @@ written or read, and a missing h5py raises there.
 restart files (record layout at modsave.f90:80-100: sequential unformatted
 with 4-byte little-endian markers, real(8) data, per-rank subdomains with
 1-cell halos); they need only numpy.
+
+Open boundaries: a native checkpoint also holds the outlet planes
+(``Fields.bx``/``by``) and the inlet generator's state (``State.ig``); the
+Fortran files hold the outlet planes where the reference has them, in the
+halo cell past the domain's last x (y) cell of the last x (y) rank
+(``outlet=`` of `write_fortran_restart`, `read_fortran_outlet_planes`).
+The rolling driver window is not state: ``DriverStream.ensure`` reloads it.
+A State written from a split run is the gathered one; `load_checkpoint`
+and `warmstart_state` cut a split Model's blocks from the whole State.
 """
 from __future__ import annotations
 
@@ -21,11 +30,15 @@ import numpy as np
 import torch
 
 from ..ibm.eb import FacetState
+from ..ops.inletgen import INLETGEN_NAMES, InletGen
+from ..ops.openbc import XPlanes, YPlanes
+from ..parallel.mesh import shard_state
 from ..state import Fields, State, zero_facstats
 
 _FIELD_LEAVES = ("u", "v", "w", "thl", "qt", "e12", "sv")
 _FAC_LEAVES = ("T", "Tdash", "hfi", "efi", "wsoil", "hurel", "qsat", "f",
                "tnextEB", "tEB_last")
+_PLANE_LEAVES = ("u", "v", "w", "thl", "qt", "e12", "sv")
 
 
 def _h5py():
@@ -57,7 +70,18 @@ def save_checkpoint(path: str | Path, state, ntrun: int = 0):
             g = f.create_group(grp)
             for name in _FIELD_LEAVES:
                 g.create_dataset(name, data=_host(getattr(flds, name)))
+            for side in ("bx", "by"):
+                planes = getattr(flds, side)
+                if planes is not None:
+                    gs = g.create_group(side)
+                    for name in _PLANE_LEAVES:
+                        gs.create_dataset(name,
+                                          data=_host(getattr(planes, name)))
         f.create_dataset("pres", data=_host(state.pres))
+        if state.ig is not None:
+            g = f.create_group("ig")
+            for name in INLETGEN_NAMES:
+                g.create_dataset(name, data=_host(getattr(state.ig, name)))
         # facet-EB state (the reference restarts facet temperatures via a
         # re-written Tfacinit_layers.inp, initfac.f90:301-310; here the
         # whole FacetState rides in the checkpoint)
@@ -67,19 +91,31 @@ def save_checkpoint(path: str | Path, state, ntrun: int = 0):
                 g.create_dataset(name, data=_host(getattr(state.fac, name)))
 
 
+def _device(device, model):
+    """`device`, else the model's, else the card."""
+    if device is not None:
+        return device
+    return model.device if model is not None else "cuda"
+
+
 def load_checkpoint(path: str | Path, grid, dtype=None, model=None,
                     device=None):
     """Rebuild a State from a native checkpoint, on `device` (default: the
-    model's, else the CPU).  Pass `model` to restore the facet-EB state and
-    to start fresh lwritefac accumulators, as the reference does."""
+    model's, else the card).  Pass `model` to restore the facet-EB state and
+    to start fresh lwritefac accumulators, as the reference does; the State
+    of a split `model` is its blocks of the checkpoint's whole State."""
     h5py = _h5py()
-    if device is None:
-        device = model.device if model is not None else "cpu"
+    device = _device(device, model)
     t = lambda a: torch.as_tensor(np.asarray(a), device=device)
     with h5py.File(path, "r") as f:
         def fields(grp):
             g = f[grp]
-            return Fields(**{name: t(g[name][()]) for name in _FIELD_LEAVES})
+            planes = {side: cls(**{k: t(g[side][k][()])
+                                   for k in _PLANE_LEAVES})
+                      for side, cls in (("bx", XPlanes), ("by", YPlanes))
+                      if side in g}
+            return Fields(**{name: t(g[name][()]) for name in _FIELD_LEAVES},
+                          **planes)
         fac = None
         if "fac" in f and model is not None and model.eb is not None:
             g = f["fac"]
@@ -91,10 +127,15 @@ def load_checkpoint(path: str | Path, grid, dtype=None, model=None,
                                                 dtype=grid.torch_dtype,
                                                 device=device),
                    fac=fac)
+        if "ig" in f:
+            st = st.replace(ig=InletGen(**{k: t(f["ig"][k][()])
+                                           for k in INLETGEN_NAMES}))
     if (model is not None and model.cfg.walls.lwritefac
             and model.ibm is not None):
         st = st.replace(facstats=zero_facstats(model.ibm.nfcts,
                                                grid.torch_dtype, device))
+    if model is not None and model.mesh is not None:
+        st = shard_state(st, model.mesh)
     return st
 
 
@@ -111,7 +152,7 @@ def _write_record(fh, payload: bytes):
 def write_fortran_restart(case_dir: str | Path, fields: dict, timee: float,
                           dt: float, expnr: str, itot: int, jtot: int,
                           ktot: int, nprocx: int = 1, nprocy: int = 1,
-                          ntrun: int = 0, sv=None):
+                          ntrun: int = 0, sv=None, outlet=None):
     """Write per-rank ``initd<ntrun>_<px>_<py>.<exp>`` (+ ``inits*`` when
     scalars are present) in the reference's sequential-unformatted layout
     (modsave.f90:83-131): records mindist, wall(5), then
@@ -119,24 +160,44 @@ def write_fortran_restart(case_dir: str | Path, fields: dict, timee: float,
     subdomains with 1-cell periodic halos, then (timee, dt).
 
     `fields` maps those ten names to global (itot, jtot, ktot[+1]) arrays;
-    missing entries are written as zeros.  mindist/wall (wall-distance
-    search caches, modfields.f90) are written as zeros — the solver
-    recomputes wall geometry from the IBM inputs on startup and its ingest
-    skips these records (read_fortran_restart below)."""
+    missing entries are written as zeros.  `outlet` ({"x": planes, "y":
+    planes}, each mapping u, v, w, thl, qt, e12 and sv to whole (jtot, ...)
+    or (itot, ...) arrays) puts the outlet planes of an open boundary into
+    the halo cell past the domain's last cell, where the reference keeps
+    them (the last x rank's ie+1, the last y rank's je+1).  mindist/wall
+    (wall-distance search caches, modfields.f90) are written as zeros —
+    the solver recomputes wall geometry from the IBM inputs on startup and
+    its ingest skips these records (read_fortran_restart below)."""
     case_dir = Path(case_dir)
     imax, jmax = itot // nprocx, jtot // nprocy
     ih = jh = kh = 1
     names = ["u", "v", "w", "pres", "thl", "e12", "ekm", "qt", "ql", "qlh"]
 
-    def halo_block(glob, px, py):
-        """(imax+2, jmax+2, ktot+1) little-endian f8, Fortran order."""
-        g = np.zeros((itot, jtot, ktot + kh))
-        g[:, :, :min(glob.shape[2], ktot + kh)] = \
-            np.asarray(glob, np.float64)[:, :, :ktot + kh]
-        gi = np.take(g, np.arange(px * imax - ih, (px + 1) * imax + ih),
-                     axis=0, mode="wrap")
-        return np.take(gi, np.arange(py * jmax - jh, (py + 1) * jmax + jh),
-                       axis=1, mode="wrap")
+    outlet = outlet or {}
+    ii = lambda px: np.arange(px * imax - ih, (px + 1) * imax + ih)
+    jj = lambda py: np.arange(py * jmax - jh, (py + 1) * jmax + jh)
+
+    def kpad(a):
+        out = np.zeros(a.shape[:-1] + (ktot + kh,))
+        out[..., :min(a.shape[-1], ktot + kh)] = \
+            np.asarray(a, np.float64)[..., :ktot + kh]
+        return out
+
+    def halo_block(glob, px, py, name=None, n=None):
+        """(imax+2, jmax+2, ktot+1) little-endian f8, Fortran order; the
+        outlet plane `name` (scalar `n`) in the ghost past the domain."""
+        g = kpad(glob)
+        b = np.take(np.take(g, ii(px), axis=0, mode="wrap"), jj(py),
+                    axis=1, mode="wrap")
+        for side, last, cut, ax in (("x", px == nprocx - 1, jj(py), 0),
+                                    ("y", py == nprocy - 1, ii(px), 1)):
+            plane = outlet.get(side, {}).get(name)
+            if last and plane is not None:
+                plane = kpad(plane if n is None else plane[n])
+                idx = [slice(None)] * 3
+                idx[ax] = -1
+                b[tuple(idx)] = np.take(plane, cut, axis=0, mode="wrap")
+        return b
 
     zero_int = np.zeros((imax, jmax, ktot))
     for px in range(nprocx):
@@ -150,13 +211,13 @@ def write_fortran_restart(case_dir: str | Path, fields: dict, timee: float,
                     glob = fields.get(n)
                     if glob is None:
                         glob = np.zeros((itot, jtot, ktot))
-                    _write_record(fh, halo_block(glob, px, py)
+                    _write_record(fh, halo_block(glob, px, py, n)
                                   .tobytes(order="F"))
                 _write_record(fh, struct.pack("<2d", timee, dt))
             if sv is not None and len(sv):
                 sname = f"inits{ntrun:08d}_{px:03d}_{py:03d}.{expnr}"
-                blocks = np.stack([halo_block(s, px, py) for s in sv],
-                                  axis=-1)
+                blocks = np.stack([halo_block(s, px, py, "sv", i)
+                                   for i, s in enumerate(sv)], axis=-1)
                 with open(case_dir / sname, "wb") as fh:
                     _write_record(fh, blocks.tobytes(order="F"))
                     _write_record(fh, struct.pack("<d", timee))
@@ -225,11 +286,76 @@ def read_fortran_restart(case_dir: str | Path, startfile: str, expnr: str,
     return out, out_sv, timee, dt
 
 
+def _rank_files(startfile, nprocx, nprocy):
+    """(px, py, file name) of every rank of a ``..._xxx_xxx.<exp>``
+    start file."""
+    for px in range(nprocx):
+        for py in range(nprocy):
+            fname = startfile.replace("xxx", f"{px:03d}", 1)
+            yield px, py, fname.replace("xxx", f"{py:03d}", 1)
+
+
+def read_fortran_outlet_planes(case_dir, startfile: str, itot: int,
+                               jtot: int, ktot: int, nprocx: int,
+                               nprocy: int, nsv: int = 0):
+    """The outlet planes held in the restart files' halo past the domain's
+    last cells (`write_fortran_restart` ``outlet=``): {"x": {u, v, w, thl,
+    qt, e12: (jtot, ktot+1), sv: (nsv, jtot, ktot+1)}, "y": the same over
+    itot}."""
+    case_dir = Path(case_dir)
+    imax, jmax = itot // nprocx, jtot // nprocy
+    shape = (imax + 2, jmax + 2, ktot + 1)
+    names = ["u", "v", "w", "pres", "thl", "e12", "ekm", "qt", "ql", "qlh"]
+    out = {"x": {n: np.zeros((jtot, ktot + 1)) for n in _PLANE_LEAVES[:-1]},
+           "y": {n: np.zeros((itot, ktot + 1)) for n in _PLANE_LEAVES[:-1]}}
+    out["x"]["sv"] = np.zeros((nsv, jtot, ktot + 1))
+    out["y"]["sv"] = np.zeros((nsv, itot, ktot + 1))
+    for px, py, fname in _rank_files(startfile, nprocx, nprocy):
+        if px != nprocx - 1 and py != nprocy - 1:
+            continue
+        recs = dict(zip(names, list(_read_records(case_dir / fname))[2:12]))
+        arrays = {n: np.frombuffer(recs[n], "<f8").reshape(shape, order="F")
+                  for n in _PLANE_LEAVES[:-1]}
+        spath = case_dir / fname.replace("initd", "inits")
+        if nsv and spath.exists():
+            a = np.frombuffer(list(_read_records(spath))[0], "<f8").reshape(
+                shape + (nsv,), order="F")
+            arrays["sv"] = np.moveaxis(a, -1, 0)
+        rows = {"x": slice(py * jmax, (py + 1) * jmax),
+                "y": slice(px * imax, (px + 1) * imax)}
+        for n, a in arrays.items():
+            if px == nprocx - 1:
+                out["x"][n][..., rows["x"], :] = a[..., -1, 1:-1, :]
+            if py == nprocy - 1:
+                out["y"][n][..., rows["y"], :] = a[..., 1:-1, -1, :]
+    return out
+
+
+def write_state_fortran(case_dir, state, expnr: str, cfg, ntrun: int = 0):
+    """`write_fortran_restart` of a whole-domain State (a split run's
+    gathered one): its c fields, pressure, scalars and outlet planes."""
+    host = lambda a: a.detach().cpu().numpy()
+    c, d = state.c, cfg.domain
+    outlet = {side: {k: host(getattr(planes, k)) for k in _PLANE_LEAVES}
+              for side, planes in (("x", c.bx), ("y", c.by))
+              if planes is not None}
+    write_fortran_restart(
+        case_dir, {k: host(getattr(c, k)) for k in ("u", "v", "w", "thl",
+                                                     "e12", "qt")}
+        | {"pres": host(state.pres)}, float(state.timee), float(state.dt),
+        expnr, d.itot, d.jtot, d.ktot, cfg.run.nprocx, cfg.run.nprocy,
+        ntrun=ntrun,
+        sv=host(c.sv) if c.sv.shape[0] else None, outlet=outlet)
+
+
 def warmstart_state(case_dir, startfile, expnr, cfg, grid, dtype=None,
-                    device="cpu"):
-    """Build a State on `device` from reference restart files (lwarmstart
-    path, modstartup.f90:2156)."""
+                    device=None, model=None):
+    """Build a State on `device` (default: the model's, else the card) from
+    reference restart files (lwarmstart path, modstartup.f90:2156).  With
+    `model`: the outlet planes of its open boundaries from the files'
+    halos, and a split Model's blocks of the whole State."""
     d = cfg.domain
+    device = _device(device, model)
     out, out_sv, timee, dt = read_fortran_restart(
         case_dir, startfile, expnr, d.itot, d.jtot, d.ktot,
         cfg.run.nprocx, cfg.run.nprocy, cfg.scalars.nsv)
@@ -242,5 +368,22 @@ def warmstart_state(case_dir, startfile, expnr, cfg, grid, dtype=None,
                thl=to(out["thl"]), qt=to(out["qt"]), e12=to(out["e12"]),
                sv=(to(out_sv) if out_sv is not None
                    else torch.zeros((0, d.itot, d.jtot, nz), **kw)))
-    return State(m=f, c=f, pres=to(out["pres"]),
-                 dt=torch.tensor(dt, **kw), timee=torch.tensor(timee, **kw))
+    if model is not None and (model.inlet is not None
+                              or model.inlet_y is not None):
+        pl = read_fortran_outlet_planes(case_dir, startfile, d.itot, d.jtot,
+                                        nz, cfg.run.nprocx, cfg.run.nprocy,
+                                        cfg.scalars.nsv)
+        planes = lambda side, cls: cls(**{
+            k: torch.as_tensor(np.ascontiguousarray(
+                a if k == "w" else a[..., :nz]), **kw)
+            for k, a in pl[side].items()})
+        f = Fields(**{k: getattr(f, k) for k in _FIELD_LEAVES},
+                   bx=planes("x", XPlanes) if model.inlet is not None
+                   else None,
+                   by=planes("y", YPlanes) if model.inlet_y is not None
+                   else None)
+    st = State(m=f, c=f, pres=to(out["pres"]),
+               dt=torch.tensor(dt, **kw), timee=torch.tensor(timee, **kw))
+    if model is not None and model.mesh is not None:
+        st = shard_state(st, model.mesh)
+    return st

@@ -251,11 +251,15 @@ class _Sampled:
         self.tnext_sample = cfg.output.tsample
         self.tnext_write = cfg.output.tstatsdump
 
+    def due(self, t: float) -> bool:
+        """Whether the simulated time `t` has reached the sample cadence."""
+        return t >= self.tnext_sample
+
     def maybe_sample(self, state, t: float, masks=None):
         """Sample when the simulated time `t` (the host copy of
         ``state.timee``) has reached the cadence, and write the means when
         it has reached the write cadence."""
-        if t < self.tnext_sample:
+        if not self.due(t):
             return
         self.tnext_sample += self.cfg.output.tsample
         self.acc = self._acc(self.acc, state, masks)
@@ -643,8 +647,12 @@ class SliceDump:
             self.writers["j"] = w
         self.tnext = cfg.output.tsample
 
+    def due(self, t: float) -> bool:
+        """Whether a slice is written at the simulated time `t`."""
+        return t >= self.tnext and bool(self.writers)
+
     def maybe_dump(self, state, t: float):
-        if t < self.tnext or not self.writers:
+        if not self.due(t):
             return
         self.tnext += self.cfg.output.tsample
         c = state.c
@@ -846,8 +854,12 @@ class XYDump:
             "uwxyik": uw, "wthlxy": wthl, "vwxy": vw,
         }
 
+    def due(self, t: float) -> bool:
+        """Whether the simulated time `t` has reached the cadence."""
+        return t >= self.tnext
+
     def maybe_dump(self, state, t: float, masks=None):
-        if t < self.tnext:
+        if not self.due(t):
             return
         self.tnext += self.cfg.output.tsample
         nz = self.grid.ktot
@@ -909,8 +921,12 @@ class YDump:
                                   else torch.zeros_like(out["uy"]))
         return out
 
+    def due(self, t: float) -> bool:
+        """Whether the simulated time `t` has reached the cadence."""
+        return t >= self.tnext
+
     def maybe_dump(self, state, t: float, masks=None):
-        if t < self.tnext:
+        if not self.due(t):
             return
         self.tnext += self.cfg.output.tsample
         out = self.fields(state, masks)

@@ -9,8 +9,10 @@ convective outlet (modboundary.f90:688-996 in x, :1017-1190 in y).  For an
 open direction the ghost planes come from a context dict built per substep
 (see ops/openbc.py): ``openx = {"inlet": {...interior-k planes...}, "bx":
 XPlanes}``, ``openy = {"inlet": {...}, "by": YPlanes}``.  Under an x/y
-process split (``parallel.mesh``; periodic x and y only) the periodic wrap
-is the mesh's halo exchange, of width 2 for the kappa ghosts.
+process split (``parallel.mesh``) the halos of the block come from the
+neighbouring ranks (width 2 for the kappa ghosts), and a block edge that is
+the domain's open edge takes the plane instead (``split_pad``), in the
+corner order of the single-device assembly.
 """
 from __future__ import annotations
 
@@ -58,16 +60,59 @@ def _assemble_xy(gk, h, xlo, xhi, ylo, yhi):
     return torch.cat([*([ylo_e] * h), gx, *([yhi_e] * h)], dim=-2)
 
 
+def _attach(g, dim, h, lo, hi, at_lo, at_hi, mesh, axis):
+    """The halo of width h along `dim` from the ranks of the mesh's `axis`;
+    where the block edge is the domain's open edge (`at_lo`, `at_hi`; `lo`
+    not None), h copies of the plane `lo` (`hi`) in its place."""
+    if lo is not None and at_lo and at_hi:
+        # one rank along the axis: both ghosts are planes, no exchange
+        return torch.cat([*([lo.unsqueeze(dim)] * h), g,
+                          *([hi.unsqueeze(dim)] * h)], dim=dim)
+    g = mesh.wrap(g, dim, h, axis)
+    if lo is None or not (at_lo or at_hi):
+        return g
+    n = g.shape[dim]
+    return torch.cat([
+        torch.cat([lo.unsqueeze(dim)] * h, dim=dim) if at_lo
+        else g.narrow(dim, 0, h),
+        g.narrow(dim, h, n - 2 * h),
+        torch.cat([hi.unsqueeze(dim)] * h, dim=dim) if at_hi
+        else g.narrow(dim, n - h, h)], dim=dim)
+
+
+def split_pad(gk, h, mesh, xlo=None, xhi=None, ylo=None, yhi=None):
+    """Ghosts of width h of this rank's block `gk` (x and y axes -3 and -2)
+    on `mesh`: halos from the neighbouring ranks, the open planes on the
+    domain's open edges.  The corners are those of the single-device
+    assembly: x first, and the y halo carries the x ghosts (periodic, or
+    ``_assemble``; with y open too, the y planes edge-extended over the x
+    ghosts, ``_assemble_xy``, which takes an x halo of the y planes on the
+    ranks at a y edge); with only y open the y ghosts go first and the x
+    halo carries their periodic neighbours (``_assemble_y``)."""
+    ex0, ex1 = mesh.cx == 0, mesh.cx == mesh.px - 1
+    ey0, ey1 = mesh.cy == 0, mesh.cy == mesh.py - 1
+    if xlo is None and ylo is not None:
+        g = _attach(gk, -2, h, ylo, yhi, ey0, ey1, mesh, "y")
+        return _attach(g, -3, h, None, None, ex0, ex1, mesh, "x")
+    g = _attach(gk, -3, h, xlo, xhi, ex0, ex1, mesh, "x")
+    if ylo is not None and (ey0 or ey1):
+        # the x halo of the y planes this row needs (every rank of an x row
+        # shares cy, so the whole row exchanges or none of it does)
+        st = torch.stack([p for p, e in ((ylo, ey0), (yhi, ey1)) if e])
+        ext = _attach(st, -2, h, st.select(-2, 0), st.select(-2, -1), ex0,
+                      ex1, mesh, "x").unbind(0)
+        ylo = ext[0] if ey0 else ylo
+        yhi = ext[-1] if ey1 else yhi
+    return _attach(g, -2, h, ylo, yhi, ey0, ey1, mesh, "y")
+
+
 def _dispatch(gk, h, cfg, xlo=None, xhi=None, ylo=None, yhi=None,
               mesh=None):
     """Assemble ghosts from whichever open-boundary planes exist; periodic
-    wrap in any direction without planes, exchanged over the ranks of
-    `mesh` when one is given."""
+    wrap in any direction without planes; on a block of `mesh`, the halos
+    from its neighbours (``split_pad``)."""
     if mesh is not None:
-        if xlo is not None or ylo is not None:
-            raise NotImplementedError("open-boundary ghosts under an x/y "
-                                      "split are not ported yet")
-        return mesh.wrap_xy(gk, h)
+        return split_pad(gk, h, mesh, xlo, xhi, ylo, yhi)
     if xlo is not None and ylo is not None:
         return _assemble_xy(gk, h, xlo, xhi, ylo, yhi)
     if xlo is not None:

@@ -17,6 +17,13 @@ modinletdata.f90) become state tensors; the z-coordinate bookkeeping
 ``searchsorted`` interpolation.  No value is read back to the host: the
 level lookup of `blthicknesst` gathers with 1-element index tensors.
 
+On a rank's block of an x/y split (``Grid.block``) the generated planes
+``u0``..``t0`` are the block's y rows and ``Utav`` its x rows; the planes at
+the recycle indices come from the ranks that hold them (``openbc.x_planes``),
+every y mean is the domain's (one sum over the y column), and the
+displacement thickness is the domain's (one sum over the x row), so that
+every rank steps the same profiles.  `InletGenParams` stays whole.
+
 The legacy `iinletgen=2` store/replay path (modinlet.f90:860-944 plus
 writeinletfile/readinletfile) replays an ``inletdata.<exp>.npz`` of
 recorded planes through the time-interpolating ``openbc.Inlet``
@@ -31,7 +38,7 @@ import torch
 
 from ..config import Config, const
 from ..grid import Grid
-from .openbc import sv_planes, tile_profile
+from .openbc import sv_planes, tile_profile, x_planes, y_means
 
 
 @dataclass(frozen=True)
@@ -62,6 +69,7 @@ class InletGenParams:
     plane indices (initinlet, modinlet.f90:38-200)."""
 
     def __init__(self, cfg: Config, grid: Grid):
+        """`grid` is the whole domain's (``Model.domain_grid``)."""
         zf = np.asarray(grid.zf, np.float64)
         zh = np.asarray(grid.zh, np.float64)
         xf = np.asarray(grid.xf, np.float64)
@@ -92,6 +100,7 @@ class InletGenParams:
         self.heavif = heaviside(zf, self.di)
         self.heavih = heaviside(zh, self.di)
         self.heavit = heaviside(zf, self.dti)
+        self.xf = xf
         self.xfm = float(xf.mean())
         self.xf2m = float((xf ** 2).mean())
         self._cache: dict = {}
@@ -236,19 +245,20 @@ def inletgen_update(ig: InletGen, c, cfg: Config, grid: Grid,
     ir, irm = p.irecy, p.irecym
 
     # running means at the recycle plane (modinlet.f90:283-313)
-    urav = c.u[ir].mean(dim=0)
-    wrav = c.w[irm].mean(dim=0)
-    trav = c.thl[irm].mean(dim=0)
+    upl, vpl, wpl, tpl = x_planes(grid, [(c.u, ir), (c.v, irm), (c.w, irm),
+                                         (c.thl, irm)])
+    urav, wrav, trav, utav = y_means(grid, [upl, wpl, tpl,
+                                            c.u.transpose(0, 1)])
     Urec = urav * avi + (1.0 - avi) * ig.Urec
     Wrec = wrav * avi + (1.0 - avi) * ig.Wrec
     Trec = trav * avi + (1.0 - avi) * ig.Trec
-    Utav = c.u.mean(dim=1) * avi + (1.0 - avi) * ig.Utav
+    Utav = utav * avi + (1.0 - avi) * ig.Utav
 
     # fluctuations at the recycle plane (modinlet.f90:346-361)
-    uprec = c.u[ir] - Urec[None, :]
-    vprec = c.v[irm]
-    wprec = c.w[irm] - Wrec[None, :]
-    tprec = c.thl[irm] - Trec[None, :]
+    uprec = upl - Urec[None, :]
+    vprec = vpl
+    wprec = wpl - Wrec[None, :]
+    tprec = tpl - Trec[None, :]
 
     # recycle-plane friction scales (modinlet.f90:364-377)
     if p.lwallfunc:
@@ -340,7 +350,7 @@ def inletgen_update(ig: InletGen, c, cfg: Config, grid: Grid,
     w0[:, -1] = 0.0
 
     # mass-flux rescale (modinlet.f90:740-766, luvolflowr)
-    urav_new = u0.mean(dim=0)
+    urav_new, tav = y_means(grid, [u0, t0])
     zsize = zh[-1] - zh[0]
     totalu = torch.sum(urav_new * dzf) / zsize
     if p.luvolflowr:
@@ -352,14 +362,22 @@ def inletgen_update(ig: InletGen, c, cfg: Config, grid: Grid,
     # running j+time-averaged inlet profiles (modinlet.f90:790-800)
     Uinl = ig.Uinl if p.lfixinlet else \
         urav_new * avi + (1.0 - avi) * ig.Uinl
-    Tinl = t0.mean(dim=0) * avi + (1.0 - avi) * ig.Tinl
+    Tinl = tav * avi + (1.0 - avi) * ig.Tinl
 
     # displacement thickness + its x-slope (dispthicknessexp,
     # modinlet.f90:1569-1601): drives the top-BC transpiration
     dth = (1.0 - Utav / Utav[:, -1:]) * dzf[None, :]
     displ = torch.sum(dth, dim=1)
+    mesh = grid.mesh
+    if mesh is not None:
+        # the domain's displ: this block's x rows, zeros elsewhere, summed
+        # over the x row
+        nx = p.xf.shape[0]
+        displ = mesh.axis_sum([torch.cat([
+            displ.new_zeros(grid.i0), displ,
+            displ.new_zeros(nx - grid.i0 - grid.itot)])], "x")[0]
     dispm = displ.mean()
-    xfdispm = (metric("xf") * displ).mean()
+    xfdispm = (p.t("xf", fdt, dev)[0] * displ).mean()
     ddispdx = (xfdispm - p.xfm * dispm) / (p.xf2m - p.xfm ** 2)
 
     if not p.ltempeq:

@@ -17,6 +17,11 @@ ghosts).
 The time lookup of both driver modes picks its two records with
 ``index_select`` on a 1-element index tensor: indexing with a 0-d device
 tensor would read the index back to the host and stall the step.
+
+On a rank's block of an x/y split (``Grid.block``) the inlet planes and
+driver series are the block's y rows (``ycut_series``), and a plane at a
+global x index comes from the rank that holds it (``x_planes``), chosen by
+Python integers fixed at load, never by a device value.
 """
 from __future__ import annotations
 
@@ -160,21 +165,51 @@ def driver_window_planes(drv: DriverWindow, timee):
                 e12=None)
 
 
-def recycle_planes(inlet: Inlet, c, ny: int, nz: int):
+def x_planes(grid: Grid, pairs):
+    """The y-z planes ``f[i]`` of (field, global x index i) `pairs`.  On a
+    block of a split (``grid.mesh``), each from the rank of this rank's x
+    row that holds it, in one all-reduce (this rank's y rows).  `grid` may
+    be None: a whole domain."""
+    mesh = None if grid is None else grid.mesh
+    if mesh is None:
+        return [f[i] for f, i in pairs]
+    parts = []
+    for f, i in pairs:
+        owner, il = divmod(i, grid.itot)
+        parts.append(f[il] if owner == mesh.cx else
+                     torch.zeros(f.shape[1:], dtype=f.dtype, device=f.device))
+    return mesh.axis_sum(parts, "x")
+
+
+def y_means(grid: Grid, planes):
+    """The means along their first (y) axis of (ny, ...) `planes`; on a
+    block of a split, of the domain's y rows (one sum over the y column).
+    `grid` may be None: a whole domain."""
+    mesh = None if grid is None else grid.mesh
+    if mesh is None:
+        return [p.mean(dim=0) for p in planes]
+    sums = mesh.axis_sum([p.sum(dim=0) for p in planes], "y")
+    return [s / grid.global_shape[1] for s in sums]
+
+
+def recycle_planes(inlet: Inlet, c, ny: int, nz: int, grid: Grid = None):
     """Rescale-recycle inlet (compact Lund-1998, modinlet.f90 inletgen:202):
     the inlet plane is the target mean profile plus the de-meaned
     fluctuations sampled at the recycle plane.  The inner/outer
     boundary-layer-thickness blending of the reference is condensed to a
     uniform rescale, which keeps its two essential properties (target mean,
-    recycled turbulence); ``ops.inletgen`` is the full generator."""
-    ir = inlet.irecy % c.u.shape[0]
-    fl = lambda plane: plane - plane.mean(dim=0, keepdim=True)
+    recycled turbulence); ``ops.inletgen`` is the full generator.  On a
+    block of a split (`grid`), the recycle plane comes from the rank that
+    holds it and its means are the domain's."""
+    ir = inlet.irecy % (c.u.shape[0] if grid is None else grid.global_shape[0])
+    pl = x_planes(grid, [(f, ir) for f in (c.u, c.v, c.w, c.thl, c.qt)])
+    pl = [p - m[None] for p, m in zip(pl, y_means(grid, pl))]
     return dict(
-        u=tile_profile(inlet.uprof, ny) + fl(c.u[ir]),
-        v=tile_profile(inlet.vprof, ny) + fl(c.v[ir]),
-        w=fl(c.w[ir]),
-        thl=tile_profile(inlet.thlprof, ny) + fl(c.thl[ir]),
-        qt=tile_profile(inlet.qtprof, ny) + fl(c.qt[ir]),
+        u=tile_profile(inlet.uprof, ny) + pl[0],
+        v=tile_profile(inlet.vprof, ny) + pl[1],
+        w=pl[2],
+        thl=tile_profile(inlet.thlprof, ny) + pl[3],
+        qt=tile_profile(inlet.qtprof, ny) + pl[4],
         e12=tile_profile(inlet.e12prof, ny),
         sv=sv_planes(inlet.svprof, ny, nz, c.u))
 
@@ -240,15 +275,33 @@ def pad_x_open(f, lo_plane, hi_plane, h: int = 1):
                      dim=0)
 
 
-def load_driver_inlet(path, dtype, device="cuda") -> Inlet:
+def ycut_series(d: dict, rows):
+    """The y rows `rows` (a slice; None: all) of a dict of recorded series:
+    u, v, w, thl, qt (nt, ny, nz[+1]) and sv (nt, nsv, ny, nz); ``t`` and
+    anything else unchanged."""
+    if rows is None:
+        return d
+    out = dict(d)
+    for k in ("u", "v", "w", "thl", "qt"):
+        if out.get(k) is not None:
+            out[k] = out[k][:, rows]
+    if out.get("sv") is not None:
+        out["sv"] = out["sv"][:, :, rows]
+    return out
+
+
+def load_driver_inlet(path, dtype, device="cuda", rows=None) -> Inlet:
     """Load a recorded precursor-plane series (the h5 format written by
     ``sim.DriverRecorder``; the reference's per-y-rank unformatted ?driver
     files are the Fortran equivalent, moddriver.f90:515/750).  `dtype` is a
-    torch dtype.  Needs h5py."""
+    torch dtype; `rows` the y rows of a split Model's block (None: all).
+    Needs h5py."""
     import h5py
     with h5py.File(path, "r") as f:
-        get = lambda k: (torch.as_tensor(np.asarray(f[k][()]), dtype=dtype,
-                                         device=device) if k in f else None)
+        d = ycut_series({k: np.asarray(f[k][()]) for k in f.keys()}, rows)
+        get = lambda k: (torch.as_tensor(np.ascontiguousarray(d[k]),
+                                         dtype=dtype, device=device)
+                         if k in d else None)
         return Inlet(mode=BC_DRIVER, t=get("t"), u=get("u"), v=get("v"),
                      w=get("w"), thl=get("thl"), qt=get("qt"), sv=get("sv"))
 

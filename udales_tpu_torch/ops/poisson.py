@@ -26,13 +26,15 @@ Boussinesq (rhobf = rhobh = 1).
 Under an x/y process split (`mesh`, ``parallel.mesh``) the right-hand side
 arrives as this rank's z-pencil (x/px, y/py, z) and the 2DECOMP transposes
 are written out (modpois.f90:459-548), with the single device's transforms
-in its order: the z transform on z-pencils, the rfft in x on x-pencils (x,
-y/px, z/py), the FFT in y on y-pencils (x/px, y, z/py), where the ``diag_z``
-divide happens, or on to z-pencils for the Thomas solve; the inverse
-retraces the pencils.  The rfft's nx/2 + 1 modes are padded with zeros to a
-multiple of px for the transposes that split them, and the pad is dropped
-before the inverse rfft.  The open-boundary (DCT), ``bczp2`` and ``fft3d``
-routes are not split yet and raise.
+in its order: the z transform (cosine or nothing) on z-pencils; with x
+periodic and y open the DCT in y on the first y-pencil (x/px, y, z/py);
+the x transform (rfft, or the DCT of an open x) on x-pencils (x, y/px,
+z/py); the y transform (FFT, or the DCT of a y open together with x) on
+y-pencils, where the ``diag_z`` and ``bczp2`` divides happen; the
+``fft3d`` FFT in z and its divide, or the Thomas solve, on z-pencils; the
+inverse retraces the pencils.  The rfft's nx/2 + 1 modes are padded with
+zeros to a multiple of px for the transposes that split them, and the pad
+is dropped before the inverse rfft; the nx modes of a DCT need no pad.
 """
 from __future__ import annotations
 
@@ -54,7 +56,7 @@ class PoissonSolver:
     """Precomputed spectral solver (reference initpois, modpois.f90:66-226).
     Solver constants live on `device` in the grid dtype."""
 
-    def __init__(self, grid: Grid, cfg: Config, device="cpu", mesh=None):
+    def __init__(self, grid: Grid, cfg: Config, device="cuda", mesh=None):
         # The DCTs are float32 matmuls on the card: keep them in full
         # float32 (TF32 keeps ~3 decimal digits, which shows up directly as
         # post-projection divergence).  Both switches are process-wide.
@@ -108,17 +110,6 @@ class PoissonSolver:
         if self.bczp2 and not uniform_z:
             raise ValueError("BCzp=2 assumes an equidistant z grid "
                              "(modpois.f90:184)")
-        if mesh is not None:
-            split_refused = {
-                "open x or y (the DCT routes)": not (self.per_x
-                                                     and self.per_y),
-                "POISS_FFT3D": self.fft3d, "BCzp=2": self.bczp2}
-            refused = [k for k, v in split_refused.items() if v]
-            if refused:
-                raise NotImplementedError(
-                    "the x/y split of the Poisson solve is not ported yet "
-                    "for " + ", ".join(refused))
-
         if self.fft3d or self.bczp2 or self.diag_z:
             # fully diagonal: modal divide by xrt + yrt + zrt, zero modes -> 0
             dzi = 1.0 / dzf[0]
@@ -130,7 +121,9 @@ class PoissonSolver:
             inv = np.where(ok, 1.0 / np.where(ok, lam3, 1.0), 0.0)
             if not self.bczp2:
                 inv[0, 0, 0] = 0.0   # pin the global mean mode
-            self.inv_lam3 = const(self._modes(inv, "y"))
+            # the divide's pencil under a split: z for the FFT in z
+            self.inv_lam3 = const(self._modes(inv, "z" if self.fft3d
+                                              else "y"))
             if not self.fft3d:
                 # x @ M.T applies M along the last (z) axis
                 C = _dctII_matrix(nz)
@@ -243,18 +236,41 @@ class PoissonSolver:
         return torch.matmul(X, self.iCzT) if zcos else X
 
     def _solve_split(self, rhs):
-        """`solve` of this rank's z-pencil under the x/y split (periodic x
-        and y; ``diag_z`` or the Thomas route)."""
+        """`solve` of this rank's z-pencil under the x/y split."""
         m = self.mesh
         nx = self.grid.global_shape[0]
-        F = torch.matmul(rhs, self.CzT) if self.diag_z else rhs
-        F = torch.fft.rfft(m.to_xpencil(m.to_ypencil(F)), dim=0)
-        F = torch.fft.fft(m.from_xpencil(self._pad_modes(F)), dim=1)
-        if self.diag_z:
+        zcos = self.diag_z or self.bczp2
+        y_first = self.per_x and not self.per_y   # Cy before the rfft in x
+        F = torch.matmul(rhs, self.CzT) if zcos else rhs
+        F = m.to_ypencil(F)
+        if y_first:
+            F = torch.einsum("kj,ijz->ikz", self.Cy, F)
+        F = m.to_xpencil(F)
+        F = (self._pad_modes(torch.fft.rfft(F, dim=0)) if self.per_x
+             else torch.einsum("ki,ijz->kjz", self.Cx, F))
+        F = m.from_xpencil(F)
+        if self.per_y:
+            F = torch.fft.fft(F, dim=1)
+        elif not y_first:
+            F = torch.einsum("kj,ijz->ikz", self.Cy, F)
+        if zcos:
             X = F * self.inv_lam3
+        elif self.fft3d:
+            X = m.to_ypencil(torch.fft.ifft(torch.fft.fft(
+                m.from_ypencil(F), dim=2) * self.inv_lam3, dim=2))
         else:
             X = m.to_ypencil(self._tridiag(m.from_ypencil(F)))
-        X = m.to_xpencil(torch.fft.ifft(X, dim=1))[: nx // 2 + 1]
-        X = torch.fft.irfft(X, n=nx, dim=0)
-        X = m.from_ypencil(m.from_xpencil(X))
-        return torch.matmul(X, self.iCzT) if self.diag_z else X
+        if self.per_y:
+            X = torch.fft.ifft(X, dim=1)
+            if not self.per_x:
+                X = X.real
+        elif not y_first:
+            X = torch.einsum("jk,ikz->ijz", self.iCy, X)
+        X = m.to_xpencil(X)
+        X = (torch.fft.irfft(X[: nx // 2 + 1], n=nx, dim=0) if self.per_x
+             else torch.einsum("ik,kjz->ijz", self.iCx, X))
+        X = m.from_xpencil(X)
+        if y_first:
+            X = torch.einsum("jk,ikz->ijz", self.iCy, X)
+        X = m.from_ypencil(X)
+        return torch.matmul(X, self.iCzT) if zcos else X

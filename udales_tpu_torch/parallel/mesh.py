@@ -1,5 +1,4 @@
-"""Process mesh for the x/y split of the flat path (port of
-``udales_tpu.parallel.mesh``).
+"""Process mesh for the x/y split (port of ``udales_tpu.parallel.mesh``).
 
 The reference decomposes the domain over an nprocx x nprocy MPI process grid
 (2DECOMP z-pencils, modmpi.f90).  udales_tpu places every field on a JAX
@@ -10,7 +9,14 @@ jtot/py, ktot) block of each field, and each exchange is a
 
   - ``wrap``: the periodic halo of width h along a split axis, from the two
     neighbours in the rank's x row or y column (one ``all_to_all_single``);
+  - ``halo_hi``: the high-side halo alone (the next rank's first faces of
+    the projection's divergence at an open boundary);
   - ``allreduce_sum`` / ``allreduce_max``: the slab means and the dt limit;
+  - ``axis_sum``: a sum over the rank's x row or y column only (the y
+    means of the inlet generator); ``from_owner``: the tensors of one rank
+    of the row or column on every rank of it (a plane at a global x index,
+    the outlet planes of the domain's last block), an all-reduce in which
+    every other rank adds zeros;
   - ``to_ypencil`` / ``to_xpencil`` and their inverses: the transposes of
     the Poisson solve, z-pencils (x/px, y/py, z) -> y-pencils (x/px, y,
     z/py) -> x-pencils (x, y/px, z/py), ``all_to_all_single`` in the column
@@ -25,7 +31,11 @@ divmod(r, py), the row-major order of udales_tpu's ``make_mesh``.
 ``shard_state`` / ``gather_state`` cut a whole-domain State into this rank's
 blocks and put it back together; ``_leaf_spec`` says how each State leaf is
 split, with udales_tpu's table: the fields and the passive-scalar stack
-along x and y, the facet state and its statistics whole on every rank.
+along x and y, the outlet planes along their one lateral axis (``bx``
+along y, ``by`` along x; whole along the other, every rank of the row or
+column holding the same planes), the driver window along y, the inlet
+generator's planes along y and its ``Utav`` along x, the facet state and
+its statistics whole on every rank.
 ``IBM.load(..., mesh=)`` and the block constructors of ``physics.py`` cut
 the static geometry the same way.
 """
@@ -37,11 +47,6 @@ from contextlib import contextmanager
 
 import torch
 import torch.distributed as dist
-
-# State parts of the paths whose split is not ported yet: the outlet planes,
-# the driver window and the inlet generator of the open boundaries
-_REFUSED = ("bx", "by", "drv", "ig")
-
 
 @contextmanager
 def _host_wait_allowed():
@@ -188,6 +193,17 @@ class Mesh:
         the single-device ``pad_wrap(pad_wrap(f, -3, h), -2, h)``."""
         return self.wrap(self.wrap(f, -3, h, "x"), -2, h, "y")
 
+    def halo_hi(self, f, dim: int, h: int, axis: str):
+        """The first h planes along `dim` of the next rank in the row
+        (column), periodically: the high-side half of `wrap`."""
+        n, c, group = self._axis(axis)
+        dim = dim % f.ndim
+        first = f.narrow(dim, 0, h).movedim(dim, 0)
+        left, right = (c - 1) % n, (c + 1) % n
+        send = [h if p == left else 0 for p in range(n)]
+        recv = [h if p == right else 0 for p in range(n)]
+        return self._alltoall(first, send, recv, group).movedim(0, dim)
+
     # -- reductions -------------------------------------------------------------
     def allreduce_sum(self, t):
         """Sum of `t` over every rank (t is overwritten and returned)."""
@@ -201,6 +217,27 @@ class Mesh:
         flat = self.allreduce_sum(torch.cat([p.reshape(-1) for p in parts]))
         return [t.view(p.shape) for p, t in zip(
             parts, flat.split([p.numel() for p in parts]))]
+
+    def axis_sum(self, parts, axis: str):
+        """`allreduce_parts` over the rank's x row (`axis` "x") or y column
+        ("y") only."""
+        _, _, group = self._axis(axis)
+        flat = torch.cat([p.reshape(-1) for p in parts])
+        self._run(lambda r, x: dist.all_reduce(r, group=group), flat, flat)
+        return [t.view(p.shape) for p, t in zip(
+            parts, flat.split([p.numel() for p in parts]))]
+
+    def from_owner(self, parts, owner: int, axis: str):
+        """The tensors `parts` of the rank at position `owner` of this
+        rank's x row (`axis` "x": the rank with cx == owner) or y column,
+        on every rank of it; the other ranks' `parts` give only shapes.  One
+        all-reduce in which they add zeros, so the owner's values arrive
+        exactly."""
+        _, c, _ = self._axis(axis)
+        if c != owner:
+            parts = [torch.zeros(p.shape, dtype=p.dtype, device=p.device)
+                     for p in parts]
+        return self.axis_sum(parts, axis)
 
     def allreduce_max(self, t):
         """Max of `t` over every rank (t is overwritten and returned)."""
@@ -254,6 +291,15 @@ class Mesh:
         `spec` (a `_leaf_spec`), on every rank."""
         if "x" not in spec and "y" not in spec:
             return t
+        if "x" not in spec or "y" not in spec:
+            # split along one axis, the same on every rank of the other
+            axis = "x" if "x" in spec else "y"
+            n, _, group = self._axis(axis)
+            send = t.contiguous()
+            recv = send.new_empty((n, *send.shape))
+            self._run(lambda r, x: dist.all_gather(list(r.unbind(0)), x,
+                                                   group=group), send, recv)
+            return torch.cat(list(recv.unbind(0)), dim=spec.index(axis))
         send = t.contiguous()
         world = self.px * self.py
         recv = send.new_empty((world, *send.shape))
@@ -301,18 +347,29 @@ def _leaf_spec(path, leaf) -> tuple:
     """How one State leaf is split, as udales_tpu's table gives it
     (``udales_tpu/parallel/mesh.py`` ``_leaf_spec``): the fields of ``c``,
     ``m``, ``pres`` and the ``taud`` diagnostics along x and y, the scalar
-    stack ``sv`` (nsv, nx, ny, nz) along its x and y axes, the facet state
-    ``fac`` and the ``facstats`` accumulators whole (every rank holds the
-    same copy), ``dt``, ``timee``, ``ctl`` and the profiles whole.  The
-    leaves of the open-boundary paths, whose split is not ported (outlet
-    planes, driver window, inlet generator), raise NotImplementedError
-    naming the leaf."""
+    stack ``sv`` (nsv, nx, ny, nz) along its x and y axes; the x outlet
+    planes ``bx`` ((ny, nz[+1]), sv (nsv, ny, nz)) along y and the y outlet
+    planes ``by`` along x; the driver window ``drv`` along y, never along
+    its record axis (``t`` whole); the inlet generator's planes ``ig.u0``,
+    ``v0``, ``w0``, ``t0`` along y and ``ig.Utav`` along x, its profiles and
+    scalars whole; the facet state ``fac`` and the ``facstats``
+    accumulators whole (every rank holds the same copy), ``dt``, ``timee``,
+    ``ctl`` and the profiles whole."""
     names = [str(p) for p in path]
     nd = getattr(leaf, "ndim", 0)
-    if any(n in _REFUSED for n in names):
-        raise NotImplementedError(
-            f"the x/y split of State leaf {'.'.join(names)} is not ported "
-            f"to udales_tpu_torch yet (the open boundaries)")
+    lateral = {"bx": "y", "by": "x", "drv": "y"}
+    for part, axis in lateral.items():
+        if part in names:
+            if part == "drv" and nd == 4:       # sv: (W, nsv, ny, nz)
+                return (None, None, "y", None)
+            if nd == 3:
+                return (None, axis, None)
+            if nd == 2 and part != "drv":
+                return (axis, None)
+            return ()
+    if "ig" in names:
+        return {"u0": ("y", None), "v0": ("y", None), "w0": ("y", None),
+                "t0": ("y", None), "Utav": ("x", None)}.get(names[-1], ())
     if "ctl" in names or "fac" in names or "facstats" in names:
         return ()
     if nd == 4:

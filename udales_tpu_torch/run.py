@@ -46,28 +46,34 @@ substep keeps the wall-stress diagnostics in ``State.taud``, as udales_tpu's
 run.py:356-403 does.  An IBM case built without its IBM raises
 NotImplementedError when the Model is built.
 
-``Model(..., mesh=...)`` and ``load_case(..., mesh=...)`` split the
-periodic paths over the ranks of a ``parallel.mesh.Mesh``, as udales_tpu's
-Model takes a device mesh (run.py:46-65): the Model keeps this rank's block
-grid (``Grid.block``), the State holds this rank's blocks
+``Model(..., mesh=...)`` and ``load_case(..., mesh=...)`` split the run
+over the ranks of a ``parallel.mesh.Mesh``, as udales_tpu's Model takes a
+device mesh (run.py:46-65): the Model keeps this rank's block grid
+(``Grid.block``), the State holds this rank's blocks
 (``parallel.mesh.shard_state``; the facet state whole on every rank), the
-periodic halos, slab means, the dt limit and the Poisson transposes go
-through the mesh's collectives, and each rank launches the kernel on its
-ghosted block.  The IBM, the scalar sources, the vegetation, the purifiers
-and the heat pumps are those of the rank's block (their ``block``
-constructors), the facet sums of the wall functions are the domain's, and
-every rank runs the energy balance on the same facet state.
-`_split_unsupported` names what the split refuses.
+halos, slab means, the dt limit and the Poisson transposes go through the
+mesh's collectives, and each rank launches the kernel on its ghosted
+block.  The IBM, the scalar sources, the vegetation, the purifiers and the
+heat pumps are those of the rank's block (their ``block`` constructors),
+the facet sums of the wall functions are the domain's, and every rank runs
+the energy balance on the same facet state.  Open boundaries: the inlet
+planes are the rank's y (x) block, pinned and ghosted only by the ranks
+that hold the domain's inlet edge (``Grid.edge_xlo``); the outlet planes are
+advanced by the ranks that hold the domain's last x (y) cells and reach
+the rest of their row (column) from them (``Mesh.from_owner``), so every
+rank holds the same planes; the projection's face divergence takes the
+next rank's first face through ``Mesh.halo_hi``.  `_split_unsupported`
+names what the split refuses (nothing today).
 """
 from __future__ import annotations
 
-from dataclasses import replace
+from dataclasses import fields, replace
 from pathlib import Path
 
 import numpy as np
 import torch
 
-from .config import (BCTOPM_PRESSURE, BC_DRIVER, BC_PERIODIC, BC_PROFILE,
+from .config import (BCTOPM_PRESSURE, BC_DRIVER, BC_PROFILE,
                      IADV_KAPPA, SGS_ONEEQN, Config, const, load_namoptions)
 from .convert import load_profiles
 from .grid import Grid
@@ -77,7 +83,7 @@ from .state import (FACSTAT_FIELDS, Ctl, Fields, State, initial_state,
 from .ops import advection as adv
 from .ops import subgrid as sgs
 from .ops.boundary import (Ghosts, ghost_scalar_kappa, ghost_u, ghost_v,
-                           ghost_w, make_ghosts)
+                           ghost_w, make_ghosts, split_pad)
 from .ops.forces import (coriolis, fixuinf1, forces, grwdamp, lstend,
                          masscorr_uvol, masscorr_vvol, nudge_top,
                          periodic_eb_corr, shifted_pbcs)
@@ -88,7 +94,7 @@ from .ops.inletgen import (InletGenParams, init_inletgen, inletgen_planes,
 from .ops.openbc import (BC_RECYCLE, Inlet, convect_planes, convect_planes_y,
                          driver_window_planes, init_xplanes, init_yplanes,
                          load_driver_inlet, recycle_planes, uouttot_value,
-                         vouttot_value)
+                         vouttot_value, ycut_series)
 from .ops.poisson import PoissonSolver
 from .ops.thermo import ThermoDiag, avexy_masked, thermodynamics
 from .ibm.bottom import bottom_tendencies
@@ -109,16 +115,31 @@ def _unsupported(cfg: Config, ibm=None):
 
 
 def _split_unsupported(cfg: Config):
-    """Names of the configured features whose x/y split is not ported: the
-    split covers the periodic paths (flat, IBM, energy balance, scalars and
-    the long-tail physics), not the open boundaries."""
-    checks = {
-        "an open x boundary (BCxm)": cfg.bc.BCxm != BC_PERIODIC,
-        "an open y boundary (BCym)": cfg.bc.BCym != BC_PERIODIC,
-        "the inlet generator (iinletgen)": cfg.driver.iinletgen != 0,
-        "a driver inlet (idriver)": cfg.driver.idriver != 0,
-    }
+    """Names of the configured features whose x/y split is not ported.  The
+    split covers every path of the Model (flat, IBM, energy balance,
+    scalars, the long-tail physics, open boundaries, the inlet generator and
+    the driver), so the list is empty; it names whatever a later feature
+    leaves unsplit."""
+    checks = {}
     return [name for name, on in checks.items() if on]
+
+
+def inlet_planes(inlet, igparams, grid: Grid, state: State, f: Fields, ig):
+    """The x-inlet planes on `grid` at `state.timee`: from the generator
+    state `ig`, recycled from the fields `f`, interpolated in the rolling
+    driver window, or from the `inlet`'s own profiles or series.  A Model
+    passes its block grid; ``sim.Simulation`` of a split Model the domain's
+    grid, the gathered State and the whole series."""
+    ny, nz = grid.jtot, grid.ktot
+    if igparams is not None:
+        return inletgen_planes(ig, inlet, ny, nz)
+    if inlet.mode == BC_RECYCLE:
+        return recycle_planes(inlet, f, ny, nz, grid=grid)
+    if state.drv is not None:
+        # streaming replay: lerp from the rolling device window
+        # (lchunkread, moddriver.f90:933; io/driverstream.py)
+        return driver_window_planes(state.drv, state.timee)
+    return inlet.planes(state.timee, ny, nz)
 
 
 class Model:
@@ -241,19 +262,8 @@ class Model:
 
     # -- inlet planes of the open-x boundary ---------------------------------
     def _inlet_planes(self, state: State, f: Fields, ig):
-        """The x-inlet planes at `state.timee`: from the generator state
-        `ig`, recycled from the fields `f`, interpolated in the rolling
-        driver window, or from the Inlet's own profiles or series."""
-        ny, nz = self.grid.jtot, self.grid.ktot
-        if self.igparams is not None:
-            return inletgen_planes(ig, self.inlet, ny, nz)
-        if self.inlet.mode == BC_RECYCLE:
-            return recycle_planes(self.inlet, f, ny, nz)
-        if state.drv is not None:
-            # streaming replay: lerp from the rolling device window
-            # (lchunkread, moddriver.f90:933; io/driverstream.py)
-            return driver_window_planes(state.drv, state.timee)
-        return self.inlet.planes(state.timee, ny, nz)
+        return inlet_planes(self.inlet, self.igparams, self.grid, state, f,
+                            ig)
 
     # -- one RK3 substep ---------------------------------------------------
     def substep(self, state: State, rk3step: int, th: ThermoDiag | None = None,
@@ -551,33 +561,40 @@ class Model:
         )
         # u, v, w (and thl, qt when integrated) of c_new are fresh tensors,
         # so the inlet pins below write in place
+        # (on a split, the ranks at the domain's inlet edge pin, those at
+        # its outlet edge advance the planes for their row or column)
         m_new = m
         if openy is not None:
             # pin the inlet plane (ymi_profile) and advance the prognostic
             # outlet planes (ymo_* convective)
-            c_new.v[:, 0] = inlet_y["v"]
-            if ltemp and cfg.bc.BCyT == BC_PROFILE:
-                c_new.thl[:, 0] = inlet_y["thl"]
+            if grid.edge_ylo:
+                c_new.v[:, 0] = inlet_y["v"]
+                if ltemp and cfg.bc.BCyT == BC_PROFILE:
+                    c_new.thl[:, 0] = inlet_y["thl"]
             byc = replace(c.by, v=m.by.v + rk3coef * dv_out)
             byc = convect_planes_y(byc, c_new, grid, rk3coef, vouttot,
                                    inlet_y)
+            bym = convect_planes_y(m.by, m, grid, rk3coef, vouttot, inlet_y)
+            byc, bym = _outlet_planes(grid, "y", byc, bym)
             c_new = replace(c_new, by=byc)
-            m_new = replace(m_new, by=convect_planes_y(
-                m.by, m, grid, rk3coef, vouttot, inlet_y))
+            m_new = replace(m_new, by=bym)
         if openx is not None:
             # enforce the inlet plane (xmi_*, modboundary.f90:697/730) and
             # advance the prognostic outlet planes (xmo_* convective)
-            c_new.u[0] = inlet_planes["u"]
-            if ltemp and cfg.bc.BCxT == BC_PROFILE:
-                # xTi_profile also pins the first internal cell
-                # (modboundary.f90:786-791)
-                c_new.thl[0] = inlet_planes["thl"]
+            if grid.edge_xlo:
+                c_new.u[0] = inlet_planes["u"]
+                if ltemp and cfg.bc.BCxT == BC_PROFILE:
+                    # xTi_profile also pins the first internal cell
+                    # (modboundary.f90:786-791)
+                    c_new.thl[0] = inlet_planes["thl"]
             bxc = replace(c.bx, u=m.bx.u + rk3coef * du_out)
             bxc = convect_planes(bxc, c_new, grid, rk3coef, uouttot,
                                  inlet_planes)
+            bxm = convect_planes(m.bx, m, grid, rk3coef, uouttot,
+                                 inlet_planes)
+            bxc, bxm = _outlet_planes(grid, "x", bxc, bxm)
             c_new = replace(c_new, bx=bxc)
-            m_new = replace(m_new, bx=convect_planes(
-                m.bx, m, grid, rk3coef, uouttot, inlet_planes))
+            m_new = replace(m_new, bx=bxm)
         if oneeqn:
             m_new = replace(m_new, e12=torch.clamp(m.e12, min=const.e12min))
         # chemistry once per full step on the updated scalars
@@ -646,14 +663,16 @@ class Model:
             # the inlet plane; outlet face convective.  pup is this
             # function's own tensor; du is the caller's and is copied
             du = du.clone()
-            du[0] = 0.0
-            pup[0] = openx["inlet"]["u"] * rk3coefi
+            if grid.edge_xlo:
+                du[0] = 0.0
+                pup[0] = openx["inlet"]["u"] * rk3coefi
             u_out = openx["bx"].u          # current outlet u (u0(ie+1))
             u_out_m = m.bx.u
             pup_out = (u_out_m * rk3coefi
                        - (u_out - c.u[-1]) * grid.dxi * uouttot)
             du_out = pup_out - u_out_m * rk3coefi
-            pup_faces = torch.cat([pup, pup_out[None]], dim=0)
+            pup_faces = torch.cat([pup, _next_face(pup, pup_out, grid, "x")],
+                                  dim=0)
             ddx = (pup_faces[1:] - pup_faces[:-1]) * grid.dxi
         # y face divergence term
         if openy is None:
@@ -662,14 +681,16 @@ class Model:
         else:
             # bcpup open-y: inlet v face fixed; outlet v face convective
             dv = dv.clone()
-            dv[:, 0] = 0.0
-            pvp[:, 0] = openy["inlet"]["v"] * rk3coefi
+            if grid.edge_ylo:
+                dv[:, 0] = 0.0
+                pvp[:, 0] = openy["inlet"]["v"] * rk3coefi
             v_out = openy["by"].v
             v_out_m = m.by.v
             pvp_out = (v_out_m * rk3coefi
                        - (v_out - c.v[:, -1]) * grid.dyi * vouttot)
             dv_out = pvp_out - v_out_m * rk3coefi
-            pvp_faces = torch.cat([pvp, pvp_out[:, None]], dim=1)
+            pvp_faces = torch.cat([pvp, _next_face(pvp, pvp_out, grid, "y")],
+                                  dim=1)
             ddy = (pvp_faces[:, 1:] - pvp_faces[:, :-1]) * grid.dyi
         rhs = (ddx + ddy
                + (pwp[:, :, 1:] - pwp[:, :, :-1]) * dzfi[None, None, :])
@@ -847,6 +868,9 @@ def _load_inlet(model: Model, case_dir: Path, inputs) -> None:
     cfg, grid, dom = model.cfg, model.grid, model.cfg.domain
     kw = dict(dtype=grid.torch_dtype, device=model.device)
     t = lambda a: torch.as_tensor(np.ascontiguousarray(a), **kw)
+    # a split Model's series are its y block of the domain's records
+    rows = (None if model.mesh is None
+            else slice(grid.j0, grid.j0 + grid.jtot))
     p = inputs.prof
     nsv = cfg.scalars.nsv
     profiles = lambda: dict(
@@ -875,16 +899,16 @@ def _load_inlet(model: Model, case_dir: Path, inputs) -> None:
             model.driver_stream = DriverStream(
                 case_dir, djob, dom.jtot, dom.ktot, grid.torch_dtype,
                 chunk=cfg.driver.chunkread_size, device=model.device,
-                **series)
+                rows=rows, **series)
         elif dpath.exists():
             model.inlet = load_driver_inlet(dpath, grid.torch_dtype,
-                                            model.device)
+                                            model.device, rows=rows)
         elif tdrv.exists():
             # reference Fortran ?driver_* files (moddriver.f90:750
             # readdriverfile): direct-access f8 planes per y-rank
             from .io.driverfiles import read_driver_files
-            d = read_driver_files(case_dir, djob, dom.jtot, dom.ktot,
-                                  **series)
+            d = ycut_series(read_driver_files(case_dir, djob, dom.jtot,
+                                              dom.ktot, **series), rows)
             model.inlet = Inlet(mode=BC_DRIVER, **{
                 k: t(d[k]) if k in d else None
                 for k in ("t", "u", "v", "w", "thl", "qt", "sv")})
@@ -902,7 +926,7 @@ def _load_inlet(model: Model, case_dir: Path, inputs) -> None:
         model.inlet = Inlet(mode=BC_RECYCLE, **profiles(),
                             svprof=torch.zeros((nsv, dom.ktot), **kw),
                             irecy=cfg.driver.iplane)
-        model.igparams = InletGenParams(cfg, grid)
+        model.igparams = InletGenParams(cfg, model.domain_grid)
     elif cfg.driver.iinletgen == 2:
         # replay planes recorded by a previous iinletgen=1 run
         # (modinlet.f90:860-944 readinletfile analogue; lerp in time)
@@ -911,13 +935,13 @@ def _load_inlet(model: Model, case_dir: Path, inputs) -> None:
             raise FileNotFoundError(
                 f"{ip}: iinletgen=2 needs planes recorded by running the "
                 f"generator case (iinletgen=1, lstoreplane) first")
-        d = np.load(ip)
+        d = ycut_series(dict(np.load(ip)), rows)
         nt = len(d["t"])
         model.inlet = Inlet(
             mode=BC_DRIVER, t=t(d["t"]), u=t(d["u"]), v=t(d["v"]),
             w=t(d["w"]), thl=t(d["thl"]),
-            qt=t(p["qt"])[None, None, :].expand(nt, dom.jtot, dom.ktot),
-            sv=torch.zeros((nt, nsv, dom.jtot, dom.ktot), **kw),
+            qt=t(p["qt"])[None, None, :].expand(nt, grid.jtot, dom.ktot),
+            sv=torch.zeros((nt, nsv, grid.jtot, dom.ktot), **kw),
             e12prof=t(np.maximum(p["e12"], const.e12min)))
 
 
@@ -950,10 +974,44 @@ def _kappa_ghost_scalar(cfield, cfg: Config, openx=None, openy=None,
 
 
 def _pad_pres(p, openx=None, openy=None, mesh=None):
-    """Pressure ghosts (bcp, modboundary.f90:1344-1430): periodic wrap (over
-    the ranks of `mesh`, which has no open boundary), or zero gradient at
-    open boundaries."""
+    """Pressure ghosts (bcp, modboundary.f90:1344-1430): periodic wrap, or
+    zero gradient at open boundaries; on a block of `mesh` the halos from
+    its neighbours and the zero gradient only on the domain's open edges."""
     if mesh is not None:
-        return mesh.wrap_xy(p, 1)
+        ox, oy = openx is not None, openy is not None
+        return split_pad(p, 1, mesh,
+                         p[0] if ox else None, p[-1] if ox else None,
+                         p[:, 0] if oy else None, p[:, -1] if oy else None)
     px = pad_edge(p, 0, 1) if openx is not None else pad_wrap(p, 0, 1)
     return pad_edge(px, 1, 1) if openy is not None else pad_wrap(px, 1, 1)
+
+
+def _next_face(pf, pf_out, grid: Grid, axis: str):
+    """The face after the block's last one of the projected velocity `pf`
+    along `axis` ("x": dim 0, "y": dim 1): the convective outlet face
+    `pf_out` on the block at the domain's outlet edge, the next rank's
+    first face elsewhere (every rank of the row or column exchanges)."""
+    dim = 0 if axis == "x" else 1
+    mesh = grid.mesh
+    nxt = None
+    if mesh is not None and (mesh.px if axis == "x" else mesh.py) > 1:
+        nxt = mesh.halo_hi(pf, dim, 1, axis)
+    if grid.edge_xhi if axis == "x" else grid.edge_yhi:
+        nxt = pf_out.unsqueeze(dim)
+    return nxt
+
+
+def _outlet_planes(grid: Grid, axis: str, *planes):
+    """The outlet planes (``XPlanes`` of an open x, ``YPlanes`` of an open
+    y) as the ranks at the domain's outlet edge advanced them, on every rank
+    of their row (column); unchanged on one rank along `axis`."""
+    mesh = grid.mesh
+    n = 1 if mesh is None else (mesh.px if axis == "x" else mesh.py)
+    if n == 1:
+        return planes
+    names = [f.name for f in fields(planes[0])]
+    got = mesh.from_owner([getattr(p, k) for p in planes for k in names],
+                          n - 1, axis)
+    return tuple(type(p)(**dict(zip(names, got[i * len(names):
+                                                (i + 1) * len(names)])))
+                 for i, p in enumerate(planes))

@@ -10,16 +10,27 @@ inlet-plane recorders, and the ``exit_now.<exp>`` graceful-stop sentinel
 loop reads the simulated time and the time step once a step, in one copy,
 and hands the time to every writer.
 
+On a Model split over a mesh (``parallel.mesh``) every rank runs the loop
+and the step's collectives; rank 0 holds the writers and decides, once a
+step, whether an output event is due; when one is, every rank gathers the
+State (``gather_state``, the counterpart of udales_tpu's ``np.asarray`` of
+a sharded leaf) and rank 0 serves the events from the whole State, with
+the whole domain's grid, IBM masks, canopy and inlets (`_Whole`), and
+writes every file.  `gathers` and `gather_seconds` count the gathers.
+
 `main` is ``python -m udales_tpu_torch <case>``: runmodes 1003-1005, a cold
 or warm start (native ``.h5`` checkpoint or the reference's Fortran restart
 files, ``lstratstart``) and the run, on the card unless ``--device cpu``.
 """
 from __future__ import annotations
 
+import contextlib
+import copy
 import dataclasses
 import math
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -32,6 +43,7 @@ from .io.restart import save_checkpoint
 from .io.stats import (MinTDump, SliceDump, TDump, TKEDump, TreeDump,
                        XYDump, XYTDump, YDump, YTDump)
 from .ops.fused_diff import fused_diff_mom
+from .parallel.mesh import gather_state
 from .state import zero_facstats
 
 
@@ -55,11 +67,15 @@ class DriverRecorder:
         self.frames = []
         self.times = []
 
+    def due(self, t: float) -> bool:
+        """Whether the simulated time `t` has reached the cadence."""
+        return t >= self.tnext
+
     def maybe_record(self, state, t: float | None = None):
         """Record when the simulated time `t` (default: read from
         ``state.timee``) has reached the cadence."""
         t = float(state.timee) if t is None else t
-        if t < self.tnext:
+        if not self.due(t):
             return
         self.tnext += self.cfg.driver.dtdriver
         c = state.c
@@ -97,24 +113,78 @@ class DriverRecorder:
         return self.outdir / f"tdriver_000.{exp}"
 
 
+class _Whole:
+    """What the writers read of a Model split over a mesh, for the gathered
+    State: the domain's grid, the IBM's masks, the canopy and the inlets
+    (a driver series gathered along y) of the whole domain.  Every rank
+    builds it: the gathers are collective."""
+
+    def __init__(self, model):
+        mesh = model.mesh
+
+        def whole(a):
+            # arrays cut by Grid.cut: x and y are axes -3 and -2
+            return mesh.gather(a, (None,) * (a.ndim - 3) + ("x", "y", None))
+        self.cfg, self.device, self.mesh = model.cfg, model.device, None
+        self.grid = model.domain_grid
+        self.eb, self.inputs = model.eb, model.inputs
+        self.inlet_y, self.igparams = model.inlet_y, model.igparams
+        self.ibm = None
+        if model.ibm is not None:
+            m = model.ibm.masks
+            self.ibm = SimpleNamespace(
+                nfcts=model.ibm.nfcts, masks=dataclasses.replace(m, **{
+                    f.name: whole(getattr(m, f.name))
+                    for f in dataclasses.fields(m)}))
+        self.vegetation = None
+        if model.vegetation is not None:
+            veg = self.vegetation = copy.copy(model.vegetation)
+            veg.grid = self.grid
+            for name in ("lad", "dcoef_u", "dcoef_v", "dcoef_w", "ud",
+                         "lsize", "rs", "sveg", "dep", "active"):
+                a = getattr(veg, name)
+                setattr(veg, name, None if a is None else whole(a))
+        inl = self.inlet = model.inlet
+        if inl is not None and inl.u is not None:
+            # a recorded driver series, cut along y at load
+            self.inlet = dataclasses.replace(inl, **{
+                k: mesh.gather(getattr(inl, k), (None, None, "y", None)
+                               if k == "sv" else (None, "y", None))
+                for k in ("u", "v", "w", "thl", "qt", "sv")
+                if getattr(inl, k) is not None})
+
+    def _inlet_planes(self, state, f, ig):
+        from .run import inlet_planes
+        return inlet_planes(self.inlet, self.igparams, self.grid, state, f,
+                            ig)
+
+
 class Simulation:
     """The run loop of one Model with every writer its configuration
-    switches on; the writers' tensors live on the model's device."""
+    switches on; the writers' tensors live on the model's device.  On a
+    split Model the writers live on rank 0 and read the gathered State."""
 
     def __init__(self, model, outdir: str | Path = ".", monitor: bool = True):
-        if model.mesh is not None:
-            raise NotImplementedError("Simulation of a Model split over a "
-                                      "mesh (writing from a gathered State) "
-                                      "is not ported yet")
         self.model = model
+        self.mesh = model.mesh
+        self.root = self.mesh is None or self.mesh.rank == 0
+        # what the writers read: the Model, or the whole domain of a split
+        self.view = view = model if self.mesh is None else _Whole(model)
+        self.gathers, self.gather_seconds = 0, 0.0
         self.cfg = cfg = model.cfg
-        grid, dev = model.grid, model.device
+        grid, dev = view.grid, model.device
         self.outdir = Path(outdir)
         self.outdir.mkdir(parents=True, exist_ok=True)
         self.step = model.step
-        o = cfg.output
+        # the writers: every switch, on rank 0 of a split
+        o = dataclasses.replace(cfg.output, **({} if self.root else {
+            k: False for k in ("lfielddump", "lxytdump", "lxydump",
+                               "lydump", "ltdump", "ltkedump", "lytdump",
+                               "lmintdump", "ltreedump", "lkslicedump",
+                               "lislicedump", "ljslicedump")}))
         nsv = cfg.scalars.nsv
         out = self.outdir
+        model = view
         self.fielddump = (FieldDump(cfg, grid, out, masks=model.ibm.masks
                                     if model.ibm is not None else None)
                           if o.lfielddump else None)
@@ -140,7 +210,7 @@ class Simulation:
                        if (o.lkslicedump or o.lislicedump or o.ljslicedump)
                        else None)
         self.facwriter = None
-        if cfg.eb.lEB and cfg.eb.lwriteEBfiles and model.eb:
+        if cfg.eb.lEB and cfg.eb.lwriteEBfiles and model.eb and self.root:
             exp = self._exp()
             w = NCWriter(out / f"facT.{exp}.nc", nfcts=model.eb.nfcts,
                          nlayers=cfg.eb.nfaclyrs + 1)
@@ -159,7 +229,7 @@ class Simulation:
         # fac.<exp>.nc facet stress/pressure output (lwritefac,
         # modibm.f90:198-247)
         self.facstatwriter = None
-        if cfg.walls.lwritefac and model.ibm is not None:
+        if cfg.walls.lwritefac and model.ibm is not None and self.root:
             wf = NCWriter(out / f"fac.{self._exp()}.nc",
                           nfcts=model.ibm.nfcts)
             wf.define("tau_x", ("facet",), "m^2/s^2", "tau_x")
@@ -184,11 +254,13 @@ class Simulation:
         self._monitor_path = out / f"monitor.{self._exp()}.txt"
         self.profile_dir = None  # a directory: torch.profiler trace
         self.driver_rec = (DriverRecorder(cfg, grid, out)
-                           if cfg.driver.idriver == 1 else None)
+                           if cfg.driver.idriver == 1 and self.root
+                           else None)
         # inlet-plane recorder (lstoreplane, modinlet.f90 writeinletfile):
         # the generated planes live in State.ig; stored once per full step
         self.inlet_rec = ([] if (cfg.driver.iinletgen == 1
-                                 and cfg.driver.lstoreplane) else None)
+                                 and cfg.driver.lstoreplane and self.root)
+                          else None)
         self._inlet_rec_t = []
 
     def _exp(self):
@@ -234,11 +306,11 @@ class Simulation:
                     _ff(w, attr, cad)
         _ff(self, "tnextrestart", cfg.run.trestart)
         _ff(self, "tnextcheck", self.tcheck)
-        masks = self.model.ibm.masks if self.model.ibm else None
+        masks = self.view.ibm.masks if self.view.ibm else None
         wall0 = time.time()
         nsteps = 0
         prof = None
-        if self.profile_dir is not None:
+        if self.profile_dir is not None and self.root:
             acts = [torch.profiler.ProfilerActivity.CPU]
             if self.model.device.type == "cuda":
                 acts.append(torch.profiler.ProfilerActivity.CUDA)
@@ -246,7 +318,8 @@ class Simulation:
             prof.start()
         t = t0
         try:
-            with open(self._monitor_path, "a") as mon:
+            with (open(self._monitor_path, "a") if self.root
+                  else contextlib.nullcontext()) as mon:
                 while t < t_end:
                     if self.model.driver_stream is not None:
                         # streaming precursor replay: swap in the next chunk
@@ -256,10 +329,17 @@ class Simulation:
                     nsteps += 1
                     self.ntrun += 1
                     t, dt = self._time_and_dt(state)   # the step's one sync
-                    state = self._outputs(state, t, masks, nsteps, wall0)
-                    mon.write(f"{t:14.6e} {dt:14.6e}\n")
-                    if (self.outdir / f"exit_now.{self._exp()}").exists():
-                        self._write_restart(state)
+                    if self.mesh is None:
+                        state = self._outputs(state, t, masks, nsteps, wall0)
+                        stop = self._exit_now()
+                        if stop:
+                            self._write_restart(state)
+                    else:
+                        state, stop = self._split_outputs(state, t, masks,
+                                                          nsteps, wall0)
+                    if mon is not None:
+                        mon.write(f"{t:14.6e} {dt:14.6e}\n")
+                    if stop:
                         break
                     if prof is not None and nsteps == 12:
                         self._stop_profile(prof)
@@ -269,6 +349,70 @@ class Simulation:
                 self._stop_profile(prof)
             self._close()
         return state
+
+    def _exit_now(self):
+        """The graceful-stop sentinel ``exit_now.<exp>`` exists."""
+        return (self.outdir / f"exit_now.{self._exp()}").exists()
+
+    # -- the events of `_outputs`, each decided in one place ---------------
+    def _cadenced(self):
+        """The writers that keep their own cadence (`due`)."""
+        return [w for w in (self.fielddump, self.xytdump, self.driver_rec,
+                            self.tdump, self.tkedump, self.xydump, self.ydump,
+                            self.ytdump, self.slices, self.mintdump,
+                            self.treedump) if w is not None]
+
+    def _inlet_rec_due(self, state):
+        return self.inlet_rec is not None and state.ig is not None
+
+    def _monitor_due(self, t, nsteps):
+        return self.monitor and (t >= self.tnextcheck if self.tcheck > 0
+                                 else nsteps % 50 == 0)
+
+    def _fac_due(self, state, t):
+        return (self.facwriter is not None and state.fac is not None
+                and t >= self._last_facwrite + self.cfg.eb.dtEB)
+
+    def _facstat_due(self, state, t):
+        return (self.facstatwriter is not None and state.facstats is not None
+                and t >= self.tnextfacstat)
+
+    def _due(self, state, t, nsteps):
+        """Whether `_outputs` at the simulated time `t` serves any event
+        (rank 0 of a split decides for every rank)."""
+        return (any(w.due(t) for w in self._cadenced())
+                or self._inlet_rec_due(state) or self._monitor_due(t, nsteps)
+                or self._fac_due(state, t) or self._facstat_due(state, t)
+                or t >= self.tnextrestart)
+
+    def _split_outputs(self, state, t, masks, nsteps, wall0):
+        """`_outputs` of a split Model, and whether to stop: rank 0 says
+        whether an event is due, whether the facet statistics restart and
+        whether the sentinel asks to stop (one MAX all-reduce of three
+        flags); when an event is due every rank gathers the State and rank
+        0 serves it.  Returns (this rank's State, stop)."""
+        mesh = self.mesh
+        flags = torch.zeros(3, dtype=state.dt.dtype, device=state.dt.device)
+        if self.root:
+            flags = torch.tensor([
+                self._due(state, t, nsteps), self._facstat_due(state, t),
+                self._exit_now()], dtype=flags.dtype, device=flags.device)
+        due, reset, stop = (v > 0 for v in mesh.allreduce_max(flags).tolist())
+        if due or stop:
+            t0 = time.perf_counter()
+            whole = gather_state(state, mesh)
+            self.gathers += 1
+            self.gather_seconds += time.perf_counter() - t0
+            if self.root:
+                whole = self._outputs(whole, t, masks, nsteps, wall0)
+                if stop:
+                    self._write_restart(whole)
+        if reset:
+            # the facet statistics are whole on every rank: each restarts
+            # them as rank 0's write did
+            state = state.replace(facstats=self._fresh_facstats(
+                state.facstats, t))
+        return state, stop
 
     def _outputs(self, state, t, masks, nsteps, wall0):
         """Every output event due at the simulated time `t`, in the
@@ -280,7 +424,7 @@ class Simulation:
             self.xytdump.maybe_sample(state, t, masks)
         if self.driver_rec is not None:
             self.driver_rec.maybe_record(state, t)
-        if self.inlet_rec is not None and state.ig is not None:
+        if self._inlet_rec_due(state):
             self._inlet_rec_t.append(t)
             ig = state.ig
             self.inlet_rec.append(dict(u=_host(ig.u0), v=_host(ig.v0),
@@ -301,16 +445,13 @@ class Simulation:
             self.mintdump.maybe_sample(state, t)
         if self.treedump is not None:
             self.treedump.maybe_sample(state, t)
-        if self.monitor and (t >= self.tnextcheck if self.tcheck > 0
-                             else nsteps % 50 == 0):
+        if self._monitor_due(t, nsteps):
             self.tnextcheck = t + self.tcheck
             self._checksim(state, nsteps, wall0)
-        if (self.facwriter is not None and state.fac is not None
-                and t >= self._last_facwrite + self.cfg.eb.dtEB):
+        if self._fac_due(state, t):
             self._last_facwrite = t
             self._write_fac(state, t)
-        if (self.facstatwriter is not None and state.facstats is not None
-                and t >= self.tnextfacstat):
+        if self._facstat_due(state, t):
             state = self._write_facstats(state, t)
             self.tnextfacstat = round(t + self.cfg.walls.dtfac)
         if t >= self.tnextrestart:
@@ -353,12 +494,15 @@ class Simulation:
             "htc": avg(fs.htc), "cth": avg(fs.cth),
             "pres_flc": avg(fs.pres2) - pav * pav,
         })
-        grid = self.model.grid
+        return state.replace(facstats=self._fresh_facstats(fs, t))
+
+    def _fresh_facstats(self, fs, t):
+        """Zero facet statistics whose interval starts at `t`."""
+        grid = self.view.grid
         fresh = zero_facstats(fs.tau_x.shape[0], grid.torch_dtype,
                               fs.tau_x.device)
-        fresh = dataclasses.replace(fresh, tlast=torch.tensor(
+        return dataclasses.replace(fresh, tlast=torch.tensor(
             t, dtype=grid.torch_dtype, device=fs.tau_x.device))
-        return state.replace(facstats=fresh)
 
     def _write_fac(self, state, t):
         """facT/facEB outputs (modEB.f90:510-532)."""
@@ -436,7 +580,7 @@ class Simulation:
         from .ops import subgrid as sgs
         from .ops.thermo import thermodynamics
         from .run import _velocity_ghosts
-        grid, cfg = self.model.grid, self.model.cfg
+        grid, cfg = self.view.grid, self.view.cfg
         c = state.c
         nz = grid.ktot
         dev = c.u.device
@@ -451,7 +595,7 @@ class Simulation:
         # diffusion number (modchecksim.calcdiffnr:129-160): recompute the
         # closure on the current fields, max over ekm AND ekh
         th = thermodynamics(c, cfg, grid,
-                            self.model.ibm.masks if self.model.ibm else None)
+                            self.view.ibm.masks if self.view.ibm else None)
         gvel = _velocity_ghosts(c, cfg, grid)
         thvs = cfg.bc.thls if cfg.bc.thls > 0 else 288.0
         ekm, ekh, _ = sgs.closure(gvel, grid, cfg, e12=c.e12,
@@ -599,7 +743,8 @@ def main(argv=None):
             sdir = case / "warmstart_files"
             sdir = sdir if sdir.exists() else case
             state = warmstart_state(sdir, run.startfile, exp, model.cfg,
-                                    model.grid, device=model.device)
+                                    model.grid, device=model.device,
+                                    model=model)
         if run.lstratstart and model.inputs is not None:
             # lstratstart (modstartup.f90:991-1084): keep the restart
             # velocities but re-impose the thl/qt profiles from prof.inp
