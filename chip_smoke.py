@@ -13,8 +13,10 @@ diffusion kernel on the way.  The x/y process split runs the flat path
 (phases 36-39), the urban paths (phases 40-43) and the open boundaries
 (phases 44-48) over meshes of ranks.  Then the run-time driver: ``python -m
 udales_tpu_torch`` with every output, restart continuation, the output
-families on the other cases, the driver's cost and the runmodes.  Phases, one line each; any failure raises and
-the script exits non-zero without a result line:
+families on the other cases, the driver's cost and the runmodes.  Last, the
+path of the long-horizon check ``validate_abl_torch.py`` (phases 49-51).
+Phases, one line each; any failure raises and the script exits non-zero
+without a result line:
 
   1. require a CUDA device (no CPU fallback)
   2. card name and power limit (nvidia-smi), torch / CUDA versions
@@ -156,6 +158,22 @@ the script exits non-zero without a result line:
      final State, 1e-9); the Fortran restart of the gathered State (outlet
      planes in the halo) continued for 3 steps in one process against the
      uninterrupted run (1e-9); host ms a gather
+ 49. validate_abl_torch.py's path (the long-horizon neutral-ABL check) at
+     32^3 float32, 4 chunks of 100 steps in this process: finite records,
+     3 unmasked launches a step; its stress profile on the card against
+     the same State's on the CPU in float64 (1e-5 of max|tau|); the
+     unmasked kernel at its full-size shape 64^3 float32 against its plain
+     version, timed as phase 8 does
+ 50. the check chained on the card: 2 chunks and --save in this process,
+     then a second process with --resume for 2 more; its records and
+     final State against phase 49's uninterrupted run (1e-6 of each
+     leaf's largest value)
+ 51. the Fortran warm start of a generator case: the rescale-recycle case
+     of phase 45 (iinletgen = 1, BCxm = 2) at 32^3 float64, 3 steps, the
+     reference's restart files, warmstart_state(..., model=) (the
+     generator's state built from the warm fields), 3 more steps, all
+     finite; then the same case through python -m udales_tpu_torch with
+     lwarmstart and the Fortran startfile
 The line before the last is a JSON object describing the kernels and the
 main paths; the last line is {"ok": true, "device": {...}}.
 """
@@ -2191,6 +2209,164 @@ def split_phases(smi, fused, urban_cases):
     return out
 
 
+# --- the long-horizon validation (phases 49-51) ------------------------------
+
+def numpy_f64(tree):
+    """A state_to_numpy tree with every array in float64."""
+    return {k: numpy_f64(v) if isinstance(v, dict)
+            else None if v is None else np.asarray(v, np.float64)
+            for k, v in tree.items()}
+
+
+def validation_phases(smi, fused, recycle32):
+    """Phases 49 to 51: validate_abl_torch.py at 32^3 float32 (one process,
+    then chained over two), the kernel at its 64^3 shape, and the Fortran
+    warm start of the rescale-recycle case `recycle32` (phase 45's)."""
+    import shutil
+    import validate_abl_torch as vat
+    from udales_tpu_torch.cases import with_namelist
+    from udales_tpu_torch.convert import state_from_numpy, state_to_numpy
+    from udales_tpu_torch.grid import Grid
+    from udales_tpu_torch.io.restart import (warmstart_state,
+                                             write_state_fortran)
+    from udales_tpu_torch.ops.inletgen import INLETGEN_NAMES, init_inletgen
+    from udales_tpu_torch.run import load_case
+    out = {}
+    n, chunks, chunk = 32, 4, 100
+    argv = [str(n), "200", str(chunk)]
+
+    # 49. the validation's path in this process
+    fused.launch_count = fused.masked_launch_count = 0
+    whole = vat.run(vat.parse(argv + ["--stop-after", str(chunks)]))
+    launches = (fused.launch_count, fused.masked_launch_count)
+    steps = chunks * chunk
+    if launches != (3 * steps, 0):
+        raise RuntimeError(f"validation 32^3: launches (unmasked, masked) "
+                           f"{launches} in {steps} steps")
+    rec = whole["records"]
+    if not all(np.isfinite(np.asarray(rec[k])).all()
+               for k in ("prof", "tau") + vat.SCALARS):
+        raise RuntimeError("validation 32^3: non-finite records")
+    tau = vat.stress_profile(whole["model"], whole["state"]).cpu().double()
+    ref = vat.stress_profile(
+        vat.build_case(n, "cpu", "float64"),
+        state_from_numpy(numpy_f64(state_to_numpy(whole["state"]))))
+    tau_err = float((tau - ref).abs().max() / ref.abs().max())
+    ms = 1e3 * whole["wall"] / steps
+    out["validation"] = dict(
+        n=n, chunks=chunks, chunk=chunk, steps=steps, launches=launches[0],
+        wall_s=whole["wall"], ms_per_step=ms,
+        points_per_s=n ** 3 / (ms * 1e-3), stress_rel_err=tau_err,
+        tke=[float(x) for x in rec["tke"]], time=float(rec["time"][-1]),
+        dt=float(rec["dt"][-1]), umax=float(rec["umax"][-1]))
+    phase(49, f"validate_abl_torch {n}^3 float32 on {smi}: {chunks} chunks "
+              f"of {chunk} steps, {ms:.3f} ms/step "
+              f"({out['validation']['points_per_s']:.6g} points/s), t = "
+              f"{out['validation']['time']:.1f} s, dt "
+              f"{out['validation']['dt']:.4f}, TKE "
+              f"{rec['tke'][0]:.3e} .. {rec['tke'][-1]:.3e}, max|u| "
+              f"{out['validation']['umax']:.4f}; unmasked launches "
+              f"{launches[0]} (= 3 x {steps}); stress profile on the card "
+              f"against the CPU in float64: {tau_err:.3e} of max|tau| "
+              f"{float(ref.abs().max()):.4g} (tolerance 1e-5)")
+    if not tau_err <= 1e-5:
+        raise RuntimeError("the stress profile on the card disagrees with "
+                           "the CPU's")
+    g64 = Grid.uniform(64, 64, 64, 64.0, 64.0, 64.0, dtype=np.float32)
+    out["err64"] = check_kernel(
+        fused, random_ghosts(g64, torch.float32, "cuda", seed=8), g64, None,
+        1e-5, "uniform (64, 64, 64) float32, the validation's shape", 49)
+    out["t64"] = time_kernel(
+        fused, random_ghosts(g64, torch.float32, "cuda", seed=9), g64, None,
+        smi, "64^3 float32", 49)
+
+    # 50. chained: 2 chunks here, 2 more in a second process
+    root = CACHE / "validation32"
+    shutil.rmtree(root, ignore_errors=True)
+    first, second = root / "leg1", root / "leg2"
+    vat.run(vat.parse(argv + ["--stop-after", "2", "--save", str(first)]))
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, str(Path(vat.__file__).resolve())] + argv
+        + ["--resume", str(first), "--stop-after", "2", "--save",
+           str(second)], cwd=Path(__file__).resolve().parent,
+        capture_output=True, text=True, timeout=600)
+    secs = time.perf_counter() - t0
+    if res.returncode != 0:
+        raise RuntimeError(f"the resumed validation failed:\n"
+                           f"{res.stderr[-4000:]}")
+    with np.load(second / vat.RECORDS) as z:
+        got_rec = {k: z[k] for k in z.files}
+        startfile = str(z["startfile"])
+    model = whole["model"]
+    got = state_to_numpy(warmstart_state(
+        second, startfile, f"{model.cfg.run.iexpnr:03d}", model.cfg,
+        model.grid, model=model))
+    errs = leaf_errors(got, state_to_numpy(whole["state"]))
+    rec_err = max(float(np.abs(got_rec[k] - np.asarray(rec[k])).max()
+                        / max(float(np.abs(np.asarray(rec[k])).max()), 1e-30))
+                  for k in ("prof", "tau") + vat.SCALARS)
+    worst = max(errs.values())
+    out["chained"] = dict(state_rel_err=worst, records_rel_err=rec_err,
+                          second_process_s=secs, leaves=len(errs))
+    phase(50, f"validation chained on the card: 2 chunks + --save, then "
+              f"--resume for 2 in a second process ({secs:.1f} s): records "
+              f"within {rec_err:.3e}, State within {worst:.3e} of each "
+              f"leaf's largest value over {len(errs)} leaves, against "
+              f"phase 49's uninterrupted run (tolerance 1e-6)")
+    if not (rec_err <= 1e-6 and worst <= 1e-6):
+        raise RuntimeError("the chained validation departs from the "
+                           "uninterrupted run")
+
+    # 51. the Fortran warm start of the rescale-recycle generator
+    start = "initd00000003_xxx_xxx.900"
+    model = load_case(recycle32, "900", dtype="float64")        # the card
+    st = model.run(model.cold_start(seed=43), 3)
+    warm_dir = CACHE / "recycle32_warm"
+    shutil.rmtree(warm_dir, ignore_errors=True)
+    warm = with_namelist(recycle32, warm_dir, RUN=dict(
+        lwarmstart=True, startfile=start))
+    write_state_fortran(warm, st, "900", model.cfg, ntrun=3)
+    back = warmstart_state(warm, start, "900", model.cfg, model.grid,
+                           model=model)
+    if back.ig is None:
+        raise RuntimeError("warmstart_state built no generator state")
+    want = init_inletgen(model.cfg, model.domain_grid, back.c,
+                         model.igparams)
+    ig_err = max(float((getattr(back.ig, k) - getattr(want, k)).abs().max())
+                 for k in INLETGEN_NAMES)
+    fused.launch_count = fused.masked_launch_count = 0
+    after = state_to_numpy(model.run(back, 3))
+    warm_launches = fused.launch_count
+    bad = [k for k, v in flat_numpy(after).items()
+           if v.dtype.kind == "f" and not np.isfinite(v).all()]
+    rc, so, se, cli_s = run_cli(
+        [str(warm), "--dtype", "float64", "--outdir",
+         str(warm_dir / "out"), "--runtime", "0.3"], timeout=600)
+    if rc != 0:
+        raise RuntimeError(f"the CLI's warm start failed:\n{se[-4000:]}")
+    cli_steps, cli_unmasked, cli_masked = launches_of(so)
+    out["recycle_warm"] = dict(ig_max_abs_err=ig_err,
+                               launches=warm_launches, cli_steps=cli_steps,
+                               cli_launches=cli_unmasked, cli_s=cli_s,
+                               timee=float(after["timee"]))
+    phase(51, f"rescale-recycle 32^3 float64: 3 steps, Fortran restart, "
+              f"warmstart_state(model=): ig built, max|ig - init_inletgen "
+              f"of the warm fields| {ig_err:.3e}; 3 more steps to t = "
+              f"{float(after['timee']):.4f} s, {warm_launches} launches, "
+              f"non-finite leaves {bad}; python -m udales_tpu_torch with "
+              f"lwarmstart from {start}: exit {rc}, {cli_steps} steps, "
+              f"launches {cli_unmasked} unmasked, {cli_masked} masked, "
+              f"{cli_s:.1f} s")
+    if not (ig_err == 0.0 and not bad and warm_launches == 9
+            and "warmstart from " + start in so
+            and cli_unmasked == 3 * cli_steps and cli_masked == 0
+            and cli_steps > 0):
+        raise RuntimeError("the Fortran warm start of the generator case "
+                           "failed its checks")
+    return out
+
+
 def main():
     # 1. a CUDA device, or nothing
     if not torch.cuda.is_available():
@@ -2409,6 +2585,9 @@ def main():
                         tfielddump=0.1, lxytdump=True, ltkedump=True,
                         tsample=0.05, tstatsdump=0.1, tcheck=0.1))))
 
+    # 49.-51. the long-horizon validation's path
+    val = validation_phases(smi, fused_diff_mom, open32["recycle"])
+
     foreign = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "udales_tpu"))
     if foreign:
@@ -2429,7 +2608,10 @@ def main():
          "launches_split_2x2_per_rank": [m["launches"] for m in
                                          split["main_2x2"]],
          "max_abs_err_block_64x64x128": split["block_err"],
-         **{f"{k}_block_64x64x128": v for k, v in split["block"].items()}},
+         **{f"{k}_block_64x64x128": v for k, v in split["block"].items()},
+         "launches_validation_32": val["validation"]["launches"],
+         "max_abs_err_64": val["err64"],
+         **{f"{k}_64": v for k, v in val["t64"].items()}},
         {"name": "fused_diff_mom_masked", "route": "cuda", "source": src,
          "replaces": "udales_tpu/ops/pallas_stencil.py:191",
          "launches": urb["launches"], "max_abs_err": masked_err,
@@ -2483,7 +2665,9 @@ def main():
                                         "urban_nccl_1x1", "urban_shared_2x2",
                                         "urban_main_2x2", "open_nccl_1x1",
                                         "open_shared_2x2", "driven_main_2x2",
-                                        "simulation_2x2")}}))
+                                        "simulation_2x2")},
+        "validation_32": {**val["validation"], "chained": val["chained"]},
+        "recycle_warm_start_32": val["recycle_warm"]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -238,7 +238,10 @@ def test_open_boundary_state_roundtrips(tmp_path, fmt):
                                         cfg, grid, model=model)
     got, want = state_to_numpy(back), state_to_numpy(st)
     assert {"bx", "by"} <= set(got["c"]) and got["c"]["bx"] is not None
-    assert ("ig" in got) == (fmt == "h5")
+    # the Fortran files hold no generator state: a warm start builds it
+    # only for a model with a generator, which this one has not
+    assert ("ig" in got) == (fmt == "h5" or getattr(model, "igparams", None)
+                             is not None)
     assert_states_equal(got, want)
 
 

@@ -17,7 +17,11 @@ its recycle plane at x index
     against the single process.
 
 Every State leaf to 1e-9 of its largest value (the generator's y and x
-means are sums in another order than one process's).
+means are sums in another order than one process's).  Beside them on 2 x
+2, "gen12" warm-started from the reference's Fortran restart files of its
+single-process run after 2 steps (``warmstart_state(..., model=)`` builds
+the generator's state before it cuts the blocks), 1 step, against the same
+in one process.
 """
 import pytest
 
@@ -31,12 +35,37 @@ from test_torch_split_open import (GEN, assert_blocks, assert_close,
 MESH_CASES = {(2, 2): ("gen12", "gen8"), (4, 2): ("gen3", "gen6", "gen14")}
 
 
+WARM = "initd00000002_xxx_xxx.007"
+
+
 @pytest.fixture(scope="module")
 def split(tmp_path_factory):
+    from udales_tpu_torch.convert import state_from_numpy, state_to_numpy
+    from udales_tpu_torch.io.restart import (warmstart_state,
+                                             write_state_fortran)
+    from udales_tpu_torch.run import load_case
     root = tmp_path_factory.mktemp("recycle_split")
     specs = {f"gen{ip}": (flat_case(root, f"gen{ip}", GEN.format(ip)),
                           "007", 2) for ip in (3, 6, 8, 12, 14)}
-    return run_split(root, specs, MESH_CASES, ("gen12",), ("gen12",))
+    case, warm = specs["gen12"][0], root / "warm12"
+
+    def warm_job(start_np):
+        """The restart files of gen12 after 2 steps in one process, and
+        the 2 x 2 job that starts from them."""
+        model = load_case(case, "007", "float64", device="cpu")
+        st = model.run(state_from_numpy(start_np["gen12"]), 2)
+        warm.mkdir()
+        write_state_fortran(warm, st, "007", model.cfg, ntrun=2)
+        return [dict(name="gen12warm", case_dir=str(case), expnr="007",
+                     dtype="float64", warm=(str(warm), WARM), steps=1)]
+
+    def warm_single(_):
+        model = load_case(case, "007", "float64", device="cpu")
+        st = warmstart_state(warm, WARM, "007", model.cfg, model.grid,
+                             model=model)
+        return state_to_numpy(model.run(st, 1))
+    return run_split(root, specs, MESH_CASES, ("gen12",), ("gen12",),
+                     extra=warm_job, after=warm_single)
 
 
 def test_generator_on_2x2_matches_single_process_and_jax(split):
@@ -66,3 +95,14 @@ def test_generator_leaves_are_the_blocks_of_the_gathered_state(split):
         assert_blocks(split["runs"][mesh], MESH_CASES[mesh][0], {
             "ig.u0": "y", "ig.w0": "y", "ig.Utav": "x", "ig.displ": "",
             "ig.Urec": "", "c.bx.thl": "y", "c.u": "xy"})
+
+
+def test_fortran_warm_start_on_2x2_matches_single_process(split):
+    """The generator case warm-started from the Fortran files on 2 x 2 and
+    stepped once: every leaf, the generator's built from the warm fields
+    included, against the same in one process, to 1e-9."""
+    ref = split["after"]
+    assert ref["ig"] is not None and "u0" in ref["ig"]
+    for rank, res in enumerate(split["runs"][(2, 2)]):
+        assert_close(res["cases"]["gen12warm"]["gathered"], ref, 1e-9,
+                     f"warm gen12 rank {rank}")

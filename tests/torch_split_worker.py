@@ -26,7 +26,9 @@ JOB is a pickle the test writes:
     files there (``io.restart.write_state_fortran``), which every rank
     then reads back into the mesh and steps "continue" steps further; it
     returns every array its writers were handed, in float64
-    (`recording_writers`);
+    (`recording_writers`); a case with "warm" ((directory, start file) of
+    the reference's Fortran restart files) in place of "state" starts from
+    them by ``io.restart.warmstart_state(..., model=)``;
   - "sections": [{"name", "case_dir", "expnr", "fields" (whole-domain u,
     v, w, thl as numpy)}]: the IBM of each case on this rank's block, and
     per grid the rows of the domain's sections it holds, their interpolated
@@ -294,8 +296,12 @@ def main(job_path, rank):
         res["cases"] = {}
         for case in job["cases"]:
             model = build(case, device, mesh)
-            st = shard_state_global(state_from_numpy(case["state"]), mesh,
-                                    device=device)
+            if "warm" in case:
+                st = warmstart_state(*case["warm"], case["expnr"], model.cfg,
+                                     model.grid, model=model)
+            else:
+                st = shard_state_global(state_from_numpy(case["state"]),
+                                        mesh, device=device)
             fused_diff_mom.launch_count = 0
             fused_diff_mom.masked_launch_count = 0
             mesh.reset_counts()

@@ -30,7 +30,7 @@ import numpy as np
 import torch
 
 from ..ibm.eb import FacetState
-from ..ops.inletgen import INLETGEN_NAMES, InletGen
+from ..ops.inletgen import INLETGEN_NAMES, InletGen, init_inletgen
 from ..ops.openbc import XPlanes, YPlanes
 from ..parallel.mesh import shard_state
 from ..state import Fields, State, zero_facstats
@@ -353,7 +353,13 @@ def warmstart_state(case_dir, startfile, expnr, cfg, grid, dtype=None,
     """Build a State on `device` (default: the model's, else the card) from
     reference restart files (lwarmstart path, modstartup.f90:2156).  With
     `model`: the outlet planes of its open boundaries from the files'
-    halos, and a split Model's blocks of the whole State."""
+    halos, the rescale-recycle generator's state of a model with
+    `igparams` (``init_inletgen`` of the warm whole-domain fields, as
+    ``Model.cold_start`` builds it), and a split Model's blocks of the
+    whole State.  The Fortran files hold none of the generator's running
+    means (Utav, Urec, Uinl, ...), so they restart from the warm fields and
+    a continued generator case is not the uninterrupted run; the native
+    ``.h5`` checkpoint carries them exactly."""
     d = cfg.domain
     device = _device(device, model)
     out, out_sv, timee, dt = read_fortran_restart(
@@ -384,6 +390,10 @@ def warmstart_state(case_dir, startfile, expnr, cfg, grid, dtype=None,
                    else None)
     st = State(m=f, c=f, pres=to(out["pres"]),
                dt=torch.tensor(dt, **kw), timee=torch.tensor(timee, **kw))
+    igparams = getattr(model, "igparams", None)
+    if igparams is not None:
+        st = st.replace(ig=init_inletgen(cfg, model.domain_grid, f,
+                                         igparams))
     if model is not None and model.mesh is not None:
         st = shard_state(st, model.mesh)
     return st
