@@ -14,7 +14,11 @@ diffusion kernel on the way.  The x/y process split runs the flat path
 (phases 44-48) over meshes of ranks.  Then the run-time driver: ``python -m
 udales_tpu_torch`` with every output, restart continuation, the output
 families on the other cases, the driver's cost and the runmodes.  Last, the
-path of the long-horizon check ``validate_abl_torch.py`` (phases 49-51).
+path of the long-horizon check ``validate_abl_torch.py`` (phases 49-51),
+and the compiled step, a CUDA graph replayed once a step, against the
+eager one on every main path (phases 52-54).  ``Simulation``, the CLI and
+the validation step with the compiled step on one process (phases 31-34,
+49-51).
 Phases, one line each; any failure raises and the script exits non-zero
 without a result line:
 
@@ -87,7 +91,8 @@ without a result line:
      simulated time; the exit code, the monitor (one line a step), every
      file read back by scipy with the writers' variables and as many
      records as the cadences give, all finite, max|div u| after the last
-     step, the masked kernel 3 times a step (the CLI's closing line)
+     step, the masked kernel 3 times a step and the compiled step (the
+     CLI's closing line)
  32. restart continuation: N steps, the reference's Fortran restart files,
      N more in a second process (this script's --resume mode, which runs
      the CLI's main and saves the final State), against 2N in one process;
@@ -96,8 +101,9 @@ without a result line:
  33. the dispersion case at 128^3 (tree dump, scalar field dumps and
      statistics) and the driven case at 32^3 (xytdump, tkedump) through
      Simulation: launches, files and records as in 31
- 34. the driver's cost: Simulation.run with every writer against
-     Model.run on urban-EB 128^3 in turns, and one sample and one write of
+ 34. the driver's cost: Simulation.run with every writer (on the compiled
+     step) against Model.run, eager and captured, on urban-EB 128^3 in
+     turns, and one sample and one write of
      each family alone (host ms, launches and device ms)
  35. runmodes 1003, 1004 and 1005 through the CLI
  36. the x/y split (parallel/mesh.py, parallel/multihost.py) on one rank
@@ -174,6 +180,20 @@ without a result line:
      generator's state built from the warm fields), 3 more steps, all
      finite; then the same case through python -m udales_tpu_torch with
      lwarmstart and the Fortran startfile
+ 52. the compiled step (Model.step_jit: one RK3 step captured as one CUDA
+     graph) on flat 128^3 and 256^3, urban, urban-EB, driven urban and
+     dispersion 128^3 float32: warm-up, the build (one eager step, then the
+     capture; its seconds and the memory its pool and static State hold),
+     then runs in turns eager, captured, captured, eager (ms/step, points/s,
+     peak memory; launches = 3 x steps of the path's variant, counted
+     across replays; every replay under
+     torch.cuda.set_sync_debug_mode("error"), the window refill outside
+     it); max|div u| of the captured run; captured against eager over 10
+     steps from one State, every field within 1e-4 of its max
+ 53. 5 captured steps on the card against 5 eager steps on the CPU, 32^3
+     float64, every State leaf (1e-9): flat, urban, urban-EB, driven and
+     dispersion
+ 54. the captured rates side by side
 The line before the last is a JSON object describing the kernels and the
 main paths; the last line is {"ok": true, "device": {...}}.
 """
@@ -325,32 +345,67 @@ def max_divergence(model, c):
     return float(div[:, :, :-1].max()), top
 
 
-def run_main_path(model, state, warm, steps, smi, fused, label):
-    """Phase 6/7/12/16/20/22 body: warm `model` up on the card, then time
-    `steps` steps between CUDA events with both launch counts set to 0 just before
-    and read just after.  The path's own kernel variant (masked when the
-    model has an IBM) must launch 3 times a step and the other not at all.
-    Returns the numbers and the final State."""
-    n = model.grid.itot
+def captured_run(model, state, steps):
+    """`steps` calls of the compiled step ``model.step_jit()``, each replay
+    under torch.cuda.set_sync_debug_mode("error") (a host wait inside it
+    raises) and the window refill of a driven case outside the guard, as
+    ``Model.run(..., graph=True)`` steps.  Returns the compiled step's
+    static State."""
+    step = model.step_jit()
+    stream = model.driver_stream
+    for _ in range(steps):
+        if stream is not None:
+            state = stream.ensure(state)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            state = step(state)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return state
+
+
+def timed_run(model, state, steps, graph, fused, label):
+    """`steps` steps of `model` from `state` between CUDA events, eagerly
+    (``Model.run``) or as replays of the captured step (`captured_run`),
+    with both launch counts set to 0 just before and read just after: the
+    path's own variant must launch 3 times a step, counted across replays,
+    and the other not at all.  Returns (numbers, final State)."""
     masked = model.ibm is not None
-    state = model.run(state, warm)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     fused.launch_count = fused.masked_launch_count = 0
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
     start.record()
-    state = model.run(state, steps)
+    state = (captured_run(model, state, steps) if graph
+             else model.run(state, steps))
     end.record()
     torch.cuda.synchronize()
+    host = (time.perf_counter() - t0) * 1e3 / steps
     counts = (fused.launch_count, fused.masked_launch_count)
     launches, other = counts[::-1] if masked else counts
-    ms = start.elapsed_time(end) / steps
-    variant = "masked" if masked else "unmasked"
     if launches != 3 * steps or other != 0:
         raise RuntimeError(f"{label}: kernel launches (unmasked, masked) = "
-                           f"{counts} in {steps} steps, expected "
-                           f"{3 * steps} of the {variant} variant only")
+                           f"{counts} in {steps} {'captured' if graph else 'eager'} steps, "
+                           f"expected {3 * steps} of the "
+                           f"{'masked' if masked else 'unmasked'} variant")
+    ms = start.elapsed_time(end) / steps
+    n = model.grid.itot * model.grid.jtot * model.grid.ktot
+    return dict(ms_per_step=ms, host_ms_per_step=host,
+                points_per_s=n / (ms * 1e-3), launches=launches,
+                peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                reserved_gib=torch.cuda.memory_reserved() / 2 ** 30), state
+
+
+def run_main_path(model, state, warm, steps, smi, fused, label):
+    """Phase 6/7/12/16/20/22 body: warm `model` up on the card, then time
+    `steps` eager steps (`timed_run`: both launch counts set to 0 just
+    before and read just after, the path's own variant 3 times a step and
+    the other not at all).  Returns the numbers and the final State."""
+    n = model.grid.itot
+    state = model.run(state, warm)
+    out, state = timed_run(model, state, steps, False, fused, label)
     c = state.c
     for name in ("u", "v", "w", "thl", "e12"):
         if not bool(torch.isfinite(getattr(c, name)).all()):
@@ -359,13 +414,12 @@ def run_main_path(model, state, warm, steps, smi, fused, label):
     if not dt > 0:
         raise RuntimeError(f"{label}: dt = {dt}")
     div, top_div = max_divergence(model, c)
-    out = dict(n=n, steps=steps, ms_per_step=ms,
-               points_per_s=n ** 3 / (ms * 1e-3), launches=launches, dt=dt,
-               max_div=div, top_div=top_div, umax=float(c.u.abs().max()),
-               peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
-    print(f"  {label} on {smi}: {ms:.4f} ms/step, "
+    out.update(n=n, steps=steps, dt=dt, max_div=div, top_div=top_div,
+               umax=float(c.u.abs().max()))
+    variant = "masked" if model.ibm is not None else "unmasked"
+    print(f"  {label} on {smi}: {out['ms_per_step']:.4f} ms/step, "
           f"{out['points_per_s']:.6g} grid-points/s, "
-          f"{variant} launches {launches} "
+          f"{variant} launches {out['launches']} "
           f"(= 3 x {steps}), dt {dt:.6g}, max|div u| {div:.3e}, "
           f"max|u| {out['umax']:.4f}, peak {out['peak_mem_gib']:.3f} GiB",
           flush=True)
@@ -1097,8 +1151,8 @@ def profile_call(fn, reps=10):
     """(host ms a call to a synchronize, launches of one call, device
     activities the profiler captured of it, their device ms) of `fn` on the
     card.  Launches are the host's CUDA runtime calls that put work on the
-    card (kernel launches, copies, fills), counted on the host's side of
-    the trace."""
+    card (kernel launches, graph launches, copies, fills), counted on the
+    host's side of the trace."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -1115,7 +1169,7 @@ def profile_call(fn, reps=10):
     dev = [e for e in prof.events() if e.device_type == cuda]
     runtime = [e for e in prof.events() if e.device_type != cuda
                and e.name.startswith(("cudaLaunch", "cuLaunch", "cudaMemcpy",
-                                      "cudaMemset"))]
+                                      "cudaMemset", "cudaGraphLaunch"))]
     return (ms, len(runtime), len(dev),
             sum(e.time_range.elapsed_us() for e in dev) / 1e3)
 
@@ -1176,8 +1230,12 @@ def driver_phases(smi, fused, div_bound, eb128, urban, d32):
         print("  the native checkpoint (.h5) was not exercised on the card: "
               "h5py is not installed here; the restart phase uses the "
               "reference's Fortran restart files", flush=True)
+    compiled = "step compiled (cuda graph)" in stdout
+    print(f"  the CLI's closing line says the compiled step ran: "
+          f"{compiled}", flush=True)
     if not (len(mon) == steps and masked == 3 * steps and unmasked == 0
-            and divs and divs[-1] <= div_bound and steps >= 20):
+            and divs and divs[-1] <= div_bound and steps >= 20
+            and compiled):
         raise RuntimeError("the CLI run failed a check")
     recs = check_outputs(out, tables, counts, "urban-EB 128^3 outputs", 31)
     if min(recs[k] for k in ("xytdump", "tdump", "fielddump")) < 2:
@@ -1185,7 +1243,7 @@ def driver_phases(smi, fused, div_bound, eb128, urban, d32):
     if has_h5py and not list(out.glob("initd*.900.h5")):
         raise RuntimeError("no checkpoint was written")
     cli = dict(steps=steps, masked=masked, seconds=secs,
-               max_div=divs[-1], records=recs)
+               max_div=divs[-1], records=recs, compiled_step=compiled)
 
     # 32. restart continuation
     worst, _, dt_rel = continuation(urban[32], "float64", tmp / "c32", 5,
@@ -1261,16 +1319,19 @@ def driver_phases(smi, fused, div_bound, eb128, urban, d32):
     torch.cuda.synchronize()
     phase(34, "one urban-EB step with the wall-stress diagnostics under "
               "set_sync_debug_mode('error'): no host synchronisation")
-    timings = {"Model.run": [], "Simulation.run": []}
-    for i, which in enumerate(["Model.run", "Simulation.run",
-                               "Simulation.run", "Model.run",
-                               "Model.run", "Simulation.run"]):
+    timings = {"Model.run": [], "Model.run captured": [],
+               "Simulation.run": []}
+    for i, which in enumerate(["Model.run", "Model.run captured",
+                               "Simulation.run", "Simulation.run",
+                               "Model.run captured", "Model.run",
+                               "Model.run", "Simulation.run",
+                               "Model.run captured"]):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         torch.cuda.synchronize()
         start.record()
-        if which == "Model.run":
-            st = cm.run(st, 20)
+        if which.startswith("Model.run"):
+            st = cm.run(st, 20, graph=which.endswith("captured"))
             nst = 20
         else:
             sim = Simulation(cm, tmp / f"cost{i}", monitor=False)
@@ -1284,11 +1345,16 @@ def driver_phases(smi, fused, div_bound, eb128, urban, d32):
     phase(34, f"urban-EB 128^3 float32 on {smi}, ms/step (CUDA events, 3 "
               f"runs each of ~20 steps, in turns): Model.run "
               f"{', '.join(f'{v:.3f}' for v in timings['Model.run'])} "
-              f"(median {med['Model.run']:.3f}); Simulation.run with every "
-              f"writer (samples every 1.75 s, writes every 5 s) "
+              f"(median {med['Model.run']:.3f}); Model.run captured "
+              f"{', '.join(f'{v:.3f}' for v in timings['Model.run captured'])}"
+              f" (median {med['Model.run captured']:.3f}); Simulation.run "
+              f"with every writer and the compiled step (samples every 1.75 "
+              f"s, writes every 5 s) "
               f"{', '.join(f'{v:.3f}' for v in timings['Simulation.run'])} "
-              f"(median {med['Simulation.run']:.3f}), ratio "
-              f"{med['Simulation.run'] / med['Model.run']:.3f}")
+              f"(median {med['Simulation.run']:.3f}), ratio to the captured "
+              f"Model.run "
+              f"{med['Simulation.run'] / med['Model.run captured']:.3f}, to "
+              f"the eager {med['Simulation.run'] / med['Model.run']:.3f}")
     sim = Simulation(cm, tmp / "cost_families", monitor=False)
     masks = cm.ibm.masks
     t = float(st.timee)
@@ -2367,6 +2433,152 @@ def validation_phases(smi, fused, recycle32):
     return out
 
 
+def compiled_phases(smi, fused, div_bound, urban, eb32):
+    """Phases 52 to 54: the compiled step (``Model.step_jit``, one CUDA
+    graph a step) on every main path against the eager step.  `urban` are
+    the staged urban cases by size, `eb32` the urban-EB 32^3 case (dtEB
+    0.5 s).  Any failed check raises."""
+    import statistics
+    from udales_tpu_torch import cases, entry
+    from udales_tpu_torch.convert import state_from_numpy, state_to_numpy
+    from udales_tpu_torch.run import load_case
+    out = {}
+    # 52. captured against eager on the main paths, in turns
+    paths = {
+        "flat_128": lambda: entry._build(128, 128, 128, "float32"),
+        "flat_256": lambda: entry._build(256, 256, 256, "float32"),
+        "urban_128": lambda: load_case(urban[128], "900", "float32"),
+        "urban_eb_128": lambda: load_case(cases.stage_urban_eb(128, CACHE),
+                                          "900", "float32"),
+        "urban_driven_128": lambda: load_case(cases.stage_urban_driven(
+            128, CACHE, dtdriver=0.1), "900", "float32"),
+        "dispersion_128": lambda: load_case(cases.stage_urban_dispersion(
+            128, CACHE), "900", "float32"),
+    }
+    for name, build in paths.items():
+        model = build()
+        start = (entry._init_state(model, seed=43) if model.inputs is None
+                 else model.cold_start(seed=43))
+        st = model.run(start, 3)                       # eager warm-up
+        # the build: one eager step on a side stream, then the capture
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        reserved0 = torch.cuda.memory_reserved()
+        step = model.step_jit()
+        st = captured_run(model, st, 1)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        pool = (torch.cuda.memory_reserved() - reserved0) / 2 ** 30
+        steps = 10 if name == "flat_256" else 20
+        runs = {"eager": [], "captured": []}
+        for which in ("eager", "captured", "captured", "eager"):
+            res, st = timed_run(model, st, steps, which == "captured", fused,
+                                f"{name} {which}")
+            runs[which].append(res)
+        # captured against eager over 10 steps from one State (a driven
+        # start without its window gets the window of its own time)
+        st0 = st.map(torch.clone)
+        if model.driver_stream is not None:
+            st0 = st0.replace(drv=None)
+        a = model.run(st0, 10)
+        b = captured_run(model, st0, 10)
+        div, top = max_divergence(model, b.c)
+        rel = {k: float((getattr(b.c, k) - getattr(a.c, k)).abs().max()
+                        / getattr(a.c, k).abs().max().clamp(min=1e-30))
+               for k in ("u", "v", "w", "thl", "qt", "e12", "sv")
+               if getattr(a.c, k).numel()}
+        # (b is the compiled step's static State: read before its next
+        # call)
+        # the device's share of a step, eager and captured (the profiler's
+        # device activities of one step against the host's time a step)
+        busy = {}
+        for which in ("eager", "captured"):
+            box = [st0]
+
+            def one(graph=which == "captured"):
+                box[0] = (captured_run(model, box[0], 1) if graph
+                          else model.run(box[0], 1))
+            host_ms, nl, nd, dev_ms = profile_call(one, reps=5)
+            busy[which] = dict(host_ms=host_ms, runtime_launches=nl,
+                               device_activities=nd, device_ms=dev_ms,
+                               busy_share=dev_ms / host_ms)
+        med = {k: statistics.median(r["ms_per_step"] for r in v)
+               for k, v in runs.items()}
+        out[name] = dict(
+            eager=runs["eager"], captured=runs["captured"],
+            median_ms=med, speedup=med["eager"] / med["captured"],
+            capture_s=step.capture_seconds, graph_pool_gib=pool,
+            launches_per_replay=step.launches_per_replay,
+            captured_vs_eager=rel, max_div=div, top_div=top, busy=busy)
+        ms = lambda w: ", ".join(f"{r['ms_per_step']:.3f}" for r in runs[w])
+        phase(52, f"{name} float32 on {smi}, ms/step in turns eager, "
+                  f"captured, captured, eager ({steps} steps each, CUDA "
+                  f"events): eager {ms('eager')}, captured {ms('captured')} "
+                  f"(medians {med['eager']:.3f} and {med['captured']:.3f}, "
+                  f"{out[name]['speedup']:.2f}x; "
+                  f"{runs['captured'][0]['points_per_s']:.6g} and "
+                  f"{runs['captured'][1]['points_per_s']:.6g} points/s "
+                  f"captured); launches 3 x {steps} in every run (the "
+                  f"{'masked' if model.ibm is not None else 'unmasked'} "
+                  f"variant, {step.launches_per_replay} a replay); capture "
+                  f"{step.capture_seconds:.3f} s (warm-up step included), "
+                  f"its pool and static State {pool:.3f} GiB; peak "
+                  f"allocated eager {runs['eager'][0]['peak_mem_gib']:.3f}, "
+                  f"captured {runs['captured'][0]['peak_mem_gib']:.3f} GiB; "
+                  f"max|div u| {div:.3e}, top level {top:.3e}; captured vs "
+                  f"eager after 10 steps, each field's max|diff| / max: "
+                  + ", ".join(f"{k} {v:.3e}" for k, v in rel.items())
+                  + " (tolerance 1e-4); one step profiled: " + "; ".join(
+                      f"{w} {b['host_ms']:.3f} host ms, "
+                      f"{b['runtime_launches']} launches, "
+                      f"{b['device_activities']} device activities, "
+                      f"{b['device_ms']:.3f} device ms, busy "
+                      f"{100 * b['busy_share']:.1f}%"
+                      for w, b in busy.items()))
+        driven = model.inlet is not None
+        if not (div <= div_bound and (top <= 1e-2 if driven
+                                      else top <= div_bound)
+                and max(rel.values()) <= 1e-4):
+            raise RuntimeError(f"{name}: the captured step failed a check")
+        del model, st, st0, a, b, step
+        torch.cuda.empty_cache()
+
+    # 53. the captured step on the card against the eager CPU, 32^3 float64
+    small = {"flat": None, "urban": urban[32], "urban-EB": eb32,
+             "driven": cases.stage_urban_driven(32, CACHE),
+             "dispersion": cases.stage_urban_dispersion(32, CACHE)}
+    out["cpu_32"] = {}
+    for name, case in small.items():
+        states, start = {}, None
+        for dev in ("cpu", "cuda"):
+            model = (entry._build(32, 32, 32, "float64", device=dev)
+                     if case is None
+                     else load_case(case, "900", "float64", device=dev))
+            if start is None:
+                start = (numpy_state(model.grid, seed=7) if case is None
+                         else state_to_numpy(model.cold_start(seed=43)))
+            states[dev] = state_to_numpy(model.run(
+                state_from_numpy(start, device=dev), 5, graph=dev == "cuda"))
+        errs = leaf_errors(states["cuda"], states["cpu"])
+        worst = max(errs, key=errs.get)
+        out["cpu_32"][name] = dict(max_rel_err=errs[worst], leaf=worst,
+                                   leaves=len(errs))
+        phase(53, f"{name} 32^3 float64, 5 captured steps on the card "
+                  f"against 5 eager steps on the CPU: worst {errs[worst]:.3e}"
+                  f" ({worst}) over {len(errs)} State leaves (tolerance "
+                  f"1e-9)")
+        if not errs[worst] <= 1e-9:
+            raise RuntimeError(f"{name}: the captured step disagrees with "
+                               f"the CPU")
+
+    # 54. the captured rates side by side
+    phase(54, "captured runs: " + ", ".join(
+        f"{k} {v['median_ms']['captured']:.3f} ms/step "
+        f"({v['speedup']:.2f}x eager)" for k, v in out.items()
+        if k != "cpu_32"))
+    return out
+
+
 def main():
     # 1. a CUDA device, or nothing
     if not torch.cuda.is_available():
@@ -2588,6 +2800,9 @@ def main():
     # 49.-51. the long-horizon validation's path
     val = validation_phases(smi, fused_diff_mom, open32["recycle"])
 
+    # 52.-54. the compiled step against the eager one
+    comp = compiled_phases(smi, fused_diff_mom, div_bound, urban, eb32)
+
     foreign = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "udales_tpu"))
     if foreign:
@@ -2610,6 +2825,9 @@ def main():
          "max_abs_err_block_64x64x128": split["block_err"],
          **{f"{k}_block_64x64x128": v for k, v in split["block"].items()},
          "launches_validation_32": val["validation"]["launches"],
+         **{f"launches_captured_{k}": [r["launches"]
+                                       for r in comp[k]["captured"]]
+            for k in ("flat_128", "flat_256")},
          "max_abs_err_64": val["err64"],
          **{f"{k}_64": v for k, v in val["t64"].items()}},
         {"name": "fused_diff_mom_masked", "route": "cuda", "source": src,
@@ -2628,6 +2846,10 @@ def main():
          "max_abs_err_open_ghosts": drv["open_err"]["masked"],
          "launches_split_driven_2x2_per_rank": [
              m["masked"] for m in split["driven_main_2x2"]],
+         **{f"launches_captured_{k}": [r["launches"]
+                                       for r in comp[k]["captured"]]
+            for k in ("urban_128", "urban_eb_128", "urban_driven_128",
+                      "dispersion_128")},
          "max_abs_err_block_open_ghosts": split["open_block_err"],
          **{f"{k}_block_open_ghosts": v
             for k, v in split["open_block"].items()}},
@@ -2667,7 +2889,8 @@ def main():
                                         "open_shared_2x2", "driven_main_2x2",
                                         "simulation_2x2")},
         "validation_32": {**val["validation"], "chained": val["chained"]},
-        "recycle_warm_start_32": val["recycle_warm"]}))
+        "recycle_warm_start_32": val["recycle_warm"],
+        "compiled": comp}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

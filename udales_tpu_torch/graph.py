@@ -1,0 +1,143 @@
+"""The compiled step: one RK3 step of a Model as one captured CUDA graph
+(port of udales_tpu's ``jax.jit(model.step)``, run.py:716-717, and of the
+``lax.scan`` of ``Model.run``, run.py:709-714).
+
+`CompiledStep(model)` keeps a static State ``S`` with the structure that
+``model.step`` produces and, on the card, a ``torch.cuda.CUDAGraph`` of
+``copy_into(S, model.step(S))`` with its own memory pool.  A call copies
+the caller's State into ``S`` (unless it is ``S``) and replays the graph
+once: the step's ~2,000-6,500 launches become one, and the arithmetic is
+the eager step's, kernel for kernel.  The hand-written ``fused_diff_mom``
+is three kernel nodes of the graph.
+
+The first call, and a call with a State of another structure (a part that
+is None in one and set in the other, other shapes or dtypes), builds: one
+eager step of the caller's State on a side stream, which is also the
+warm-up (it fills ``Grid.t``'s tensors, the inlet generator's profiles,
+the nudging profiles, the cuFFT plans and the cuBLAS/cuSOLVER handles, and
+builds the kernel library), its result cloned into a new ``S``, then the
+capture.  The first call's State is that eager step's, so a chain of calls
+runs the same steps as ``model.step``.  A capture that fails raises; there
+is no eager fallback on the card.
+
+On the CPU, where CUDA graphs do not exist, a call runs the same
+``copy_into(S, model.step(S))`` body eagerly, so the CPU tests hold the
+compiled step's State handling against ``Model.step`` bit for bit.
+
+What a caller may hold: the State a call returns is ``S`` itself and stays
+valid until the next call of the same CompiledStep, which overwrites it in
+place.  The State a caller passes in is never written.  A caller that
+keeps a State across calls keeps a copy (``state.map(torch.clone)``);
+``Model.run(..., graph=True)`` and ``sim.Simulation.run`` hand back such a
+copy.  Host work between calls (``DriverStream.ensure``, the writers of
+``Simulation``) reads ``S`` after the replay that wrote it and before the
+next one, on the same stream.
+
+``fused_diff_mom``'s launch counters count executions: the calls that the
+capture recorded are taken back at the end of the capture, and each replay
+adds them again, so "launches = 3 x steps" holds for a captured run as for
+an eager one.
+
+A Model split over a mesh (``parallel.mesh``) has no compiled step: the
+gloo collectives of a shared-card split stage through the host, which a
+graph cannot hold, so ``CompiledStep`` raises NotImplementedError there.
+"""
+from __future__ import annotations
+
+import time
+
+import torch
+
+from .ops.fused_diff import fused_diff_mom
+from .state import State, copy_into, same_structure
+
+
+class CompiledStep:
+    """One RK3 step of `model` as a replayed CUDA graph (an eager body on
+    the CPU); call it as ``model.step``.  ``builds`` counts the builds
+    (captures on the card), ``capture_seconds`` the seconds of the last
+    one, warm-up step included, and ``replays`` the calls since."""
+
+    def __init__(self, model):
+        if model.mesh is not None:
+            raise NotImplementedError(
+                "the compiled step of a Model split over a mesh: its "
+                "collectives cannot be captured in a CUDA graph; step it "
+                "with model.step")
+        self.model = model
+        self.state: State | None = None     # the static State S
+        self.graph: torch.cuda.CUDAGraph | None = None
+        self.builds = 0
+        self.replays = 0
+        self.capture_seconds = 0.0
+        # fused_diff_mom's (unmasked, masked) launches in one replay
+        self.launches_per_replay = (0, 0)
+
+    @property
+    def kind(self) -> str:
+        """How a call steps: "cuda graph" on the card, "eager body" on the
+        CPU."""
+        return "cuda graph" if self.model.device.type == "cuda" \
+            else "eager body"
+
+    def __call__(self, state: State) -> State:
+        S = self.state
+        if S is None or (state is not S and not same_structure(S, state)):
+            return self._build(state)
+        if state is not S:
+            copy_into(S, state)
+        if self.graph is None:
+            copy_into(S, self.model.step(S))
+        else:
+            self.graph.replay()
+            du, dm = self.launches_per_replay
+            fused_diff_mom.launch_count += du
+            fused_diff_mom.masked_launch_count += dm
+        self.replays += 1
+        return S
+
+    def _build(self, state: State) -> State:
+        """One eager step of `state` into a new static State, then (on the
+        card) the capture of the step on it; returns the static State."""
+        model = self.model
+        t0 = time.perf_counter()
+        self.graph = None
+        self.state = None
+        if model.device.type != "cuda":
+            self.state = model.step(state).map(torch.clone)
+        else:
+            self.state = self._capture(state)
+        self.builds += 1
+        self.replays = 0
+        self.capture_seconds = time.perf_counter() - t0
+        return self.state
+
+    def _capture(self, state: State) -> State:
+        model = self.model
+        cur = torch.cuda.current_stream(model.device)
+        side = torch.cuda.Stream(model.device)
+        side.wait_stream(cur)
+        with torch.cuda.stream(side):
+            out = model.step(state)            # the warm-up
+        cur.wait_stream(side)
+        S = out.map(torch.clone)
+        # `out` lives in the side stream's blocks: free them only after the
+        # clones have read them
+        torch.cuda.synchronize(model.device)
+        del out
+        graph = torch.cuda.CUDAGraph()
+        before = (fused_diff_mom.launch_count,
+                  fused_diff_mom.masked_launch_count)
+        try:
+            with torch.cuda.graph(graph):
+                copy_into(S, model.step(S))
+        finally:
+            after = (fused_diff_mom.launch_count,
+                     fused_diff_mom.masked_launch_count)
+            # the capture recorded these launches; none ran
+            (fused_diff_mom.launch_count,
+             fused_diff_mom.masked_launch_count) = before
+        self.launches_per_replay = (after[0] - before[0],
+                                    after[1] - before[1])
+        self.graph = graph
+        return S

@@ -126,17 +126,11 @@ def periodic_eb_corr(grid: Grid, cfg: Config, tot_Tflux, tot_qflux):
     return profile(tot_Tflux), profile(tot_qflux)
 
 
-def grwdamp(c, grid: Grid, cfg: Config, u0av, v0av, thl0av, qt0av,
-            ug=None, vg=None):
-    """Sponge-layer gravity-wave damping (modboundary.f90:38-62, 1447-1491).
-    Returns tendencies for (u, v, w, thl, qt)."""
-    nx, ny, nz = grid.shape
-    kw = dict(dtype=c.u.dtype, device=c.u.device)
-    igrw = cfg.physics.igrw_damp
-    if igrw == 0:
-        z3 = torch.zeros((nx, ny, nz), **kw)
-        return z3, z3, torch.zeros((nx, ny, nz + 1), **kw), z3, z3
-    # tsc profile (initboundary:45-59), rnu0 = 2.75e-3
+def sponge_profile(grid: Grid, cfg: Config, device="cpu") -> torch.Tensor:
+    """The sponge layer's damping rate tsc (nz,) of grwdamp
+    (modboundary.f90 initboundary:45-59, rnu0 = 2.75e-3) in the grid's
+    dtype on `device`; a Model builds it once, at load."""
+    nz = grid.ktot
     rnu0 = 2.75e-3
     # lowest sponge level: &DOMAIN ksp (1-based as in the reference) or the
     # default ksp = kb-1 + max(min(3*kmax/4, kmax-15), 1) (modboundary.f90:47)
@@ -148,7 +142,24 @@ def grwdamp(c, grid: Grid, cfg: Config, u0av, v0av, thl0av, qt0av,
     tsc = np.zeros(nz)
     tsc[ksp:] = rnu0 * np.sin(
         0.5 * np.pi * (zf[ksp:] - zspb) / (zspt - zspb)) ** 2
-    tsc = torch.as_tensor(tsc, **kw)[None, None, :]
+    return torch.as_tensor(tsc, dtype=grid.torch_dtype, device=device)
+
+
+def grwdamp(c, grid: Grid, cfg: Config, u0av, v0av, thl0av, qt0av,
+            ug=None, vg=None, tsc=None):
+    """Sponge-layer gravity-wave damping (modboundary.f90:38-62, 1447-1491).
+    `tsc` is `sponge_profile` on the fields' device (built here when None).
+    Returns tendencies for (u, v, w, thl, qt)."""
+    nx, ny, nz = grid.shape
+    kw = dict(dtype=c.u.dtype, device=c.u.device)
+    igrw = cfg.physics.igrw_damp
+    if igrw == 0:
+        z3 = torch.zeros((nx, ny, nz), **kw)
+        return z3, z3, torch.zeros((nx, ny, nz + 1), **kw), z3, z3
+    rnu0 = 2.75e-3
+    if tsc is None:
+        tsc = sponge_profile(grid, cfg, c.u.device)
+    tsc = tsc[None, None, :]
     tscw = torch.cat([tsc[..., :1] * 0, tsc], dim=2)
 
     if igrw == 2:
@@ -228,11 +239,10 @@ def fixuinf1(c, grid: Grid, cfg: Config, dt, u0av, v0av):
     return du, dv
 
 
-def shifted_pbcs(c, grid: Grid, cfg: Config, rk3coef, u0av, ds: float):
-    """Spanwise-shift nudging near the outlet half of the domain
-    (modforces.f90:953-980), used with shifted periodic BCs.  The outlet
-    half is the domain's; on a block (``Grid.block``) the rank takes its
-    part of the profile and its y neighbours from the mesh."""
+def shift_profile(grid: Grid, ds: float, device="cpu") -> torch.Tensor:
+    """The spanwise-shift velocity profile vsx (the block's x cells) of
+    shifted_pbcs (modforces.f90:953-980) in the grid's dtype on `device`;
+    a Model builds it once, at load.  The outlet half is the domain's."""
     nx = grid.global_shape[0]
     ih = nx // 2
     xh = np.arange(nx + 1) * grid.dx      # the domain's (Grid.__init__)
@@ -241,9 +251,19 @@ def shifted_pbcs(c, grid: Grid, cfg: Config, rk3coef, u0av, ds: float):
                     * np.sin(np.pi * (xh[ih + 1: nx] - xh[ih])
                              / (0.5 * grid.xlen)))
     vsx = vsx[grid.i0: grid.i0 + grid.itot]
-    vs = torch.as_tensor(vsx, dtype=c.u.dtype,
-                         device=c.u.device)[:, None, None] \
-        * u0av[None, None, :]
+    return torch.as_tensor(vsx, dtype=grid.torch_dtype, device=device)
+
+
+def shifted_pbcs(c, grid: Grid, cfg: Config, rk3coef, u0av, ds: float,
+                 vsx=None):
+    """Spanwise-shift nudging near the outlet half of the domain
+    (modforces.f90:953-980), used with shifted periodic BCs.  `vsx` is
+    `shift_profile` on the fields' device (built here when None).  On a
+    block (``Grid.block``) the rank takes its part of the profile and its
+    y neighbours from the mesh."""
+    if vsx is None:
+        vsx = shift_profile(grid, ds, c.u.device)
+    vs = vsx[:, None, None] * u0av[None, None, :]
     mesh = grid.mesh
     if mesh is None:
         dyj = lambda f: (f - torch.roll(f, 1, dims=1)) * grid.dyi

@@ -41,12 +41,13 @@ the static geometry the same way.
 """
 from __future__ import annotations
 
-import dataclasses
 import time
 from contextlib import contextmanager
 
 import torch
 import torch.distributed as dist
+
+from ..state import map_state
 
 @contextmanager
 def _host_wait_allowed():
@@ -377,23 +378,6 @@ def _leaf_spec(path, leaf) -> tuple:
     if nd >= 2:
         return field_spec(nd)
     return ()
-
-
-def map_state(fn, obj, path=()):
-    """fn(path, tensor) over every tensor leaf of a State (dataclasses and
-    dicts nest; None stays None), rebuilt with the results."""
-    if obj is None:
-        return None
-    if isinstance(obj, torch.Tensor):
-        return fn(path, obj)
-    if dataclasses.is_dataclass(obj):
-        return dataclasses.replace(obj, **{
-            f.name: map_state(fn, getattr(obj, f.name), path + (f.name,))
-            for f in dataclasses.fields(obj)})
-    if isinstance(obj, dict):
-        return {k: map_state(fn, v, path + (k,)) for k, v in obj.items()}
-    raise TypeError(f"State leaf {'.'.join(map(str, path))}: "
-                    f"{type(obj).__name__} is not a tensor")
 
 
 def shard_state(state, mesh: Mesh):

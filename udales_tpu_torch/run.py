@@ -8,7 +8,9 @@ the Poisson solver and integrates
 
 with m <- c on the third substep.  `dt` and `timee` stay 0-d device
 tensors and `step` makes no host synchronisation (no `.item()`, no Python
-branch on a tensor), so N steps can later be captured as one CUDA graph.
+branch on a tensor) and no host-to-device copy, so `step_jit` captures it
+as one CUDA graph (``graph.CompiledStep``) and ``run(..., graph=True)``
+replays it.
 
 With an ``ibm.IBM`` the substep takes the IBM hooks where udales_tpu's does
 (run.py:162-535): masked thermodynamics slab averages, the pmask-folded
@@ -76,6 +78,7 @@ import torch
 from .config import (BCTOPM_PRESSURE, BC_DRIVER, BC_PROFILE,
                      IADV_KAPPA, SGS_ONEEQN, Config, const, load_namoptions)
 from .convert import load_profiles
+from .graph import CompiledStep
 from .grid import Grid
 from .io.inputs import CaseInputs, large_scale_pressure_gradient
 from .state import (FACSTAT_FIELDS, Ctl, Fields, State, initial_state,
@@ -86,7 +89,8 @@ from .ops.boundary import (Ghosts, ghost_scalar_kappa, ghost_u, ghost_v,
                            ghost_w, make_ghosts, split_pad)
 from .ops.forces import (coriolis, fixuinf1, forces, grwdamp, lstend,
                          masscorr_uvol, masscorr_vvol, nudge_top,
-                         periodic_eb_corr, shifted_pbcs)
+                         periodic_eb_corr, shift_profile, shifted_pbcs,
+                         sponge_profile)
 from .ops.fused_diff import fused_diff_mom
 from .ops.halo import pad_edge, pad_periodic_xy, pad_wrap
 from .ops.inletgen import (InletGenParams, init_inletgen, inletgen_planes,
@@ -192,6 +196,7 @@ class Model:
         self.need_taudiag = bool(cfg.output.lfielddump
                                  and codes & {"tx", "ty", "tz", "hf"})
         self._nudge_prof = None
+        self._step_jit = None    # graph.CompiledStep, built by step_jit()
         self.pois = PoissonSolver(grid, cfg, device=self.device, mesh=mesh)
         nz = grid.ktot
         kw = dict(dtype=grid.torch_dtype, device=self.device)
@@ -202,6 +207,13 @@ class Model:
         self.thlpcar = torch.zeros(nz, **kw)
         self.whls = torch.zeros(nz + 1, **kw)
         self.dqtdtls = torch.zeros(nz, **kw)
+        # the static profiles of the sponge layer and the shifted periodic
+        # boundaries, on the device from the start: a host-to-device copy
+        # inside the step would not be capturable
+        self.sponge = (sponge_profile(grid, cfg, self.device)
+                       if cfg.physics.igrw_damp != 0 else None)
+        self.shift = (shift_profile(grid, cfg.physics.ds, self.device)
+                      if cfg.physics.ds > 0 else None)
 
     # -- initial condition -------------------------------------------------
     def cold_start(self, seed: int = 43, dt0: float | None = None) -> State:
@@ -342,7 +354,7 @@ class Model:
         # --- shifted periodic BCs (modforces.f90:953, after advection) -----
         if cfg.physics.ds > 0:
             su, sv, sw = shifted_pbcs(c, grid, cfg, rk3coef, th.u0av,
-                                      cfg.physics.ds)
+                                      cfg.physics.ds, vsx=self.shift)
             du, dv, dw = du + su, dv + sv, dw + sw
 
         # --- subgrid diffusion: the hand-written kernel on CUDA ------------
@@ -409,7 +421,7 @@ class Model:
         if cfg.physics.igrw_damp != 0:
             gu, gv, gw, gthl, gqt = grwdamp(
                 c, grid, cfg, th.u0av, th.v0av, th.thl0av, th.qt0av,
-                self.ug, self.vg)
+                self.ug, self.vg, tsc=self.sponge)
             du, dv, dw = du + gu, dv + gv, dw + gw
             if ltemp:
                 dthl = dthl + gthl
@@ -776,13 +788,29 @@ class Model:
                 state.fac, state.timee, skyLW=skyLW, netsw=netsw))
         return state
 
-    def run(self, state: State, nsteps: int) -> State:
+    def step_jit(self):
+        """The compiled step (``graph.CompiledStep``): `step` as one CUDA
+        graph replayed a call on the card, the same body eagerly on the
+        CPU; built once per Model and cached, as udales_tpu's
+        ``jax.jit(self.step)``.  A Model split over a mesh raises
+        NotImplementedError: its collectives cannot be captured."""
+        if self._step_jit is None:
+            self._step_jit = CompiledStep(self)
+        return self._step_jit
+
+    def run(self, state: State, nsteps: int, graph: bool = False) -> State:
         """`nsteps` full steps; a streaming driver replay refills its
-        window between them."""
+        window between them, outside the step.  With `graph` the steps are
+        replays of `step_jit()` (udales_tpu's on-device ``lax.scan``), and
+        the State returned is a copy of the compiled step's static State,
+        the caller's to keep; eagerly (the default) each step is `step`."""
+        step = self.step_jit() if graph else self.step
         for _ in range(nsteps):
             if self.driver_stream is not None:
                 state = self.driver_stream.ensure(state)
-            state = self.step(state)
+            state = step(state)
+        if graph and nsteps > 0:
+            state = state.map(torch.clone)
         return state
 
 

@@ -6,7 +6,11 @@ events on the reference's cadences: field dumps (tfielddump), statistics
 samples and writes (tsample / tstatsdump), facet outputs (dtEB, dtfac),
 restart writes (trestart), the runtime monitor (tcheck), the precursor and
 inlet-plane recorders, and the ``exit_now.<exp>`` graceful-stop sentinel
-(modsave.f90:63-75).  The step itself makes no host synchronisation; the
+(modsave.f90:63-75).  On one process the loop steps with the compiled
+step (``Model.step_jit``: one CUDA graph replayed a step on the card), and
+the driver's window refill, the writers and the loop's reads run between
+replays on the State the graph writes in place; no writer keeps a State
+tensor past its call.  The step itself makes no host synchronisation; the
 loop reads the simulated time and the time step once a step, in one copy,
 and hands the time to every writer.
 
@@ -48,7 +52,10 @@ from .state import zero_facstats
 
 
 def _host(a):
-    return a.detach().cpu().numpy()
+    """A host copy of `a` that owns its memory: the recorders keep it past
+    the step, and on the CPU ``.numpy()`` of the tensor itself would share
+    the compiled step's static State, which the next step overwrites."""
+    return a.detach().to("cpu", copy=True).numpy()
 
 
 class DriverRecorder:
@@ -175,7 +182,14 @@ class Simulation:
         grid, dev = view.grid, model.device
         self.outdir = Path(outdir)
         self.outdir.mkdir(parents=True, exist_ok=True)
-        self.step = model.step
+        # the step: one process steps with the compiled step (a CUDA graph
+        # replayed a step on the card, its eager body on the CPU), as
+        # udales_tpu steps with jax.jit(model.step); a split Model steps
+        # eagerly, since its collectives cannot be captured
+        self.compiled = self.mesh is None
+        self.step = model.step_jit() if self.compiled else model.step
+        self.step_kind = (f"compiled ({self.step.kind})" if self.compiled
+                          else "eager (split over a mesh)")
         # the writers: every switch, on rank 0 of a split
         o = dataclasses.replace(cfg.output, **({} if self.root else {
             k: False for k in ("lfielddump", "lxytdump", "lxydump",
@@ -348,7 +362,8 @@ class Simulation:
             if prof is not None:
                 self._stop_profile(prof)
             self._close()
-        return state
+        # the compiled step's State is its own until its next call
+        return state.map(torch.clone) if self.compiled else state
 
     def _exit_now(self):
         """The graceful-stop sentinel ``exit_now.<exp>`` exists."""
@@ -761,6 +776,6 @@ def main(argv=None):
     final = sim.run(state, runtime=args.runtime, seed=args.seed)
     print(f"done: t={float(final.timee):.3f}s after {sim.ntrun} steps; "
           f"kernel launches: fused_diff_mom {fused_diff_mom.launch_count}, "
-          f"fused_diff_mom_masked {fused_diff_mom.masked_launch_count}",
-          flush=True)
+          f"fused_diff_mom_masked {fused_diff_mom.masked_launch_count}; "
+          f"step {sim.step_kind}", flush=True)
     return final

@@ -15,9 +15,16 @@
       controller ``ctl``, the rescale-recycle generator ``ig``, the
       rolling driver window ``drv`` and the wall-stress diagnostics
       ``taud`` that the tx/ty/tz/hf field dumps write.
+
+``State.map`` and ``Fields.map`` apply a function to every tensor leaf (the
+counterparts of udales_tpu's ``jax.tree.map``; ``map_state`` also hands
+the function the leaf's path); ``copy_into`` writes one
+State's leaves into another's, in place, as the compiled step
+(``graph.CompiledStep``) keeps its static State.
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass, replace
 from typing import Any
 
@@ -38,6 +45,10 @@ class Fields:
     bx: Any = None  # XPlanes outlet state for open-x runs (ops/openbc.py)
     by: Any = None  # YPlanes outlet state for open-y runs (ops/openbc.py)
 
+    def map(self, fn) -> "Fields":
+        """`fn` applied to every tensor leaf, the outlet planes included."""
+        return map_state(lambda _, t: fn(t), self)
+
 
 @dataclass(frozen=True)
 class State:
@@ -57,6 +68,102 @@ class State:
 
     def replace(self, **kw) -> "State":
         return replace(self, **kw)
+
+    def map(self, fn) -> "State":
+        """`fn` applied to every tensor leaf, through ``fac``,
+        ``facstats``, ``ctl``, ``ig``, ``drv``, ``taud`` and the outlet
+        planes ``bx``/``by``; None stays None."""
+        return map_state(lambda _, t: fn(t), self)
+
+
+def map_state(fn, obj, path=()):
+    """fn(path, tensor) over every tensor leaf of a State or any of its
+    parts (dataclasses and dicts nest; None stays None), rebuilt with the
+    results."""
+    if obj is None:
+        return None
+    if isinstance(obj, torch.Tensor):
+        return fn(path, obj)
+    if dataclasses.is_dataclass(obj):
+        return replace(obj, **{
+            f.name: map_state(fn, getattr(obj, f.name), path + (f.name,))
+            for f in dataclasses.fields(obj)})
+    if isinstance(obj, dict):
+        return {k: map_state(fn, v, path + (k,)) for k, v in obj.items()}
+    raise TypeError(f"State leaf {'.'.join(map(str, path))}: "
+                    f"{type(obj).__name__} is not a tensor")
+
+
+def _leaf_pairs(dst, src, path="state"):
+    """(path, dst leaf, src leaf) over two trees of one structure; raises
+    ValueError where the structure, a shape, a dtype or a device
+    differs."""
+    if isinstance(dst, torch.Tensor):
+        if not isinstance(src, torch.Tensor):
+            raise ValueError(f"copy_into: {path} is a tensor in the "
+                             f"destination and {type(src).__name__} in the "
+                             f"source")
+        if (src.shape, src.dtype, src.device) != (dst.shape, dst.dtype,
+                                                  dst.device):
+            raise ValueError(
+                f"copy_into: {path} is {tuple(src.shape)} {src.dtype} on "
+                f"{src.device} in the source, {tuple(dst.shape)} "
+                f"{dst.dtype} on {dst.device} in the destination")
+        yield path, dst, src
+    elif dataclasses.is_dataclass(dst) and not isinstance(dst, type):
+        if type(src) is not type(dst):
+            raise ValueError(f"copy_into: {path} is {type(dst).__name__} in "
+                             f"the destination and {type(src).__name__} in "
+                             f"the source")
+        for f in dataclasses.fields(dst):
+            yield from _leaf_pairs(getattr(dst, f.name),
+                                   getattr(src, f.name), f"{path}.{f.name}")
+    elif isinstance(dst, dict):
+        if not isinstance(src, dict) or src.keys() != dst.keys():
+            raise ValueError(f"copy_into: {path} has keys "
+                             f"{sorted(dst)} in the destination and "
+                             f"{sorted(src) if isinstance(src, dict) else src}"
+                             f" in the source")
+        for k in dst:
+            yield from _leaf_pairs(dst[k], src[k], f"{path}.{k}")
+    elif dst is None or src is None:
+        if dst is not src:
+            raise ValueError(f"copy_into: {path} is "
+                             f"{'None' if dst is None else 'set'} in the "
+                             f"destination and "
+                             f"{'None' if src is None else 'set'} in the "
+                             f"source")
+    elif dst != src:
+        raise ValueError(f"copy_into: {path} is {dst!r} in the destination "
+                         f"and {src!r} in the source")
+
+
+def same_structure(a, b) -> bool:
+    """Whether `copy_into(a, b)` would take `b`: the same tree, shapes,
+    dtypes and devices."""
+    try:
+        for _ in _leaf_pairs(a, b):
+            pass
+    except ValueError:
+        return False
+    return True
+
+
+def copy_into(dst, src) -> None:
+    """Write every tensor leaf of `src` into the same leaf of `dst`, in
+    place (``Tensor.copy_``); `dst` and `src` are States, Fields or any of
+    their parts.  Raises ValueError, before it writes anything, where the
+    two differ in structure (a part None in one and set in the other, other
+    dict keys or dataclass types), shape, dtype or device.  A source leaf
+    that is its own destination is skipped; one that shares memory with
+    another destination leaf is cloned first, so the result does not
+    depend on the order of the copies."""
+    pairs = list(_leaf_pairs(dst, src))
+    held = {d.untyped_storage().data_ptr() for _, d, _ in pairs}
+    copies = [(d, s.clone() if s.untyped_storage().data_ptr() in held
+               else s) for _, d, s in pairs if s is not d]
+    for d, s in copies:
+        d.copy_(s)
 
 
 FACSTAT_FIELDS = ("tau_x", "tau_y", "tau_z", "pres", "pres2", "htc", "cth")

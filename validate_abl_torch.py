@@ -3,8 +3,8 @@
 The port's counterpart of validate_abl.py, with its case, its checks and
 its bounds: O(10^4-10^5) RK3 steps of the pressure-driven neutral ABL
 (periodic x/y, log-law wall functions at the floor, Vreman SGS; the flat
-main path ``entry._build`` -> ``Model.step``, which launches the unmasked
-``fused_diff_mom`` kernel 3 times a step), then
+main path ``entry._build`` -> ``Model.step_jit``, the step as one CUDA
+graph that holds the unmasked ``fused_diff_mom`` kernel 3 times), then
 
   1. no NaN and bounded velocities over the whole run (every chunk);
   2. statistical stationarity: the rms of the resolved TKE over the last
@@ -110,16 +110,20 @@ def stress_profile(model, state):
 
 
 def run_chunk(model, state, chunk):
-    """`chunk` steps with the stress profile summed on the device in the
-    field dtype, and no host wait until the chunk's one copy.  Returns the
-    State and the chunk's record: the final mean u profile ("prof"), the
-    chunk-mean stress profile ("tau"), and KE, resolved TKE, max|u|, timee
-    and dt at the chunk's end (`SCALARS`), as float64 NumPy values."""
+    """`chunk` steps of the compiled step (``Model.step_jit``: one CUDA
+    graph replayed a step on the card) with the stress profile summed on
+    the device in the field dtype between replays, and no host wait until
+    the chunk's one copy.  Returns the State (the compiled step's own,
+    valid until its next call) and the chunk's record: the final mean u
+    profile ("prof"), the chunk-mean stress profile ("tau"), and KE,
+    resolved TKE, max|u|, timee and dt at the chunk's end (`SCALARS`), as
+    float64 NumPy values."""
     nz = model.grid.ktot
     c = state.c
     acc = torch.zeros(nz - 1, dtype=c.u.dtype, device=c.u.device)
+    step = model.step_jit()
     for _ in range(chunk):
-        state = model.step(state)
+        state = step(state)
         acc += stress_profile(model, state)
     c = state.c
     uprof = c.u.mean(dim=(0, 1))
