@@ -16,9 +16,10 @@ udales_tpu_torch`` with every output, restart continuation, the output
 families on the other cases, the driver's cost and the runmodes.  Last, the
 path of the long-horizon check ``validate_abl_torch.py`` (phases 49-51),
 and the compiled step, a CUDA graph replayed once a step, against the
-eager one on every main path (phases 52-54).  ``Simulation``, the CLI and
-the validation step with the compiled step on one process (phases 31-34,
-49-51).
+eager one on every main path (phases 52-54), and the compiled step of a
+Model split over a 1 x 1 NCCL mesh (phases 55-57).  ``Simulation``, the
+CLI and the validation step with the compiled step (phases 31-34, 49-51,
+57).
 Phases, one line each; any failure raises and the script exits non-zero
 without a result line:
 
@@ -194,8 +195,37 @@ without a result line:
      float64, every State leaf (1e-9): flat, urban, urban-EB, driven and
      dispersion
  54. the captured rates side by side
+ 55. the compiled step of a split Model (Model.run(..., graph=True) on a
+     1 x 1 NCCL mesh, which goes through every collective of the split;
+     NCCL's version printed): flat, urban, urban-EB, driven and
+     rescale-recycle 32^3 float64, 5 captured steps each, every State leaf
+     against the eager split run and against Model.run on one process
+     (1e-12), the same collectives and bytes as the eager split run
+ 56. urban and driven urban 128^3 float32 on the 1 x 1 NCCL mesh: warm-up,
+     the build, runs in turns eager, captured, captured, eager of 20 steps
+     (ms/step beside phase 52's one-process captured step, collectives and
+     bytes a step in every run, masked launches = 3 x steps, every replay
+     under torch.cuda.set_sync_debug_mode("error") with the window refill
+     outside it), capture seconds, the pool and static State; captured
+     against eager over 10 steps (1e-4 of each field's max), max|div u|
+     under phase 12's bound (phase 20's on the driven path)
+ 57. Simulation of phase 48's driven urban 32^3 float64 case on the 1 x 1
+     NCCL mesh, stepping compiled (a CUDA graph), against the
+     single-process Simulation (every array handed to a writer and the
+     final State, 1e-9); then the NCCL group is destroyed after its graphs
+     are freed, and a 1 x 1 gloo mesh that stages through the host refuses
+     the compiled step on the card (NotImplementedError, printed) and its
+     Simulation steps eagerly
 The line before the last is a JSON object describing the kernels and the
 main paths; the last line is {"ok": true, "device": {...}}.
+
+    python3 chip_smoke.py --cards
+
+needs four cards and runs phase 58 alone: the compiled step of a Model
+split over 2 x 2 NCCL ranks, one a card (urban and driven urban 32^3
+float64 captured against the eager split and one card; urban and driven
+urban 128^3 float32 captured and eager in turns beside one card's
+captured step), ending with a JSON line of its numbers.
 """
 from __future__ import annotations
 
@@ -396,6 +426,59 @@ def timed_run(model, state, steps, graph, fused, label):
                 points_per_s=n / (ms * 1e-3), launches=launches,
                 peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
                 reserved_gib=torch.cuda.memory_reserved() / 2 ** 30), state
+
+
+def captured_turns(model, steps, fused, label, before_run=None):
+    """The body of phases 52, 56 and 58 for one path: 3 eager warm-up
+    steps from the cold start, the build (one eager step, then the
+    capture; the memory its pool and static State hold), runs in turns
+    eager, captured, captured, eager of `steps` steps (`timed_run`; with a
+    mesh, its collectives and bytes a step beside each; `before_run` is
+    called before each run), then captured against eager over 10 steps
+    from one State (a driven start without its window gets the window of
+    its own time).  Returns (runs {"eager": [...], "captured": [...]}, the
+    compiled step, pool GiB, the State of the comparison's start, {field:
+    max|captured - eager| / max|eager|}, (max|div u|, top level) of the
+    captured fields)."""
+    from udales_tpu_torch.parallel.mesh import gather_state
+    from udales_tpu_torch import entry
+    mesh = model.mesh
+    start = (entry._init_state(model, seed=43) if model.inputs is None
+             else model.cold_start(seed=43))
+    st = model.run(start, 3)                           # eager warm-up
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    reserved0 = torch.cuda.memory_reserved()
+    step = model.step_jit()
+    st = captured_run(model, st, 1)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    pool = (torch.cuda.memory_reserved() - reserved0) / 2 ** 30
+    runs = {"eager": [], "captured": []}
+    for which in ("eager", "captured", "captured", "eager"):
+        if before_run is not None:
+            before_run()
+        if mesh is not None:
+            mesh.reset_counts()
+        res, st = timed_run(model, st, steps, which == "captured", fused,
+                            f"{label} {which}")
+        if mesh is not None:
+            res.update(collectives=mesh.collectives / steps,
+                       bytes=mesh.bytes / steps)
+        runs[which].append(res)
+    st0 = st.map(torch.clone)
+    if model.driver_stream is not None:
+        st0 = st0.replace(drv=None)
+    whole = ((lambda x: x) if mesh is None
+             else (lambda x: gather_state(x, mesh)))
+    a = whole(model.run(st0, 10)).c
+    b = whole(captured_run(model, st0, 10)).c
+    div = max_divergence(SimpleNamespace(grid=model.domain_grid), b)
+    rel = {k: float((getattr(b, k) - getattr(a, k)).abs().max()
+                    / getattr(a, k).abs().max().clamp(min=1e-30))
+           for k in ("u", "v", "w", "thl", "qt", "e12", "sv")
+           if getattr(a, k).numel()}
+    return runs, step, pool, st0, rel, div
 
 
 def run_main_path(model, state, warm, steps, smi, fused, label):
@@ -1532,6 +1615,34 @@ z0h = 0.001
 """
 
 
+def record_errors(got, ref, label):
+    """(worst error, its file:variable, files) of the writers' records
+    `got` {file name: [(time, {variable: array})]} against `ref`, each
+    variable of each record relative to `record_scale`; raises where the
+    files, the record counts or the record times differ."""
+    if sorted(got) != sorted(ref):
+        raise RuntimeError(f"Simulation on {label} wrote {sorted(got)}, "
+                           f"the single process {sorted(ref)}")
+    worst, at = 0.0, None
+    for fname, recs in ref.items():
+        mine = got[fname]
+        if len(mine) != len(recs):
+            raise RuntimeError(f"{fname}: {len(mine)} records on {label}, "
+                               f"{len(recs)} in one process")
+        for (tg, dg), (tr, dr) in zip(mine, recs):
+            if abs(tg - tr) > 1e-12 * max(abs(tr), 1.0):
+                raise RuntimeError(f"{fname}: a record at t = {tg}, the "
+                                   f"single process's at {tr}")
+            for k, r in dr.items():
+                scale = record_scale(k, dr)
+                err = float(np.abs(dg[k] - r).max(initial=0.0))
+                err = err / scale if scale > 0 else (0.0 if err == 0
+                                                     else math.inf)
+                if err >= worst:
+                    worst, at = err, f"{fname}:{k}"
+    return worst, at, len(ref)
+
+
 def stage_open_family(n):
     """Phase 45's open family at n^3 under .bench_cache/open{n}/ (experiment
     900): "driven" (``cases.stage_urban_driven`` with records 0.05 s apart
@@ -2213,28 +2324,8 @@ def split_phases(smi, fused, urban_cases):
     # second moment of the means it is formed from: `record_scale`)
     sim_ranks = urban_split["simulation"]
     got = sim_ranks[0]
-    rec_worst, rec_at, files = 0.0, None, 0
-    if sorted(got["records"]) != sorted(sim_records):
-        raise RuntimeError(f"Simulation on 2 x 2 wrote "
-                           f"{sorted(got['records'])}, the single process "
-                           f"{sorted(sim_records)}")
-    for fname, recs in sim_records.items():
-        mine = got["records"][fname]
-        if len(mine) != len(recs):
-            raise RuntimeError(f"{fname}: {len(mine)} records on 2 x 2, "
-                               f"{len(recs)} in one process")
-        files += 1
-        for (tg, dg), (tr, dr) in zip(mine, recs):
-            if abs(tg - tr) > 1e-12 * max(abs(tr), 1.0):
-                raise RuntimeError(f"{fname}: a record at t = {tg}, the "
-                                   f"single process's at {tr}")
-            for k, r in dr.items():
-                scale = record_scale(k, dr)
-                err = float(np.abs(dg[k] - r).max(initial=0.0))
-                err = err / scale if scale > 0 else (0.0 if err == 0
-                                                     else math.inf)
-                if err >= rec_worst:
-                    rec_worst, rec_at = err, f"{fname}:{k}"
+    rec_worst, rec_at, files = record_errors(got["records"], sim_records,
+                                             "2 x 2")
     errs = leaf_errors(got["state"], sim_ref)
     worst = max(errs, key=errs.get)
     model = load_case(sim_case, "900", "float64")
@@ -2272,6 +2363,9 @@ def split_phases(smi, fused, urban_cases):
             and all(r["masked"] == 3 * got["steps"] for r in sim_ranks)):
         raise RuntimeError("Simulation on the split Model disagrees with "
                            "the single process")
+    # phase 57's reference: the single-process Simulation (not printed)
+    out["_sim48"] = dict(case=sim_case, start=open_start["driven"],
+                         records=sim_records, state=sim_ref, steps=sim_steps)
     return out
 
 
@@ -2457,38 +2551,9 @@ def compiled_phases(smi, fused, div_bound, urban, eb32):
     }
     for name, build in paths.items():
         model = build()
-        start = (entry._init_state(model, seed=43) if model.inputs is None
-                 else model.cold_start(seed=43))
-        st = model.run(start, 3)                       # eager warm-up
-        # the build: one eager step on a side stream, then the capture
-        torch.cuda.synchronize()
-        torch.cuda.empty_cache()
-        reserved0 = torch.cuda.memory_reserved()
-        step = model.step_jit()
-        st = captured_run(model, st, 1)
-        torch.cuda.synchronize()
-        torch.cuda.empty_cache()
-        pool = (torch.cuda.memory_reserved() - reserved0) / 2 ** 30
         steps = 10 if name == "flat_256" else 20
-        runs = {"eager": [], "captured": []}
-        for which in ("eager", "captured", "captured", "eager"):
-            res, st = timed_run(model, st, steps, which == "captured", fused,
-                                f"{name} {which}")
-            runs[which].append(res)
-        # captured against eager over 10 steps from one State (a driven
-        # start without its window gets the window of its own time)
-        st0 = st.map(torch.clone)
-        if model.driver_stream is not None:
-            st0 = st0.replace(drv=None)
-        a = model.run(st0, 10)
-        b = captured_run(model, st0, 10)
-        div, top = max_divergence(model, b.c)
-        rel = {k: float((getattr(b.c, k) - getattr(a.c, k)).abs().max()
-                        / getattr(a.c, k).abs().max().clamp(min=1e-30))
-               for k in ("u", "v", "w", "thl", "qt", "e12", "sv")
-               if getattr(a.c, k).numel()}
-        # (b is the compiled step's static State: read before its next
-        # call)
+        runs, step, pool, st0, rel, (div, top) = captured_turns(
+            model, steps, fused, name)
         # the device's share of a step, eager and captured (the profiler's
         # device activities of one step against the host's time a step)
         busy = {}
@@ -2540,7 +2605,7 @@ def compiled_phases(smi, fused, div_bound, urban, eb32):
                                       else top <= div_bound)
                 and max(rel.values()) <= 1e-4):
             raise RuntimeError(f"{name}: the captured step failed a check")
-        del model, st, st0, a, b, step
+        del model, st0, step
         torch.cuda.empty_cache()
 
     # 53. the captured step on the card against the eager CPU, 32^3 float64
@@ -2577,6 +2642,461 @@ def compiled_phases(smi, fused, div_bound, urban, eb32):
         f"({v['speedup']:.2f}x eager)" for k, v in out.items()
         if k != "cpu_32"))
     return out
+
+
+# --- the compiled step of a split Model (phases 55-57) ------------------------
+
+def split_runs_32(name, build, start, mesh):
+    """Phase 55 for one case: 5 steps of the one-process Model, then of a
+    Model on the 1 x 1 NCCL `mesh` eagerly and as replays of its captured
+    step, each on a Model of its own (a driver stream keeps its last
+    window), from the whole-domain numpy `start`.  Returns the gathered
+    States, collectives and bytes of the two split runs and the one
+    process's State."""
+    from udales_tpu_torch.convert import state_from_numpy, state_to_numpy
+    from udales_tpu_torch.parallel.mesh import gather_state
+    from udales_tpu_torch.parallel.multihost import shard_state_global
+    one = state_to_numpy(build(None).run(state_from_numpy(
+        start, device="cuda"), 5))
+    out = {"one": one}
+    for which in ("eager", "captured"):
+        model = build(mesh)
+        st = shard_state_global(state_from_numpy(start), mesh, device="cuda")
+        mesh.reset_counts()
+        st = model.run(st, 5, graph=which == "captured")
+        torch.cuda.synchronize()
+        out[which] = dict(state=state_to_numpy(gather_state(st, mesh)),
+                          collectives=mesh.collectives, bytes=mesh.bytes)
+        if which == "captured":
+            step = model.step_jit()
+            if step.kind != "cuda graph" or step.graph is None:
+                raise RuntimeError(f"{name}: the split step was not "
+                                   f"captured ({step.kind})")
+            out["per_replay"] = step.collectives_per_replay
+    return out
+
+
+def split_main_path(name, model, smi, fused, div_bound, one_ms):
+    """Phase 56 for one 128^3 path on the 1 x 1 NCCL mesh
+    (`captured_turns` of 20 steps a run, collectives and bytes a step);
+    `one_ms` is the one-process captured median of phase 52.  Returns the
+    numbers."""
+    import statistics
+    steps = 20
+    runs, step, pool, _, rel, (div, top) = captured_turns(
+        model, steps, fused, f"{name} on 1 x 1 NCCL")
+    coll = {(r["collectives"], r["bytes"]) for v in runs.values() for r in v}
+    med = {k: statistics.median(r["ms_per_step"] for r in v)
+           for k, v in runs.items()}
+    out = dict(eager=runs["eager"], captured=runs["captured"],
+               median_ms=med, speedup=med["eager"] / med["captured"],
+               one_process_captured_ms=one_ms,
+               over_one_process=med["captured"] / one_ms,
+               capture_s=step.capture_seconds, graph_pool_gib=pool,
+               collectives_per_step=runs["captured"][0]["collectives"],
+               bytes_per_step=runs["captured"][0]["bytes"],
+               per_replay=step.collectives_per_replay,
+               launches_per_replay=step.launches_per_replay,
+               captured_vs_eager=rel, max_div=div, top_div=top)
+    ms = lambda w: ", ".join(f"{r['ms_per_step']:.3f}" for r in runs[w])
+    phase(56, f"{name} float32 on mesh 1 x 1 (NCCL) on {smi}, ms/step in "
+              f"turns eager, captured, captured, eager ({steps} steps each, "
+              f"CUDA events): eager {ms('eager')}, captured {ms('captured')} "
+              f"(medians {med['eager']:.3f} and {med['captured']:.3f}, "
+              f"{out['speedup']:.2f}x); one process captured "
+              f"{one_ms:.3f} (phase 52), the split's captured step "
+              f"{out['over_one_process']:.3f}x it; collectives and bytes a "
+              f"step {out['collectives_per_step']:.1f} and "
+              f"{out['bytes_per_step']:.0f} in every run, "
+              f"{step.collectives_per_replay} a replay; masked launches "
+              f"3 x {steps} in every run ({step.launches_per_replay} a "
+              f"replay); capture {step.capture_seconds:.3f} s (warm-up step "
+              f"included), its pool and static State {pool:.3f} GiB; peak "
+              f"allocated eager {runs['eager'][0]['peak_mem_gib']:.3f}, "
+              f"captured {runs['captured'][0]['peak_mem_gib']:.3f} GiB; "
+              f"max|div u| {div:.3e}, top level {top:.3e}; captured vs "
+              f"eager after 10 steps, each field's max|diff| / max: "
+              + ", ".join(f"{k} {v:.3e}" for k, v in rel.items())
+              + " (tolerance 1e-4)")
+    driven = model.inlet is not None
+    if not (len(coll) == 1 and div <= div_bound
+            and (top <= 1e-2 if driven else top <= div_bound)
+            and max(rel.values()) <= 1e-4):
+        raise RuntimeError(f"{name} on 1 x 1 NCCL: the captured split step "
+                           f"failed a check (collectives and bytes a step "
+                           f"{coll})")
+    return out
+
+
+def split_simulation_nccl(mesh, sim48, fused):
+    """Phase 57's Simulation: phase 48's driven urban 32^3 float64 case on
+    the 1 x 1 NCCL `mesh`, from the same start and for the same time;
+    returns the step kind, the steps, the writers' records against the
+    single-process Simulation's and the final State's worst leaf."""
+    from udales_tpu_torch.convert import state_from_numpy, state_to_numpy
+    from udales_tpu_torch.parallel.mesh import gather_state
+    from udales_tpu_torch.parallel.multihost import shard_state_global
+    from udales_tpu_torch.run import load_case
+    from udales_tpu_torch.sim import Simulation
+    import tempfile
+    records = {}
+    undo = recording_writers(records)
+    try:
+        model = load_case(sim48["case"], "900", "float64", mesh=mesh)
+        st = shard_state_global(state_from_numpy(sim48["start"]), mesh,
+                                device="cuda")
+        with tempfile.TemporaryDirectory(prefix="sim57_", dir=CACHE) as td:
+            sim = Simulation(model, td)
+            fused.launch_count = fused.masked_launch_count = 0
+            final = state_to_numpy(gather_state(
+                sim.run(st, runtime=SIM48_RUNTIME), mesh))
+    finally:
+        undo()
+    rec_worst, rec_at, files = record_errors(records, sim48["records"],
+                                             "1 x 1 NCCL")
+    errs = leaf_errors(final, sim48["state"])
+    worst = max(errs, key=errs.get)
+    return dict(step_kind=sim.step_kind, steps=sim.ntrun, files=files,
+                max_err_records=rec_worst, record=rec_at,
+                max_rel_err_state=errs[worst], leaf=worst,
+                masked=fused.masked_launch_count, gathers=sim.gathers)
+
+
+def compiled_split_phases(smi, fused, div_bound, paths, comp, sim48):
+    """Phases 55 to 57: the compiled step of a Model split over a 1 x 1
+    NCCL mesh, which goes through every collective of the split.  `paths`
+    maps the 32^3 cases of phase 55 to their directories (None: the flat
+    case) and "urban_128", "urban_driven_128" to phase 56's; `comp` is
+    phase 52's result (the one-process captured step), `sim48` phase 48's
+    single-process Simulation.  The NCCL group is destroyed after the
+    graphs that hold its collectives are freed.  Any failed check
+    raises."""
+    import gc
+    import torch.distributed as dist
+    from udales_tpu_torch import entry
+    from udales_tpu_torch.convert import state_to_numpy
+    from udales_tpu_torch.parallel.mesh import make_mesh
+    from udales_tpu_torch.parallel.multihost import (free_port,
+                                                     init_distributed)
+    from udales_tpu_torch.run import load_case
+    from udales_tpu_torch.sim import Simulation
+    out = {}
+    init_distributed(f"localhost:{free_port()}", 1, 0, backend="nccl",
+                     device="cuda", timeout=120.0)
+    nccl = torch.cuda.nccl.version()
+    out["nccl_version"] = ".".join(map(str, nccl)) \
+        if isinstance(nccl, tuple) else str(nccl)
+    try:
+        mesh = make_mesh(1, 1)
+        # 55. five paths at 32^3 float64, captured against eager and
+        # against one process
+        out["parity_32"] = {}
+        for name, case in paths.items():
+            if name.endswith("_128"):
+                continue
+
+            def build(m, case=case):
+                if case is None:
+                    return entry._build(32, 32, 32, "float64", mesh=m)
+                return load_case(case, "900", "float64", mesh=m)
+            one = build(None)
+            start = (numpy_state(one.grid, seed=7) if case is None
+                     else state_to_numpy(one.cold_start(seed=43)))
+            del one
+            r = split_runs_32(name, build, start, mesh)
+            vs_eager = leaf_errors(r["captured"]["state"],
+                                   r["eager"]["state"])
+            vs_one = leaf_errors(r["captured"]["state"], r["one"])
+            we, wo = (max(e, key=e.get) for e in (vs_eager, vs_one))
+            same = ((r["captured"]["collectives"], r["captured"]["bytes"])
+                    == (r["eager"]["collectives"], r["eager"]["bytes"]))
+            out["parity_32"][name] = dict(
+                vs_eager=vs_eager[we], vs_eager_leaf=we,
+                vs_one_process=vs_one[wo], vs_one_process_leaf=wo,
+                leaves=len(vs_one), collectives=r["captured"]["collectives"],
+                bytes=r["captured"]["bytes"],
+                eager_collectives=r["eager"]["collectives"],
+                per_replay=r["per_replay"])
+            phase(55, f"{name} 32^3 float64 on mesh 1 x 1 (NCCL "
+                      f"{out['nccl_version']}), 5 captured steps: every one "
+                      f"of {len(vs_one)} leaves within {vs_eager[we]:.3e} of "
+                      f"the eager split run (worst {we}) and "
+                      f"{vs_one[wo]:.3e} of Model.run on one process "
+                      f"(worst {wo}; tolerance 1e-12); collectives and bytes "
+                      f"{r['captured']['collectives']}, "
+                      f"{r['captured']['bytes']} captured, "
+                      f"{r['eager']['collectives']}, {r['eager']['bytes']} "
+                      f"eager; {r['per_replay']} a replay")
+            if not (vs_eager[we] <= 1e-12 and vs_one[wo] <= 1e-12 and same):
+                raise RuntimeError(f"{name}: the captured 1 x 1 NCCL split "
+                                   f"disagrees with the eager one or with "
+                                   f"one process")
+            gc.collect()
+
+        # 56. the full-width paths at 128^3 float32
+        for name in ("urban_128", "urban_driven_128"):
+            model = load_case(paths[name], "900", "float32", mesh=mesh)
+            out[name] = split_main_path(
+                name, model, smi, fused, div_bound,
+                comp[name]["median_ms"]["captured"])
+            del model
+            gc.collect()
+            torch.cuda.empty_cache()
+
+        # 57. Simulation on the 1 x 1 NCCL mesh, stepping compiled
+        sim = split_simulation_nccl(mesh, sim48, fused)
+        out["simulation_32"] = sim
+        phase(57, f"Simulation of driven urban 32^3 float64 on mesh 1 x 1 "
+                  f"(NCCL), step {sim['step_kind']}, {sim['steps']} steps, "
+                  f"{sim['gathers']} gathers: {sim['files']} files, every "
+                  f"array handed to a writer within "
+                  f"{sim['max_err_records']:.3e} of the single-process "
+                  f"Simulation's (worst {sim['record']}; a second moment: of "
+                  f"the means it is formed from; tolerance 1e-9), final "
+                  f"State within {sim['max_rel_err_state']:.3e} (worst "
+                  f"{sim['leaf']}); masked launches {sim['masked']}")
+        if not (sim["step_kind"] == "compiled (cuda graph)"
+                and sim["steps"] == sim48["steps"] and sim["files"] >= 3
+                and sim["max_err_records"] <= 1e-9
+                and sim["max_rel_err_state"] <= 1e-9
+                and sim["masked"] == 3 * sim["steps"]):
+            raise RuntimeError("Simulation on the 1 x 1 NCCL mesh did not "
+                               "step compiled or disagrees with one process")
+    finally:
+        # the graphs hold NCCL's communicators: free them first
+        gc.collect()
+        torch.cuda.synchronize()
+        dist.destroy_process_group()
+
+    # 57. a host-staged mesh on the card refuses the compiled step
+    init_distributed(f"localhost:{free_port()}", 1, 0, backend="gloo",
+                     device="cuda", timeout=60.0)
+    try:
+        model = entry._build(16, 16, 16, "float32",
+                             mesh=make_mesh(1, 1, host_staged=True))
+        try:
+            model.step_jit()
+            refusal = None
+        except NotImplementedError as e:
+            refusal = str(e)
+        CACHE.mkdir(exist_ok=True)
+        kind = Simulation(model, CACHE / "sim57_staged",
+                          monitor=False).step_kind
+    finally:
+        dist.destroy_process_group()
+    out["host_staged_refusal"] = refusal
+    phase(57, f"mesh 1 x 1, backend gloo, host_staged True, on the card: "
+              f"step_jit() raised NotImplementedError: {refusal}; "
+              f"Simulation steps {kind}")
+    if refusal is None or kind != "eager (host-staged split)":
+        raise RuntimeError("a host-staged mesh did not refuse the compiled "
+                           "step")
+    return out
+
+
+# --- the compiled split over several cards (--cards, phase 58) ---------------
+
+CARD_STEPS = 20
+
+
+def card_rank(rank, world, port, jobs, out):
+    """One rank of `cards_mode`: card `rank`, the NCCL group of `world`
+    ranks and the 2 x (world/2) mesh.  A job with a "start" runs its steps
+    eagerly and as replays of the compiled step, each on a Model of its
+    own, and keeps the gathered States; a job without one (a 128^3 path)
+    runs `captured_turns` of CARD_STEPS steps a run, the ranks aligned
+    before each run.  Writes out/rank<r>.pkl."""
+    import pickle
+    import torch.distributed as dist
+    from udales_tpu_torch.convert import state_from_numpy, state_to_numpy
+    from udales_tpu_torch.ops.fused_diff import fused_diff_mom as fused
+    from udales_tpu_torch.parallel.mesh import gather_state, make_mesh
+    from udales_tpu_torch.parallel.multihost import (init_distributed,
+                                                     shard_state_global)
+    from udales_tpu_torch.run import load_case
+    torch.cuda.set_device(rank)
+    init_distributed(f"localhost:{port}", world, rank, backend="nccl",
+                     device="cuda", timeout=120.0)
+    mesh = make_mesh(2, world // 2)
+    res = {}
+    for job in jobs:
+        r = res[job["name"]] = {}
+        if job["start"] is not None:
+            for which in ("eager", "captured"):
+                model = load_case(job["case"], "900", job["dtype"], mesh=mesh)
+                st = shard_state_global(state_from_numpy(job["start"]), mesh,
+                                        device="cuda")
+                fused.launch_count = fused.masked_launch_count = 0
+                mesh.reset_counts()
+                st = model.run(st, job["steps"], graph=which == "captured")
+                torch.cuda.synchronize()
+                r[which] = dict(
+                    state=state_to_numpy(gather_state(st, mesh)),
+                    collectives=mesh.collectives, bytes=mesh.bytes,
+                    masked=fused.masked_launch_count,
+                    kind=model.step_jit().kind if which == "captured"
+                    else "eager")
+                del model, st
+            continue
+        model = load_case(job["case"], "900", "float32", mesh=mesh)
+
+        def align():
+            torch.cuda.synchronize()
+            dist.barrier()
+        runs, step, _, _, rel, (div, top) = captured_turns(
+            model, CARD_STEPS, fused, f"{job['name']} rank {rank}", align)
+        r.update(runs, max_div=div, top_div=top, captured_vs_eager=rel,
+                 capture_s=step.capture_seconds,
+                 per_replay=step.collectives_per_replay, kind=step.kind,
+                 open_x=model.inlet is not None)
+        del model, step
+    Path(out, f"rank{rank}.pkl").write_bytes(pickle.dumps(res))
+    import gc
+    gc.collect()                 # the graphs before their communicators
+    torch.cuda.synchronize()
+    dist.destroy_process_group()
+
+
+def cards_mode():
+    """``chip_smoke.py --cards``: phase 58, the compiled step of a Model
+    split over 2 x 2 NCCL ranks, one a card, on four cards.  Urban and
+    driven urban 32^3 float64, 5 steps, captured against the eager split
+    run (1e-12) and against Model.run on one card (1e-9, the shared-card
+    2 x 2 bound of phases 41 and 45), the same collectives and bytes; then
+    urban and driven urban 128^3 float32 in turns eager, captured,
+    captured, eager of CARD_STEPS steps (ms/step per rank, collectives and
+    bytes a step, masked launches = 3 x steps) beside the same path
+    captured on one card, max|div u| and captured against eager over 10
+    steps (1e-4).  Prints a JSON line of the numbers, then raises if a
+    check failed."""
+    import pickle
+    import statistics
+    import tempfile
+    from udales_tpu_torch import cases
+    from udales_tpu_torch.convert import state_from_numpy, state_to_numpy
+    from udales_tpu_torch.ops.fused_diff import fused_diff_mom
+    from udales_tpu_torch.parallel.multihost import free_port
+    from udales_tpu_torch.run import load_case
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 4:
+        raise SystemExit("chip_smoke --cards: needs four CUDA devices")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()
+    print("\n".join(smi), flush=True)
+    nccl = torch.cuda.nccl.version()
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, NCCL "
+          f"{'.'.join(map(str, nccl)) if isinstance(nccl, tuple) else nccl}",
+          flush=True)
+    fused_diff_mom.load()      # built once, before the ranks load it
+    d32 = cases.stage_urban_driven(32, CACHE, nt=40, chunk=4, dtdriver=0.05)
+    small = {"urban_32": cases.stage_urban(32, CACHE), "driven_32": d32}
+    big = {"urban_128": cases.stage_urban(128, CACHE),
+           "urban_driven_128": cases.stage_urban_driven(128, CACHE,
+                                                        dtdriver=0.1)}
+    jobs, one = [], {}
+    for name, case in small.items():
+        model = load_case(case, "900", "float64")
+        start = state_to_numpy(model.cold_start(seed=43))
+        model = load_case(case, "900", "float64")     # a fresh stream
+        one[name] = state_to_numpy(model.run(state_from_numpy(
+            start, device="cuda"), 5))
+        jobs.append(dict(name=name, case=str(case), dtype="float64",
+                         steps=5, start=start))
+    one_ms = {}
+    for name, case in big.items():
+        model = load_case(case, "900", "float32")
+        st = model.run(model.cold_start(seed=43), 3)
+        st = captured_run(model, st, 1)
+        one_ms[name] = statistics.median(
+            timed_run(model, st, CARD_STEPS, True, fused_diff_mom,
+                      f"{name} captured on one card")[0]["ms_per_step"]
+            for _ in range(2))
+        jobs.append(dict(name=name, case=str(case), start=None))
+        del model, st
+    torch.cuda.empty_cache()
+    CACHE.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="cards_", dir=CACHE) as td:
+        ctx = start_ranks(card_rank, 4, (4, free_port(), jobs, td))
+        wait_ranks(ctx, 900)
+        ranks = [pickle.loads(Path(td, f"rank{r}.pkl").read_bytes())
+                 for r in range(4)]
+    out, failed = {"nccl": str(nccl), "cards": smi}, []
+    for name in small:
+        r = [x[name] for x in ranks]
+        vs_eager = max(max(leaf_errors(x["captured"]["state"],
+                                       x["eager"]["state"]).values())
+                       for x in r)
+        errs = leaf_errors(r[0]["captured"]["state"], one[name])
+        worst = max(errs, key=errs.get)
+        same = all((x["captured"]["collectives"], x["captured"]["bytes"],
+                    x["captured"]["masked"]) == (
+                        x["eager"]["collectives"], x["eager"]["bytes"],
+                        x["eager"]["masked"]) for x in r)
+        out[name] = dict(vs_eager=vs_eager, vs_one_card=errs[worst],
+                         leaf=worst, leaves=len(errs),
+                         collectives=[x["captured"]["collectives"]
+                                      for x in r],
+                         bytes=[x["captured"]["bytes"] for x in r],
+                         masked=[x["captured"]["masked"] for x in r],
+                         kind=r[0]["captured"]["kind"])
+        phase(58, f"{name} float64 on mesh 2 x 2, NCCL, one rank a card, 5 "
+                  f"captured steps ({r[0]['captured']['kind']}): every leaf "
+                  f"on every rank within {vs_eager:.3e} of the eager split "
+                  f"run (tolerance 1e-12), rank 0's gathered State within "
+                  f"{errs[worst]:.3e} of one card's Model.run (worst "
+                  f"{worst}; tolerance 1e-9); collectives per rank "
+                  f"{out[name]['collectives']}, bytes "
+                  f"{out[name]['bytes']}, masked launches "
+                  f"{out[name]['masked']}, the same eagerly")
+        if not (vs_eager <= 1e-12 and errs[worst] <= 1e-9 and same
+                and r[0]["captured"]["kind"] == "cuda graph"
+                and all(m == 15 for m in out[name]["masked"])):
+            failed.append(name)
+    for name in big:
+        r = [x[name] for x in ranks]
+        med = {w: [statistics.median(t["ms_per_step"] for t in x[w])
+                   for x in r] for w in ("eager", "captured")}
+        # each rank's collectives and bytes a step, in every run
+        coll = [{(t["collectives"], t["bytes"]) for w in ("eager",
+                                                         "captured")
+                 for t in x[w]} for x in r]
+        rel = max(max(x["captured_vs_eager"].values()) for x in r)
+        out[name] = dict(
+            median_ms_per_rank=med, one_card_captured_ms=one_ms[name],
+            runs={w: [[t["ms_per_step"] for t in x[w]] for x in r]
+                  for w in ("eager", "captured")},
+            collectives_bytes_per_step=[sorted(c) for c in coll],
+            capture_s=[x["capture_s"] for x in r],
+            per_replay=r[0]["per_replay"], max_div=r[0]["max_div"],
+            top_div=r[0]["top_div"], captured_vs_eager=rel,
+            launches=[[t["launches"] for t in x["captured"]] for x in r],
+            peak_gib=[x["captured"][0]["peak_mem_gib"] for x in r])
+        phase(58, f"{name} float32 on mesh 2 x 2, NCCL, one rank a card, "
+                  f"blocks 64 x 64 x 128, {CARD_STEPS} steps a run in turns "
+                  f"eager, captured, captured, eager: median ms/step per "
+                  f"rank eager {[round(v, 3) for v in med['eager']]}, "
+                  f"captured {[round(v, 3) for v in med['captured']]}; the "
+                  f"same path captured on one card {one_ms[name]:.3f}; "
+                  f"collectives and bytes a step per rank "
+                  f"{[sorted(c) for c in coll]} in every run "
+                  f"({r[0]['per_replay']} a replay); capture "
+                  f"{[round(x['capture_s'], 3) for x in r]} s; masked "
+                  f"launches {out[name]['launches']}; max|div u| "
+                  f"{r[0]['max_div']:.3e}, top level {r[0]['top_div']:.3e}; "
+                  f"captured vs eager after 10 steps {rel:.3e} (tolerance "
+                  f"1e-4)")
+        open_x = r[0]["open_x"]
+        if not (all(len(c) == 1 for c in coll) and rel <= 1e-4
+                and r[0]["max_div"] <= 1e-5
+                and (r[0]["top_div"] <= (1e-2 if open_x else 1e-5))
+                and all(n == 3 * CARD_STEPS for x in out[name]["launches"]
+                        for n in x)):
+            failed.append(name)
+    print(json.dumps({"compiled_split_cards": out}))
+    if failed:
+        raise RuntimeError(f"the captured 2 x 2 split failed a check: "
+                           f"{failed}")
 
 
 def main():
@@ -2803,6 +3323,15 @@ def main():
     # 52.-54. the compiled step against the eager one
     comp = compiled_phases(smi, fused_diff_mom, div_bound, urban, eb32)
 
+    # 55.-57. the compiled step of a split Model on a 1 x 1 NCCL mesh
+    csplit = compiled_split_phases(smi, fused_diff_mom, div_bound, {
+        "flat": None, "urban": urban[32], "urban-EB": eb32,
+        "driven": open32["driven"], "recycle": open32["recycle"],
+        "urban_128": urban[128],
+        "urban_driven_128": cases.stage_urban_driven(128, CACHE,
+                                                     dtdriver=0.1)},
+        comp, split["_sim48"])
+
     foreign = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "udales_tpu"))
     if foreign:
@@ -2850,6 +3379,11 @@ def main():
                                        for r in comp[k]["captured"]]
             for k in ("urban_128", "urban_eb_128", "urban_driven_128",
                       "dispersion_128")},
+         **{f"launches_captured_split_1x1_{k}": [
+             r["launches"] for r in csplit[k]["captured"]]
+            for k in ("urban_128", "urban_driven_128")},
+         "launches_simulation_split_1x1_driven_32":
+             csplit["simulation_32"]["masked"],
          "max_abs_err_block_open_ghosts": split["open_block_err"],
          **{f"{k}_block_open_ghosts": v
             for k, v in split["open_block"].items()}},
@@ -2890,7 +3424,7 @@ def main():
                                         "simulation_2x2")},
         "validation_32": {**val["validation"], "chained": val["chained"]},
         "recycle_warm_start_32": val["recycle_warm"],
-        "compiled": comp}))
+        "compiled": comp, "compiled_split": csplit}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
@@ -2899,5 +3433,7 @@ def main():
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--resume"]:
         resume_mode(sys.argv[2:])
+    elif sys.argv[1:2] == ["--cards"]:
+        cards_mode()
     else:
         main()

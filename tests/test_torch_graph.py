@@ -334,22 +334,47 @@ def test_simulation_steps_with_the_compiled_step(tmp_path):
 
 
 def test_step_jit_refuses_a_split_model(tmp_path):
-    """A Model on a mesh (one gloo rank, 1 x 1) has no compiled step, and
-    Simulation of it steps eagerly."""
+    """The compiled step of a Model on a mesh (one gloo rank, 1 x 1):
+    on the CPU it runs the eager body, and 2 calls equal 2 calls of
+    model.step bit for bit, with the same collectives and bytes a step;
+    Simulation of it steps with it.  Only a host-staged mesh refuses,
+    naming the host staging, and Simulation of that one steps eagerly."""
     import torch.distributed as dist
     from udales_tpu_torch.parallel.mesh import make_mesh
     from udales_tpu_torch.sim import Simulation
     dist.init_process_group("gloo", init_method=f"file://{tmp_path}/pg",
                             rank=0, world_size=1)
     try:
-        model = entry._build(8, 8, 8, "float64", device="cpu",
-                             mesh=make_mesh(1, 1))
-        with pytest.raises(NotImplementedError, match="mesh"):
-            model.step_jit()
-        with pytest.raises(NotImplementedError, match="mesh"):
-            model.run(entry._init_state(model), 1, graph=True)
+        mesh = make_mesh(1, 1)
+        model = entry._build(8, 8, 8, "float64", device="cpu", mesh=mesh)
+        assert mesh.capturable
+        start = entry._init_state(model)
+        counts = {}
+        for graph in (False, True):
+            mesh.reset_counts()
+            got = state_to_numpy(model.run(start, 2, graph=graph))
+            counts[graph] = (mesh.collectives, mesh.bytes)
+            if graph:
+                assert model.step_jit().kind == "eager body"
+                assert model.step_jit().collectives_per_replay == (0, 0)
+            else:
+                want = got
+        assert counts[True] == counts[False] and counts[True][0] > 0
+        for k, v in leaves(want).items():
+            assert np.array_equal(leaves(got)[k], v), k
         sim = Simulation(model, tmp_path / "out", monitor=False)
-        assert sim.step == model.step and sim.step_kind.startswith("eager")
+        assert sim.step is model.step_jit() and \
+            sim.step_kind == "compiled (eager body)"
+        staged = entry._build(8, 8, 8, "float64", device="cpu",
+                              mesh=make_mesh(1, 1, host_staged=True))
+        assert not staged.mesh.capturable
+        with pytest.raises(NotImplementedError, match="host-staged"):
+            staged.step_jit()
+        with pytest.raises(NotImplementedError, match="host-staged"):
+            staged.run(entry._init_state(staged), 1, graph=True)
+        sim = Simulation(staged, tmp_path / "staged", monitor=False)
+        assert sim.step == staged.step and \
+            sim.step_kind == "eager (host-staged split)"
     finally:
         dist.destroy_process_group()
 

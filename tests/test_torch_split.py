@@ -386,7 +386,8 @@ def test_leaf_spec_agrees_with_jax():
 
 def fake_mesh(px=2, py=2):
     return SimpleNamespace(px=px, py=py, cx=0, cy=0, rank=0, backend="gloo",
-                           axis_names=("x", "y"), shape=(px, py))
+                           axis_names=("x", "y"), shape=(px, py),
+                           capturable=True)
 
 
 # the configurations the split refused; every one is lifted (LIFTED): the

@@ -18,8 +18,13 @@ JOB is a pickle the test writes:
     "state" (numpy, as ``convert.state_to_numpy``), "steps"}], each taken
     from the whole-domain State by ``shard_state_global`` and run for
     "steps" steps on the mesh (a streamed driver window refilled before
-    each step); a case with "case_dir", "expnr" and "dtype" in place of
-    "cfg", "zf" and "dpdxl" is built by ``run.load_case(..., mesh=)``; a
+    each step); with "graph" the same steps also run as replays of the
+    compiled step (``Model.run(..., graph=True)``) on a second Model of
+    the case, and with "rebuild" a further "steps" steps of both from the
+    final State without its facet state (a State of another structure,
+    which builds the compiled step again); a case with "case_dir",
+    "expnr" and "dtype" in place of "cfg", "zf" and "dpdxl" is built by
+    ``run.load_case(..., mesh=)``; a
     case with "sim" (an output directory) and "runtime" in place of "steps"
     runs ``sim.Simulation`` for that long instead, and with "restart" (a
     directory) rank 0 then writes the gathered State's Fortran restart
@@ -42,7 +47,9 @@ JOB is a pickle the test writes:
   - "dryrun": run ``entry.dryrun_multichip(world)`` instead;
   - "out": the directory where rank r writes rank<r>.pkl: the mesh
     coordinates, and per case this rank's block and the gathered State
-    after the steps, the kernel's launches and the collectives.
+    after the steps, the kernel's launches, the collectives and bytes, and
+    with "graph" the same of the compiled run (`compiled_run`); a
+    Simulation also reports its ``step_kind``.
 """
 import dataclasses
 import os
@@ -250,6 +257,35 @@ def recording_writers():
         netcdf.NCWriter.append = append
 
 
+def compiled_run(case, device, mesh, st, eager):
+    """The case's steps from the block State `st` as replays of the
+    compiled step of a second Model of the case (whose driver stream
+    starts anew): the gathered State, the launches, collectives and bytes,
+    the compiled step's kind, builds and replays; with case["rebuild"]
+    also the gathered States of "steps" more steps from the `eager` run's
+    final State without its facet state, compiled (a build on every rank)
+    and eagerly."""
+    model = build(case, device, mesh)
+    fused_diff_mom.launch_count = 0
+    fused_diff_mom.masked_launch_count = 0
+    mesh.reset_counts()
+    out = model.run(st, case["steps"], graph=True)
+    step = model.step_jit()
+    res = dict(launches=fused_diff_mom.launch_count,
+               masked=fused_diff_mom.masked_launch_count,
+               collectives=mesh.collectives, bytes=mesh.bytes,
+               kind=step.kind, builds=step.builds, replays=step.replays,
+               gathered=state_to_numpy(gather_state(out, mesh)))
+    if case.get("rebuild"):
+        bare = eager.replace(fac=None)
+        res["rebuilt"] = state_to_numpy(gather_state(
+            model.run(bare, case["steps"], graph=True), mesh))
+        res["rebuilds"] = step.builds
+        res["bare_eager"] = state_to_numpy(gather_state(
+            model.run(bare, case["steps"]), mesh))
+    return res
+
+
 def run_simulation(case, model, st, mesh):
     """`Simulation.run` of the split Model from the block State `st` for
     case["runtime"] s into case["sim"]; the restart files of "restart"."""
@@ -258,7 +294,7 @@ def run_simulation(case, model, st, mesh):
         whole = gather_state(sim.run(st, runtime=case["runtime"]), mesh)
     out = dict(gathered=state_to_numpy(whole), gathers=sim.gathers,
                gather_seconds=sim.gather_seconds, ntrun=sim.ntrun,
-               records=records)
+               records=records, step_kind=sim.step_kind)
     if case.get("restart"):
         if mesh.rank == 0:
             Path(case["restart"]).mkdir(parents=True, exist_ok=True)
@@ -310,11 +346,13 @@ def main(job_path, rank):
                                                             mesh)
                 continue
             out = model.run(st, case["steps"])
-            res["cases"][case["name"]] = dict(
+            res["cases"][case["name"]] = r = dict(
                 block=state_to_numpy(out), launches=fused_diff_mom.launch_count,
                 masked=fused_diff_mom.masked_launch_count,
-                collectives=mesh.collectives,
+                collectives=mesh.collectives, bytes=mesh.bytes,
                 gathered=state_to_numpy(gather_state(out, mesh)))
+            if case.get("graph"):
+                r["graph"] = compiled_run(case, device, mesh, st, out)
         res["sections"] = {s["name"]: section_report(s, mesh, device)
                            for s in job.get("sections", [])}
         if job.get("checks"):

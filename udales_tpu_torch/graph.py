@@ -33,14 +33,31 @@ copy.  Host work between calls (``DriverStream.ensure``, the writers of
 ``Simulation``) reads ``S`` after the replay that wrote it and before the
 next one, on the same stream.
 
-``fused_diff_mom``'s launch counters count executions: the calls that the
-capture recorded are taken back at the end of the capture, and each replay
-adds them again, so "launches = 3 x steps" holds for a captured run as for
-an eager one.
+``fused_diff_mom``'s launch counters, and a split Model's
+``Mesh.collectives`` and ``Mesh.bytes``, count executions: what the capture
+recorded is taken back at the end of the capture, and each replay adds it
+again, so "launches = 3 x steps" and the collectives a step hold for a
+captured run as for an eager one.
 
-A Model split over a mesh (``parallel.mesh``) has no compiled step: the
-gloo collectives of a shared-card split stage through the host, which a
-graph cannot hold, so ``CompiledStep`` raises NotImplementedError there.
+A Model split over a mesh (``parallel.mesh``, the counterpart of
+udales_tpu's ``jax.jit(model.step)`` of a sharded Model) compiles the same
+way when its mesh is capturable (NCCL, or gloo on the CPU): the graph holds
+the step's collectives as stream operations of NCCL's communicators.  The
+build is collective: every rank builds at the same call, since
+``parallel.mesh._leaf_spec`` gives every rank the same leaves, so a State
+of another structure is another structure on every rank; the warm-up step
+runs every collective of the step, in the capture's order, so it creates
+the communicator of every group the capture uses (the world, x-row and
+y-column groups; ``from_owner`` and ``axis_sum`` on the open-boundary and
+generator paths) before the capture, which must create none.  The capture
+takes the thread-local error mode: NCCL's watchdog thread queries events
+of earlier collectives while it runs.  A host-staged mesh (gloo on CUDA
+tensors) waits on the host in every exchange, which a graph cannot hold:
+``CompiledStep`` raises NotImplementedError there, on the card and on the
+CPU alike, and nothing falls back to the eager step.  The graph holds
+NCCL's communicators: free it before ``dist.destroy_process_group()``
+(the Model and its compiled step refer to each other, so drop both and
+``gc.collect()``); destroying the group under a live graph can hang.
 """
 from __future__ import annotations
 
@@ -59,19 +76,42 @@ class CompiledStep:
     one, warm-up step included, and ``replays`` the calls since."""
 
     def __init__(self, model):
-        if model.mesh is not None:
+        if model.mesh is not None and not model.mesh.capturable:
             raise NotImplementedError(
-                "the compiled step of a Model split over a mesh: its "
-                "collectives cannot be captured in a CUDA graph; step it "
-                "with model.step")
+                "the compiled step of a Model split over a host-staged mesh: "
+                "its gloo exchanges go through pinned host memory and wait "
+                "on the host, which a CUDA graph cannot hold; step it with "
+                "model.step, or split over NCCL (one rank a card)")
         self.model = model
         self.state: State | None = None     # the static State S
         self.graph: torch.cuda.CUDAGraph | None = None
         self.builds = 0
         self.replays = 0
         self.capture_seconds = 0.0
-        # fused_diff_mom's (unmasked, masked) launches in one replay
-        self.launches_per_replay = (0, 0)
+        # what one replay adds to each of `_counters()`
+        self.per_replay = [0] * len(self._counters())
+
+    def _counters(self):
+        """(object, attribute) of each counter of executions that a replay
+        adds to: fused_diff_mom's (unmasked, masked) launches, and a split
+        Model's collectives and bytes."""
+        out = [(fused_diff_mom, "launch_count"),
+               (fused_diff_mom, "masked_launch_count")]
+        if self.model.mesh is not None:
+            out += [(self.model.mesh, "collectives"),
+                    (self.model.mesh, "bytes")]
+        return out
+
+    @property
+    def launches_per_replay(self) -> tuple:
+        """fused_diff_mom's (unmasked, masked) launches in one replay."""
+        return tuple(self.per_replay[:2])
+
+    @property
+    def collectives_per_replay(self) -> tuple:
+        """A split Model's (collectives, bytes) in one replay; (0, 0)
+        without a mesh."""
+        return tuple(self.per_replay[2:]) or (0, 0)
 
     @property
     def kind(self) -> str:
@@ -90,9 +130,8 @@ class CompiledStep:
             copy_into(S, self.model.step(S))
         else:
             self.graph.replay()
-            du, dm = self.launches_per_replay
-            fused_diff_mom.launch_count += du
-            fused_diff_mom.masked_launch_count += dm
+            for (obj, attr), n in zip(self._counters(), self.per_replay):
+                setattr(obj, attr, getattr(obj, attr) + n)
         self.replays += 1
         return S
 
@@ -126,18 +165,16 @@ class CompiledStep:
         torch.cuda.synchronize(model.device)
         del out
         graph = torch.cuda.CUDAGraph()
-        before = (fused_diff_mom.launch_count,
-                  fused_diff_mom.masked_launch_count)
+        counters = self._counters()
+        before = [getattr(obj, attr) for obj, attr in counters]
         try:
-            with torch.cuda.graph(graph):
+            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
                 copy_into(S, model.step(S))
         finally:
-            after = (fused_diff_mom.launch_count,
-                     fused_diff_mom.masked_launch_count)
-            # the capture recorded these launches; none ran
-            (fused_diff_mom.launch_count,
-             fused_diff_mom.masked_launch_count) = before
-        self.launches_per_replay = (after[0] - before[0],
-                                    after[1] - before[1])
+            after = [getattr(obj, attr) for obj, attr in counters]
+            # the capture recorded these launches and collectives; none ran
+            for (obj, attr), n in zip(counters, before):
+                setattr(obj, attr, n)
+        self.per_replay = [a - b for a, b in zip(after, before)]
         self.graph = graph
         return S

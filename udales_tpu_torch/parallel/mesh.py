@@ -28,6 +28,13 @@ card, where NCCL takes one rank per device) every exchange buffer is copied
 to pinned host memory and back, explicitly.  Rank r sits at (cx, cy) =
 divmod(r, py), the row-major order of udales_tpu's ``make_mesh``.
 
+A CUDA graph can hold the collectives of a mesh that is not host-staged
+(``Mesh.capturable``): NCCL's are operations on the card's streams, which a
+capture records and a replay runs again, with no host wait; gloo on CPU
+tensors has no graph to hold them.  ``collectives`` and ``bytes`` count
+executions: ``graph.CompiledStep`` takes back what a capture recorded and
+adds it again at each replay.
+
 ``shard_state`` / ``gather_state`` cut a whole-domain State into this rank's
 blocks and put it back together; ``_leaf_spec`` says how each State leaf is
 split, with udales_tpu's table: the fields and the passive-scalar stack
@@ -105,6 +112,13 @@ class Mesh:
     @property
     def shape(self):
         return (self.px, self.py)
+
+    @property
+    def capturable(self) -> bool:
+        """Whether a CUDA graph can hold this mesh's collectives: not when
+        they are host-staged, since each then waits on the host for the
+        card's queue and for the backend."""
+        return not self.host_staged
 
     def reset_counts(self):
         self.collectives = 0

@@ -792,18 +792,24 @@ class Model:
         """The compiled step (``graph.CompiledStep``): `step` as one CUDA
         graph replayed a call on the card, the same body eagerly on the
         CPU; built once per Model and cached, as udales_tpu's
-        ``jax.jit(self.step)``.  A Model split over a mesh raises
-        NotImplementedError: its collectives cannot be captured."""
+        ``jax.jit(self.step)``.  On a Model split over a capturable mesh
+        (NCCL; gloo on the CPU) the graph holds this rank's block step
+        with its collectives, and every rank builds at the same call; the
+        driver window's refill (``DriverStream.ensure``, a host wait) is
+        not in it.  A host-staged mesh raises NotImplementedError: its
+        exchanges wait on the host."""
         if self._step_jit is None:
             self._step_jit = CompiledStep(self)
         return self._step_jit
 
     def run(self, state: State, nsteps: int, graph: bool = False) -> State:
         """`nsteps` full steps; a streaming driver replay refills its
-        window between them, outside the step.  With `graph` the steps are
-        replays of `step_jit()` (udales_tpu's on-device ``lax.scan``), and
-        the State returned is a copy of the compiled step's static State,
-        the caller's to keep; eagerly (the default) each step is `step`."""
+        window between them, outside the step (and outside the graph).
+        With `graph` the steps are replays of `step_jit()` (udales_tpu's
+        on-device ``lax.scan``), on one process or on every rank of a
+        capturable mesh, and the State returned is a copy of the compiled
+        step's static State, the caller's to keep; eagerly (the default)
+        each step is `step`."""
         step = self.step_jit() if graph else self.step
         for _ in range(nsteps):
             if self.driver_stream is not None:

@@ -6,8 +6,9 @@ events on the reference's cadences: field dumps (tfielddump), statistics
 samples and writes (tsample / tstatsdump), facet outputs (dtEB, dtfac),
 restart writes (trestart), the runtime monitor (tcheck), the precursor and
 inlet-plane recorders, and the ``exit_now.<exp>`` graceful-stop sentinel
-(modsave.f90:63-75).  On one process the loop steps with the compiled
-step (``Model.step_jit``: one CUDA graph replayed a step on the card), and
+(modsave.f90:63-75).  The loop steps with the compiled step
+(``Model.step_jit``: one CUDA graph replayed a step on the card), on one
+process or on every rank of a capturable mesh (NCCL; gloo on the CPU), and
 the driver's window refill, the writers and the loop's reads run between
 replays on the State the graph writes in place; no writer keeps a State
 tensor past its call.  The step itself makes no host synchronisation; the
@@ -20,7 +21,11 @@ step, whether an output event is due; when one is, every rank gathers the
 State (``gather_state``, the counterpart of udales_tpu's ``np.asarray`` of
 a sharded leaf) and rank 0 serves the events from the whole State, with
 the whole domain's grid, IBM masks, canopy and inlets (`_Whole`), and
-writes every file.  `gathers` and `gather_seconds` count the gathers.
+writes every file.  `gathers` and `gather_seconds` count the gathers.  The
+gather reads the compiled step's static State after the replay that wrote
+it, and the flags' read of that decision is a host wait between steps,
+outside the graph.  A host-staged mesh (shared-card gloo ranks) steps
+eagerly: its exchanges wait on the host, which a graph cannot hold.
 
 `main` is ``python -m udales_tpu_torch <case>``: runmodes 1003-1005, a cold
 or warm start (native ``.h5`` checkpoint or the reference's Fortran restart
@@ -182,14 +187,15 @@ class Simulation:
         grid, dev = view.grid, model.device
         self.outdir = Path(outdir)
         self.outdir.mkdir(parents=True, exist_ok=True)
-        # the step: one process steps with the compiled step (a CUDA graph
-        # replayed a step on the card, its eager body on the CPU), as
-        # udales_tpu steps with jax.jit(model.step); a split Model steps
-        # eagerly, since its collectives cannot be captured
-        self.compiled = self.mesh is None
+        # the step: the compiled step (a CUDA graph replayed a step on the
+        # card, its eager body on the CPU), as udales_tpu steps with
+        # jax.jit(model.step), on one process or a capturable mesh; a
+        # host-staged mesh steps eagerly, since its exchanges wait on the
+        # host
+        self.compiled = self.mesh is None or self.mesh.capturable
         self.step = model.step_jit() if self.compiled else model.step
         self.step_kind = (f"compiled ({self.step.kind})" if self.compiled
-                          else "eager (split over a mesh)")
+                          else "eager (host-staged split)")
         # the writers: every switch, on rank 0 of a split
         o = dataclasses.replace(cfg.output, **({} if self.root else {
             k: False for k in ("lfielddump", "lxytdump", "lxydump",
