@@ -69,8 +69,10 @@ without a result line:
  22. flat open-x 128^3 float32 with the rescale-recycle inlet generator
      (iinletgen = 1), 20 steps
  23. precursor to driven at 64^3 float32: 30 periodic steps recorded by
-     sim.DriverRecorder, saved as ?driver_* files, replayed by load_case for
-     10 steps
+     sim.DriverRecorder, saved as ?driver_* files and driverdata.<exp>.h5
+     (the port's own HDF5 writer); the h5 series read back on the card by
+     load_driver_inlet equals the files' series exactly; replayed by
+     load_case (from the h5 series) for 10 steps
  24. both kernel variants against their plain versions on ghosts built by
      the open-boundary assembly (non-periodic planes, zero-gradient ekm)
  25. stage the street-canyon dispersion case (cases.stage_urban_dispersion:
@@ -94,19 +96,32 @@ without a result line:
      file read back by scipy with the writers' variables and as many
      records as the cadences give, all finite, max|div u| after the last
      step, the masked kernel 3 times a step and the compiled step (the
-     CLI's closing line)
+     CLI's closing line); trestart 7 s leaves initd*.900.h5 checkpoints,
+     the last read back (udales_tpu_torch.io.hdf5, no h5py) with the
+     facet state and the accumulators of the five statistics families
  32. restart continuation: N steps, the reference's Fortran restart files,
      N more in a second process (this script's --resume mode, which runs
      the CLI's main and saves the final State), against 2N in one process;
      urban 32^3 float64 (every leaf to 1e-9) and 128^3 float32 (max|du|
-     to 1e-4 of max|u|); the native .h5 checkpoint where h5py is installed
+     to 1e-4 of max|u|); then through the native .h5 checkpoint (the
+     port's own reader and writer; the card's machine has no h5py): urban
+     32^3 float64 and urban-EB 32^3 float64 with its facet state and the
+     xytdump accumulators, which the Fortran files cannot carry (every
+     leaf and the end time to 1e-9; for urban-EB also the checkpoints
+     after step 2N of the second process and of an uninterrupted
+     Simulation, statistics accumulators included, to 1e-9), 3 masked
+     launches a step
  33. the dispersion case at 128^3 (tree dump, scalar field dumps and
      statistics) and the driven case at 32^3 (xytdump, tkedump) through
      Simulation: launches, files and records as in 31
  34. the driver's cost: Simulation.run with every writer (on the compiled
      step) against Model.run, eager and captured, on urban-EB 128^3 in
      turns, and one sample and one write of
-     each family alone (host ms, launches and device ms)
+     each family alone (host ms, launches and device ms); the native
+     checkpoint of the urban-EB 128^3 float32 State: seconds, bytes and
+     MB/s of save_checkpoint and of load_checkpoint onto the card (3
+     each; read back exactly), and the seconds of one
+     Simulation._write_restart with every family's accumulators
  35. runmodes 1003, 1004 and 1005 through the CLI
  36. the x/y split (parallel/mesh.py, parallel/multihost.py) on one rank
      with NCCL: mesh 1 x 1, 32^3 float64, 5 steps through the real NCCL
@@ -181,7 +196,10 @@ without a result line:
      reference's restart files, warmstart_state(..., model=) (the
      generator's state built from the warm fields), 3 more steps, all
      finite; then the same case through python -m udales_tpu_torch with
-     lwarmstart and the Fortran startfile
+     lwarmstart and the Fortran startfile; and continued through the
+     native .h5 checkpoint (3 steps, 3 more in a second process, against
+     6 in one: every leaf, the generator's state ig included, and the end
+     time to 1e-9; 3 unmasked launches a step)
  52. the compiled step (Model.step_jit: one RK3 step captured as one CUDA
      graph) on flat 128^3 and 256^3, urban, urban-EB, driven urban and
      dispersion 128^3 float32: warm-up, the build (one eager step, then the
@@ -697,7 +715,9 @@ def open_boundary_phases(smi, fused, div_bound, pm128):
     from udales_tpu_torch.convert import state_from_numpy, state_to_numpy
     from udales_tpu_torch.ops import subgrid as sgs
     from udales_tpu_torch.ops.boundary import make_ghosts
-    from udales_tpu_torch.ops.openbc import driver_window_planes
+    from udales_tpu_torch.io.driverfiles import read_driver_files
+    from udales_tpu_torch.ops.openbc import (driver_window_planes,
+                                             load_driver_inlet)
     from udales_tpu_torch.ops.thermo import thermodynamics
     from udales_tpu_torch.run import _velocity_ghosts, load_case
     from udales_tpu_torch.sim import DriverRecorder
@@ -815,6 +835,19 @@ def open_boundary_phases(smi, fused, div_bound, pm128):
         pst = pre.step(pst)
         rec.maybe_record(pst)
     rec.save()
+    # the recorder's driverdata.<exp>.h5 (which load_case replays in
+    # preference to the ?driver_* files) read back on the card against the
+    # series of the ?driver_* files, in float64
+    djob = pre.cfg.run.iexpnr
+    h5 = load_driver_inlet(pdir / f"driverdata.{djob:03d}.h5", torch.float64,
+                           device="cuda")
+    files = read_driver_files(pdir, djob, pre.grid.jtot, pre.grid.ktot,
+                              ltempeq=pre.cfg.physics.ltempeq,
+                              lmoist=pre.cfg.physics.lmoist)
+    keys = [k for k in ("t", "u", "v", "w", "thl", "qt")
+            if files.get(k) is not None]
+    series_err = max(float(np.abs(getattr(h5, k).cpu().numpy() - files[k])
+                           .max()) for k in keys)
     rp = load_case(pdir, cases.REPLAY_EXPNR, dtype="float32")
     pst = rp.cold_start(seed=44).replace(timee=torch.tensor(
         rec.times[0], dtype=torch.float32, device="cuda"))
@@ -826,13 +859,19 @@ def open_boundary_phases(smi, fused, div_bound, pm128):
                   timee=float(pst.timee))
     finite = all(bool(torch.isfinite(getattr(pst.c, k)).all())
                  for k in ("u", "v", "w", "thl"))
+    replay["series_err"] = series_err
     phase(23, f"precursor 64^3: {replay['records']} planes recorded in 30 "
-              f"steps and written as ?driver_* files; replay of 10 steps to "
+              f"steps and written as ?driver_* files and driverdata."
+              f"{djob:03d}.h5; the h5 series read by load_driver_inlet "
+              f"against the files' ({', '.join(keys)}): max abs difference "
+              f"{series_err!r}; replay (load_case takes the h5 series) of "
+              f"10 steps to "
               f"t = {replay['timee']:.3f} s: inlet face within "
               f"{replay['inlet_err']:.3e} of the interpolated recorded plane "
               f"(tolerance 1e-5), interior max|div u| {replay['max_div']:.3e}")
     if not (finite and replay["records"] >= 10 and rp.inlet.u.shape[0]
-            == replay["records"] and replay["inlet_err"] <= 1e-5
+            == replay["records"] == h5.t.shape[0] == files["t"].shape[0]
+            and series_err == 0.0 and replay["inlet_err"] <= 1e-5
             and replay["max_div"] <= div_bound):
         raise RuntimeError("record and replay failed a check")
 
@@ -1169,16 +1208,48 @@ def resume_mode(argv):
     np.savez(argv[-1], **flat_numpy(state_to_numpy(final)))
 
 
-def continuation(case, dtype, tmp, nsteps, label, n, fmt="fortran"):
+def flat_h5(tree, prefix=""):
+    """{path: array} of a `udales_tpu_torch.io.hdf5.read` tree, the
+    attributes as 0-d arrays under ``<group>@<name>``."""
+    out = {f"{prefix}@{k}": np.asarray(v) for k, v in tree.attrs.items()}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(flat_h5(v, f"{prefix}{k}/"))
+        else:
+            out[prefix + k] = v
+    return out
+
+
+def worst_leaf(got, ref):
+    """max over the leaves of `ref` of max|got - ref| / max|ref| (every
+    leaf of `ref` must be in `got`, with its shape)."""
+    worst = 0.0
+    for k, r in ref.items():
+        if got[k].shape != r.shape:
+            raise RuntimeError(f"{k}: shape {got[k].shape} against {r.shape}")
+        scale = max(float(np.abs(r).max(initial=0.0)), 1e-30)
+        worst = max(worst, float(np.abs(got[k].astype(np.float64) - r)
+                                 .max(initial=0.0)) / scale)
+    return worst
+
+
+def continuation(case, dtype, tmp, nsteps, label, n, fused, fmt="fortran",
+                 stats=False):
     """N steps through Simulation, a restart (`fmt` "fortran": the
     reference's Fortran restart files; "h5": the native checkpoint that
-    trestart makes Simulation write), then a second process (``sim.main``
-    with lwarmstart) for N more, against 2N steps in one process.  Returns
-    the worst leaf difference relative to the leaf's max, max|u| difference
-    over max|u|, and the two runs' end times' difference relative to the
-    uninterrupted one's."""
+    Simulation writes), then a second process (``sim.main`` with
+    lwarmstart) for N more, against 2N steps in one process.  With `stats`
+    the case samples xytdump every step or two and never writes it,
+    and both the second process and an uninterrupted Simulation write a
+    checkpoint after step 2N: the two checkpoints (State, facet state and
+    the statistics accumulators) are held against each other too.
+    Returns a dict: the worst leaf difference relative to the leaf's max,
+    max|u| difference over max|u|, the two runs' end times' difference
+    relative to the uninterrupted one's, the checkpoints' worst leaf (with
+    `stats`) and the kernel launches (unmasked, masked) of the two legs."""
     from udales_tpu_torch import cases
     from udales_tpu_torch.convert import state_to_numpy
+    from udales_tpu_torch.io import hdf5
     from udales_tpu_torch.io.restart import write_state_fortran
     from udales_tpu_torch.run import load_case
     from udales_tpu_torch.sim import Simulation
@@ -1191,15 +1262,37 @@ def continuation(case, dtype, tmp, nsteps, label, n, fmt="fortran"):
     full = flat_numpy(state_to_numpy(st))
     # a run that is to end after step k stops halfway from step k - 1
     stop = lambda k: 0.5 * (times[k - 2] + times[k - 1])
+    if stats:
+        # a sample every step or two.  The cadence is longer than any
+        # step, which keeps the next sample time ahead of the simulated
+        # time, so that the restart does not fast-forward it; and its
+        # multiples keep clear of every step time by a thousandth of it: a
+        # step that lands on one samples or not by the last bit of its
+        # time, which the two runs need not share
+        t = np.asarray(times)
+        tsample = next((c for c in np.diff(t, prepend=0.0).max()
+                        * np.linspace(1.1, 2.0, 10)
+                        if np.abs(t / c - np.round(t / c)).min() > 1e-3),
+                       None)
+        if tsample is None:
+            raise RuntimeError(f"{label}: no sample cadence clear of the "
+                               f"step times {times}")
+        tsample = float(tsample)
+        case = cases.with_namelist(case, tmp / "stats", OUTPUT=dict(
+            lxytdump=True, tsample=tsample, tstatsdump=1e9))
+        model = load_case(case, "900", dtype=dtype)
+    fused.launch_count = fused.masked_launch_count = 0
     sim = Simulation(model, tmp / "leg1", monitor=False)
-    sim.tnextrestart = stop(nsteps)               # the h5 checkpoint
-    first = sim.run(st0, runtime=stop(nsteps)) if fmt == "h5" else \
-        Simulation(model, tmp / "leg1", monitor=False).run(
-            st0, runtime=stop(nsteps))
+    if fmt == "h5":
+        sim.tnextrestart = stop(nsteps)
+    first = sim.run(st0, runtime=stop(nsteps))
+    leg1 = (fused.launch_count, fused.masked_launch_count)
     start = (f"initd{nsteps:08d}.900.h5" if fmt == "h5"
              else f"initd{nsteps:08d}_xxx_xxx.900")
-    resumed = cases.with_namelist(case, tmp / "resumed", RUN=dict(
-        lwarmstart=True, startfile=start))
+    run = dict(lwarmstart=True, startfile=start)
+    if stats:
+        run["trestart"] = stop(2 * nsteps)
+    resumed = cases.with_namelist(case, tmp / "resumed", RUN=run)
     if fmt == "h5":
         (resumed / start).write_bytes((tmp / "leg1" / start).read_bytes())
     else:
@@ -1210,22 +1303,51 @@ def continuation(case, dtype, tmp, nsteps, label, n, fmt="fortran"):
          str(tmp / "leg2.npz")], timeout=600)
     if rc != 0:
         raise RuntimeError(f"{label}: the resumed run failed:\n{err[-4000:]}")
+    steps2, unmasked2, masked2 = launches_of(out)
     got = dict(np.load(tmp / "leg2.npz"))
-    worst = 0.0
-    for k, r in full.items():
-        scale = max(float(np.abs(r).max(initial=0.0)), 1e-30)
-        worst = max(worst, float(np.abs(got[k] - r).max(initial=0.0)) / scale)
+    worst = worst_leaf(got, full)
     du = float(np.abs(got["c.u"] - full["c.u"]).max()
                / np.abs(full["c.u"]).max())
+    res = dict(worst=worst, du=du, steps=(sim.ntrun, steps2),
+               launches=(leg1[0] + unmasked2, leg1[1] + masked2),
+               dt_rel=abs(float(got["timee"]) - float(full["timee"]))
+               / float(full["timee"]), leaves=len(full),
+               groups=sorted({k.split(".")[0] for k in full}))
+    more = ""
+    if stats:
+        ref = Simulation(model, tmp / "full", monitor=False)
+        ref.tnextrestart = stop(2 * nsteps)
+        ref.run(st0, runtime=stop(2 * nsteps))
+        ref_ck = flat_h5(hdf5.read(
+            tmp / "full" / f"initd{2 * nsteps:08d}.900.h5"))
+        got_ck = flat_h5(hdf5.read(
+            tmp / "leg2" / f"initd{nsteps:08d}.900.h5"))
+        acc = sorted(k for k in ref_ck if k.startswith("stats/"))
+        if not any(k.startswith("stats/xytdump/") for k in acc):
+            raise RuntimeError(f"{label}: no xytdump accumulators in the "
+                               f"checkpoint")
+        res.update(checkpoint_worst=worst_leaf(
+            {k: v for k, v in got_ck.items() if k != "@ntrun"},
+            {k: v for k, v in ref_ck.items() if k != "@ntrun"}),
+            checkpoint_leaves=len(ref_ck) - 1, stats_leaves=len(acc))
+        more = (f"; the checkpoints after step {2 * nsteps} of the second "
+                f"process and of an uninterrupted Simulation: worst leaf "
+                f"{res['checkpoint_worst']:.3e} over "
+                f"{res['checkpoint_leaves']} leaves and attributes, "
+                f"{len(acc)} of them statistics accumulators (xytdump "
+                f"sampled every {tsample!r} s)")
     phase(n, f"{label}: {nsteps} steps, {fmt} restart, {nsteps} more "
              f"in a second process ({secs:.1f} s) against {2 * nsteps} in "
              f"one: t = {float(got['timee']):.4f} against "
              f"{float(full['timee']):.4f} s, worst leaf difference "
              f"{worst:.3e} of the leaf's max over {len(full)} leaves, "
              f"max|du| / max|u| {du:.3e}, end times apart by "
-             f"{abs(float(got['timee']) - float(full['timee'])):.3e} s")
-    tg, tf = float(got["timee"]), float(full["timee"])
-    return worst, du, abs(tg - tf) / tf
+             f"{abs(float(got['timee']) - float(full['timee'])):.3e} s; "
+             f"launches (unmasked, masked) {res['launches']} in "
+             f"{sim.ntrun} + {steps2} steps{more}")
+    if res["steps"] != (nsteps, nsteps):
+        raise RuntimeError(f"{label}: legs of {res['steps']} steps")
+    return res
 
 
 def profile_call(fn, reps=10):
@@ -1255,6 +1377,65 @@ def profile_call(fn, reps=10):
             sum(e.time_range.elapsed_us() for e in dev) / 1e3)
 
 
+def checkpoint_costs(sim, model, st, ckdir, smi):
+    """Phase 34's native checkpoint of `st` (urban-EB 128^3 float32 with
+    the facet state): save_checkpoint and load_checkpoint onto the card
+    alone, then `sim`'s _write_restart with the accumulators of every
+    family, three of each, host seconds to a synchronize (the read finds
+    the file just written, in the page cache).  Raises unless the State
+    reads back exactly."""
+    import statistics
+    from udales_tpu_torch.convert import state_to_numpy
+    from udales_tpu_torch.io.restart import load_checkpoint, save_checkpoint
+    ckdir.mkdir()
+    secs = {"write": [], "read": [], "_write_restart": []}
+    for i in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        save_checkpoint(ckdir / f"ck{i}.h5", st)
+        secs["write"].append(time.perf_counter() - t0)
+    for i in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        back = load_checkpoint(ckdir / f"ck{i}.h5", model.grid,
+                               model=model)
+        torch.cuda.synchronize()
+        secs["read"].append(time.perf_counter() - t0)
+    sim.outdir = ckdir
+    for i in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sim._write_restart(st)
+        secs["_write_restart"].append(time.perf_counter() - t0)
+    nbytes = (ckdir / "ck0.h5").stat().st_size
+    full_bytes = (ckdir / "initd00000000.900.h5").stat().st_size
+    # what a checkpoint holds: not the lwritefac sums, which restart at
+    # zero, nor the wall-stress diagnostics
+    want = {k: v for k, v in flat_numpy(state_to_numpy(st)).items()
+            if k.split(".")[0] in ("m", "c", "pres", "dt", "timee", "fac",
+                                   "ig")}
+    back_err = worst_leaf(flat_numpy(state_to_numpy(back)), want)
+    ck_med = {k: statistics.median(v) for k, v in secs.items()}
+    checkpoint = dict(bytes=nbytes, seconds=secs, median_s=ck_med,
+                      write_MBps=nbytes / 1e6 / ck_med["write"],
+                      read_MBps=nbytes / 1e6 / ck_med["read"],
+                      write_restart_bytes=full_bytes, read_back_err=back_err)
+    phase(34, f"the native checkpoint of the urban-EB 128^3 float32 State "
+              f"on {smi}: {nbytes} bytes; save_checkpoint "
+              f"{', '.join(repr(v) for v in secs['write'])} s (median "
+              f"{checkpoint['write_MBps']!r} MB/s); load_checkpoint onto the "
+              f"card {', '.join(repr(v) for v in secs['read'])} s (median "
+              f"{checkpoint['read_MBps']!r} MB/s), every leaf read back "
+              f"within {back_err!r}; Simulation._write_restart with the "
+              f"accumulators of {len(sim._stats_writers())} families "
+              f"({full_bytes} bytes) "
+              f"{', '.join(repr(v) for v in secs['_write_restart'])} s, the "
+              f"time one checkpoint adds to a run")
+    if back_err != 0.0:
+        raise RuntimeError("the checkpoint read back differs from the State")
+    return checkpoint
+
+
 def driver_phases(smi, fused, div_bound, eb128, urban, d32):
     """Phases 31 to 35: the user's path through ``python -m
     udales_tpu_torch`` with every writer, restart continuation, the
@@ -1262,25 +1443,22 @@ def driver_phases(smi, fused, div_bound, eb128, urban, d32):
     the runmodes.  `eb128` is the staged urban-EB 128^3 case, `urban` the
     staged urban cases by size, `d32` the driven 32^3 case.  Any failed
     check raises."""
-    import importlib.util
     import shutil
     import statistics
     import tempfile
     from udales_tpu_torch import cases
     from udales_tpu_torch.config import load_namoptions
+    from udales_tpu_torch.io import hdf5
     from udales_tpu_torch.run import load_case
     from udales_tpu_torch.sim import Simulation
 
     tmp = Path(tempfile.mkdtemp(prefix="driver_", dir=CACHE))
-    has_h5py = importlib.util.find_spec("h5py") is not None
     # 31. the user's path: stage, every writer, the CLI in a subprocess
-    run = dict(runtime=14.0)
-    if has_h5py:
-        run["trestart"] = 7.0
     case = cases.with_namelist(
         eb128, tmp / "urban128eb_all", OUTPUT=output_namelist(tcheck=1e-3),
         WALLS=dict(lwritefac=True, dtfac=5.0),
-        ENERGYBALANCE=dict(lwriteEBfiles=True), RUN=run)
+        ENERGYBALANCE=dict(lwriteEBfiles=True),
+        RUN=dict(runtime=14.0, trestart=7.0))
     out = tmp / "out31"
     rc, stdout, stderr, secs = run_cli(
         [str(case), "--outdir", str(out), "--runtime", "14"], timeout=900)
@@ -1307,10 +1485,6 @@ def driver_phases(smi, fused, div_bound, eb128, urban, d32):
               f"launches unmasked {unmasked}, masked {masked} (= 3 x "
               f"{steps}); max|div u| after the last step {divs[-1]:.2e} <= "
               f"{div_bound:g}")
-    if not has_h5py:
-        print("  the native checkpoint (.h5) was not exercised on the card: "
-              "h5py is not installed here; the restart phase uses the "
-              "reference's Fortran restart files", flush=True)
     compiled = "step compiled (cuda graph)" in stdout
     print(f"  the CLI's closing line says the compiled step ran: "
           f"{compiled}", flush=True)
@@ -1321,33 +1495,50 @@ def driver_phases(smi, fused, div_bound, eb128, urban, d32):
     recs = check_outputs(out, tables, counts, "urban-EB 128^3 outputs", 31)
     if min(recs[k] for k in ("xytdump", "tdump", "fielddump")) < 2:
         raise RuntimeError("a family wrote fewer than two records")
-    if has_h5py and not list(out.glob("initd*.900.h5")):
-        raise RuntimeError("no checkpoint was written")
+    ckpts = sorted(out.glob("initd*.900.h5"))
+    if not ckpts:
+        raise RuntimeError("the CLI wrote no checkpoint (trestart 7 s over "
+                           "14 s)")
+    ck = hdf5.read(ckpts[-1])
+    families = sorted(ck["stats"])
+    print(f"  checkpoints written by the CLI (trestart 7 s): "
+          f"{[p.name for p in ckpts]}, {ckpts[-1].stat().st_size} bytes; "
+          f"the last read back at t = {float(ck.attrs['timee']):.4f} s with "
+          f"groups {sorted(ck)} and the accumulators of {families}",
+          flush=True)
+    if not ({"m", "c", "pres", "fac", "stats"} <= set(ck) and len(families)
+            == 5 and all(np.isfinite(v).all()
+                         for v in flat_h5(ck).values())):
+        raise RuntimeError("the CLI's checkpoint lacks a group or holds "
+                           "non-finite values")
     cli = dict(steps=steps, masked=masked, seconds=secs,
-               max_div=divs[-1], records=recs, compiled_step=compiled)
+               max_div=divs[-1], records=recs, compiled_step=compiled,
+               checkpoints=[p.name for p in ckpts])
 
     # 32. restart continuation
-    worst, _, dt_rel = continuation(urban[32], "float64", tmp / "c32", 5,
-                                    "urban 32^3 float64", 32)
-    if not (worst <= 1e-9 and dt_rel <= 1e-9):
+    c32 = continuation(urban[32], "float64", tmp / "c32", 5,
+                       "urban 32^3 float64", 32, fused)
+    if not (c32["worst"] <= 1e-9 and c32["dt_rel"] <= 1e-9):
         raise RuntimeError("the continued 32^3 run left the uninterrupted")
-    _, du, dt_rel = continuation(urban[128], "float32", tmp / "c128", 10,
-                                 "urban 128^3 float32", 32)
-    if not (du <= 1e-4 and dt_rel <= 1e-4):
+    c128 = continuation(urban[128], "float32", tmp / "c128", 10,
+                        "urban 128^3 float32", 32, fused)
+    if not (c128["du"] <= 1e-4 and c128["dt_rel"] <= 1e-4):
         raise RuntimeError("the continued 128^3 run left the uninterrupted")
-    restart = dict(worst_32_f64=worst, du_128_f32=du)
-    if has_h5py:
-        worst, _, dt_rel = continuation(urban[32], "float64", tmp / "h32", 5,
-                                        "urban 32^3 float64", 32, fmt="h5")
-        if not (worst <= 1e-9 and dt_rel <= 1e-9):
-            raise RuntimeError("the run continued from the .h5 checkpoint "
-                               "left the uninterrupted")
-        restart["worst_32_f64_h5"] = worst
-    else:
-        print("  the native .h5 checkpoint and resume_stats (the statistics "
-              "accumulators it carries) were not exercised on the card: h5py "
-              "is not installed here; tests/test_torch_restart.py holds them "
-              "on the CPU", flush=True)
+    h32 = continuation(urban[32], "float64", tmp / "h32", 5,
+                       "urban 32^3 float64", 32, fused, fmt="h5")
+    heb = continuation(cases.stage_urban_eb(32, CACHE, dtEB=0.5), "float64",
+                       tmp / "heb32", 5, "urban-EB 32^3 float64", 32, fused,
+                       fmt="h5", stats=True)
+    for label, r in (("urban", h32), ("urban-EB", heb)):
+        if not (r["worst"] <= 1e-9 and r["dt_rel"] <= 1e-9
+                and r.get("checkpoint_worst", 0.0) <= 1e-9
+                and r["launches"] == (0, 3 * sum(r["steps"]))):
+            raise RuntimeError(f"{label} 32^3 continued from the .h5 "
+                               f"checkpoint left the uninterrupted run")
+    if "fac" not in heb["groups"]:
+        raise RuntimeError("the urban-EB continuation held no facet state")
+    restart = dict(worst_32_f64=c32["worst"], du_128_f32=c128["du"],
+                   h5_urban_32_f64=h32, h5_urban_eb_32_f64=heb)
 
     # 33. dispersion 128^3 and driven 32^3 through Simulation
     d128 = cases.stage_urban_dispersion(128, CACHE)
@@ -1473,8 +1664,10 @@ def driver_phases(smi, fused, div_bound, eb128, urban, d32):
                   f"{nd:5d} device activities  {dms:8.4f} device ms",
                   flush=True)
         cost[name] = row
+    checkpoint = checkpoint_costs(sim, cm, st, tmp / "checkpoints", smi)
     sim._close()
     shutil.rmtree(tmp / "cost_families")
+    shutil.rmtree(tmp / "checkpoints")
 
     # 35. the runmodes through the CLI, three processes at once
     procs = {}
@@ -1497,7 +1690,8 @@ def driver_phases(smi, fused, div_bound, eb128, urban, d32):
     phase(35, f"runmodes 1003, 1004, 1005 through python -m udales_tpu_torch "
               f"on {urban[32].name}: exit codes {codes}")
     return dict(cli=cli, restart=restart, sims=sims,
-                cost=dict(ms_per_step=timings, median=med, families=cost))
+                cost=dict(ms_per_step=timings, median=med, families=cost,
+                          checkpoint=checkpoint))
 
 
 def divergence_field(model, c):
@@ -2522,6 +2716,18 @@ def validation_phases(smi, fused, recycle32):
             and cli_steps > 0):
         raise RuntimeError("the Fortran warm start of the generator case "
                            "failed its checks")
+    # the same case continued through the native checkpoint, which carries
+    # the generator's running means (ig) that the Fortran files lack
+    hdir = CACHE / "recycle32_h5"
+    shutil.rmtree(hdir, ignore_errors=True)
+    hdir.mkdir()
+    out["recycle_h5"] = rec = continuation(
+        recycle32, "float64", hdir, 3, "rescale-recycle 32^3 float64", 51,
+        fused, fmt="h5")
+    if not (rec["worst"] <= 1e-9 and rec["dt_rel"] <= 1e-9
+            and "ig" in rec["groups"] and rec["launches"] == (18, 0)):
+        raise RuntimeError("the generator case continued from the .h5 "
+                           "checkpoint left the uninterrupted run")
     return out
 
 
@@ -3401,6 +3607,8 @@ def main():
          "max_abs_err_block_64x64x128": split["block_err"],
          **{f"{k}_block_64x64x128": v for k, v in split["block"].items()},
          "launches_validation_32": val["validation"]["launches"],
+         "launches_h5_continuation_recycle_32":
+             val["recycle_h5"]["launches"][0],
          **{f"launches_captured_{k}": [r["launches"]
                                        for r in comp[k]["captured"]]
             for k in ("flat_128", "flat_256")},
@@ -3419,6 +3627,9 @@ def main():
          "launches_cli_urban_eb": drv_out["cli"]["masked"],
          "launches_simulation_dispersion": drv_out["sims"]["dispersion_masked"],
          "launches_simulation_driven": drv_out["sims"]["driven_masked"],
+         **{f"launches_h5_continuation_{k}_32":
+            drv_out["restart"][f"h5_{k}_32_f64"]["launches"][1]
+            for k in ("urban", "urban_eb")},
          "max_abs_err_open_ghosts": drv["open_err"]["masked"],
          "launches_split_driven_2x2_per_rank": [
              m["masked"] for m in split["driven_main_2x2"]],
@@ -3471,6 +3682,7 @@ def main():
                                         "simulation_2x2")},
         "validation_32": {**val["validation"], "chained": val["chained"]},
         "recycle_warm_start_32": val["recycle_warm"],
+        "recycle_h5_continuation_32": val["recycle_h5"],
         "compiled": comp, "compiled_split": csplit}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -227,7 +227,6 @@ def test_open_boundary_state_roundtrips(tmp_path, fmt):
     model = SimpleNamespace(cfg=cfg, device="cpu", eb=None, ibm=None,
                             mesh=None, inlet=object(), inlet_y=object())
     if fmt == "h5":
-        pytest.importorskip("h5py")
         trestart.save_checkpoint(tmp_path / "ck.h5", st, 9)
         back = trestart.load_checkpoint(tmp_path / "ck.h5", grid,
                                         model=model)
@@ -271,7 +270,6 @@ def test_restart_lands_on_the_models_device(tmp_path, fmt):
     model = SimpleNamespace(cfg=cfg, device="meta", eb=None, ibm=None,
                             mesh=None, inlet=None, inlet_y=None)
     if fmt == "h5":
-        pytest.importorskip("h5py")
         trestart.save_checkpoint(tmp_path / "ck.h5", st, 9)
         back = trestart.load_checkpoint(tmp_path / "ck.h5", grid,
                                         model=model)
@@ -286,17 +284,55 @@ def test_restart_lands_on_the_models_device(tmp_path, fmt):
     assert trestart._device("cpu", model) == "cpu"
 
 
-def test_checkpoint_without_h5py_raises(monkeypatch, tmp_path):
-    """Where h5py is not installed a native checkpoint cannot be written or
-    read, and says so; the Fortran pair needs only numpy."""
-    from udales_tpu_torch import entry
-    model = entry._build(4, 4, 4, "float64", device="cpu")
-    st = entry._init_state(model)
+def test_checkpoint_without_h5py(monkeypatch, eb_case, tmp_path):
+    """With h5py hidden, as on the card's machine: a native checkpoint with
+    the facet state is written and read back, ``Simulation._write_restart``
+    and ``resume_stats`` carry the statistics accumulators, and the driver
+    series of ``DriverRecorder.save`` loads through ``load_driver_inlet``
+    equal to its ``?driver_*`` files."""
+    from udales_tpu_torch.io.driverfiles import read_driver_files
+    from udales_tpu_torch.ops.openbc import load_driver_inlet
+    from udales_tpu_torch.sim import DriverRecorder
     monkeypatch.setitem(__import__("sys").modules, "h5py", None)
-    with pytest.raises(ImportError, match="h5py"):
-        trestart.save_checkpoint(tmp_path / "x.h5", st)
-    with pytest.raises(ImportError, match="h5py"):
-        trestart.load_checkpoint(tmp_path / "x.h5", model.grid)
+    with pytest.raises(ImportError):
+        import h5py  # noqa: F401
+    model = load_case(eb_case, "900", dtype="float64", device="cpu")
+    st = model.step(model.cold_start(seed=43))
+    trestart.save_checkpoint(tmp_path / "x.h5", st, 4)
+    back = trestart.load_checkpoint(tmp_path / "x.h5", model.grid,
+                                    model=model)
+    assert_states_equal(state_to_numpy(back), state_to_numpy(st),
+                        skip=("facstats",))
+    assert back.fac is not None
+    rng = np.random.default_rng(7)
+    sim = Simulation(model, tmp_path / "sim")
+    for w in sim._stats_writers().values():
+        vals = {k: torch.as_tensor(rng.standard_normal(tuple(v.shape)))
+                for k, v in Simulation._acc_items(w.acc)}
+        w.acc = vals if isinstance(w.acc, dict) else type(w.acc)(**vals)
+        w.tnext_sample, w.tnext_write = 13.0, 20.0
+    want = _stats_numpy(sim)
+    sim._write_restart(st)
+    fresh = Simulation(model, tmp_path / "fresh")
+    fresh.resume_stats(tmp_path / "sim" / "initd00000000.900.h5")
+    assert len(want) == 5
+    for fam, w in fresh._stats_writers().items():
+        for k, v in Simulation._acc_items(w.acc):
+            assert np.array_equal(np.asarray(v), np.asarray(want[fam][k]))
+        assert (w.tnext_sample, w.tnext_write) == (13.0, 20.0)
+    rec = DriverRecorder(model.cfg, model.grid, tmp_path / "drv")
+    (tmp_path / "drv").mkdir()
+    for t in (0.0, 0.1, 0.2):
+        rec.maybe_record(st, t)
+    assert rec.save() == tmp_path / "drv" / "tdriver_000.900"
+    inlet = load_driver_inlet(tmp_path / "drv" / "driverdata.900.h5",
+                              torch.float64, device="cpu")
+    files = read_driver_files(tmp_path / "drv", 900, model.grid.jtot,
+                              model.grid.ktot)
+    assert np.array_equal(inlet.t.numpy(), [0.0, 0.1, 0.2])
+    for k in ("t", "u", "v", "w", "thl"):
+        got = getattr(inlet, k).numpy()
+        np.testing.assert_array_equal(got, files[k], err_msg=k)
 
 
 def _step_times(model, state, n):
@@ -307,15 +343,19 @@ def _step_times(model, state, n):
     return times
 
 
-@pytest.mark.parametrize("fmt", ["h5", "fortran"])
-def test_continued_run_equals_uninterrupted_run(tmp_path, fmt):
+@pytest.mark.parametrize("fmt", ["h5", "h5-without-h5py", "fortran"])
+def test_continued_run_equals_uninterrupted_run(monkeypatch, tmp_path, fmt):
     """3 steps, a restart, 3 more through ``main`` with ``lwarmstart``,
     against 6 steps in one run, every State leaf equal (the facet state
     with the native checkpoint, on the urban-EB case; the Fortran files
     carry no facet state, so that run takes the plain urban case).  The
     runs stop halfway between two step times.  With the native checkpoint
     the xytdump accumulator rides along, so the one xytdump write, at step
-    6, is the same in both."""
+    6, is the same in both.  "h5-without-h5py" hides h5py, as on the
+    card's machine."""
+    if fmt == "h5-without-h5py":
+        monkeypatch.setitem(__import__("sys").modules, "h5py", None)
+        fmt = "h5"
     root = tmp_path / "case"
     base = (cases.stage_urban_eb(N, root, dtEB=0.5) if fmt == "h5"
             else cases.stage_urban(N, root))

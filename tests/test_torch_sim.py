@@ -11,7 +11,8 @@
 - On the card (``cuda`` marker; JAX is imported only inside the tests that
   need it): the same Simulation at 16^3 float64 on the card against the
   CPU, every array handed to a NetCDF writer to 1e-9 before its float32
-  cast.  The card's machine has no h5py, so that run writes no checkpoint:
+  cast, and every leaf of its checkpoints (written and read by
+  ``io/hdf5.py``: the card's machine has no h5py) to 1e-9:
 
       python -m pytest --noconftest -m cuda tests/test_torch_sim.py
 """
@@ -37,7 +38,7 @@ N = 16
 FIELDVARS = "u0,v0,w0,th,qt,pr,tx,ty,tz,hf,mu,mv,mw,mc"
 
 
-def all_writers(restart=True):
+def all_writers():
     """Namelist groups that switch on every writer of the urban-EB case:
     a sample every step, writes every 1 s, facet outputs, checkpoints."""
     out = dict(lfielddump=True, fieldvars=FIELDVARS, tfielddump=1.0,
@@ -48,7 +49,7 @@ def all_writers(restart=True):
                tcheck=1.0)
     return dict(OUTPUT=out, WALLS=dict(lwritefac=True, dtfac=1.0),
                 ENERGYBALANCE=dict(lwriteEBfiles=True),
-                RUN=dict(trestart=1.0 if restart else 1e4))
+                RUN=dict(trestart=1.0))
 
 
 @pytest.fixture(scope="module")
@@ -209,14 +210,17 @@ def cuda():
 
 @pytest.mark.cuda
 def test_simulation_on_the_card_matches_the_cpu(cuda, tmp_path, monkeypatch):
-    """Simulation with every writer but the checkpoint (16^3 urban-EB,
-    float64), on the card and on the CPU from one State: every array handed
-    to a NetCDF writer agrees to 1e-9 of its largest value before the
-    float32 cast, and the masked kernel launched 3 times a step."""
+    """Simulation with every writer (16^3 urban-EB, float64), on the card
+    and on the CPU from one State: every array handed to a NetCDF writer
+    agrees to 1e-9 of its largest value before the float32 cast, every
+    leaf and attribute of the checkpoints (State, facet state, statistics
+    accumulators) to 1e-9, and the masked kernel launched 3 times a
+    step."""
+    from udales_tpu_torch.io import hdf5
     from udales_tpu_torch.ops.fused_diff import fused_diff_mom
     root = tmp_path / "stage"
     case = cases.with_namelist(cases.stage_urban_eb(N, root, dtEB=0.5),
-                               tmp_path / "all", **all_writers(False))
+                               tmp_path / "all", **all_writers())
     records = {}
     append = netcdf.NCWriter.append
 
@@ -247,3 +251,22 @@ def test_simulation_on_the_card_matches_the_cpu(cuda, tmp_path, monkeypatch):
                 err = np.abs(dg[k] - r).max(initial=0.0)
                 assert err <= 1e-9 * max(1.0, np.abs(r).max(initial=0.0)), \
                     (name, k, err)
+
+    def flat(tree, prefix=""):
+        out = {f"{prefix}@{k}": np.asarray(v) for k, v in tree.attrs.items()}
+        for k, v in tree.items():
+            out.update(flat(v, f"{prefix}{k}/") if isinstance(v, dict)
+                       else {prefix + k: v})
+        return out
+    names = sorted(p.name for p in (tmp_path / "cpu").glob("initd*.h5"))
+    assert len(names) >= 2 and names == sorted(
+        p.name for p in (tmp_path / "cuda").glob("initd*.h5"))
+    for name in names:
+        got = flat(hdf5.read(tmp_path / "cuda" / name))
+        ref = flat(hdf5.read(tmp_path / "cpu" / name))
+        assert sorted(got) == sorted(ref) and "stats/xytdump/@tnext_write" \
+            in ref, name
+        for k, r in ref.items():
+            err = np.abs(got[k] - r.astype(np.float64)).max(initial=0.0)
+            assert err <= 1e-9 * max(1.0, np.abs(r).max(initial=0.0)), \
+                (name, k, err)

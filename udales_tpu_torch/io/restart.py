@@ -1,11 +1,11 @@
 """Checkpoint/restore (port of ``udales_tpu.io.restart``).
 
-Native checkpoints are HDF5 (h5py) holding the full prognostic state +
+Native checkpoints are HDF5 files holding the full prognostic state +
 timee/dt — the analogue of the reference's per-rank unformatted
 ``initd<ntrun>_<px>_<py>.<exp>`` files (src/modsave.f90:37-131), but merged
 and portable.  The layout is udales_tpu's, so a checkpoint written by
-either package loads in the other.  h5py is imported where a checkpoint is
-written or read, and a missing h5py raises there.
+either package loads in the other; the port reads and writes it with
+`udales_tpu_torch.io.hdf5`, which needs only numpy.
 
 `write_fortran_restart` / `read_fortran_restart` handle the reference's own
 restart files (record layout at modsave.f90:80-100: sequential unformatted
@@ -34,22 +34,12 @@ from ..ops.inletgen import INLETGEN_NAMES, InletGen, init_inletgen
 from ..ops.openbc import XPlanes, YPlanes
 from ..parallel.mesh import shard_state
 from ..state import Fields, State, zero_facstats
+from . import hdf5
 
 _FIELD_LEAVES = ("u", "v", "w", "thl", "qt", "e12", "sv")
 _FAC_LEAVES = ("T", "Tdash", "hfi", "efi", "wsoil", "hurel", "qsat", "f",
                "tnextEB", "tEB_last")
 _PLANE_LEAVES = ("u", "v", "w", "thl", "qt", "e12", "sv")
-
-
-def _h5py():
-    try:
-        import h5py
-    except ImportError as e:
-        raise ImportError(
-            "native checkpoints (.h5) need the h5py package, which is not "
-            "installed; write_fortran_restart / warmstart_state need only "
-            "numpy") from e
-    return h5py
 
 
 def _host(a):
@@ -60,35 +50,32 @@ def _host(a):
 # Native checkpoints
 # ---------------------------------------------------------------------------
 
-def save_checkpoint(path: str | Path, state, ntrun: int = 0):
-    h5py = _h5py()
-    with h5py.File(path, "w") as f:
-        f.attrs["timee"] = float(state.timee)
-        f.attrs["dt"] = float(state.dt)
-        f.attrs["ntrun"] = ntrun
-        for grp, flds in (("m", state.m), ("c", state.c)):
-            g = f.create_group(grp)
-            for name in _FIELD_LEAVES:
-                g.create_dataset(name, data=_host(getattr(flds, name)))
-            for side in ("bx", "by"):
-                planes = getattr(flds, side)
-                if planes is not None:
-                    gs = g.create_group(side)
-                    for name in _PLANE_LEAVES:
-                        gs.create_dataset(name,
-                                          data=_host(getattr(planes, name)))
-        f.create_dataset("pres", data=_host(state.pres))
-        if state.ig is not None:
-            g = f.create_group("ig")
-            for name in INLETGEN_NAMES:
-                g.create_dataset(name, data=_host(getattr(state.ig, name)))
-        # facet-EB state (the reference restarts facet temperatures via a
-        # re-written Tfacinit_layers.inp, initfac.f90:301-310; here the
-        # whole FacetState rides in the checkpoint)
-        if state.fac is not None:
-            g = f.create_group("fac")
-            for name in _FAC_LEAVES:
-                g.create_dataset(name, data=_host(getattr(state.fac, name)))
+def save_checkpoint(path: str | Path, state, ntrun: int = 0,
+                    extra: dict | None = None):
+    """Write `state` as a native checkpoint; `extra` adds members to the
+    file's root (``Simulation``'s ``stats`` group) in the same write."""
+    tree = hdf5.Group(attrs=dict(timee=float(state.timee),
+                                 dt=float(state.dt), ntrun=ntrun))
+    for grp, flds in (("m", state.m), ("c", state.c)):
+        g = tree[grp] = {name: _host(getattr(flds, name))
+                         for name in _FIELD_LEAVES}
+        for side in ("bx", "by"):
+            planes = getattr(flds, side)
+            if planes is not None:
+                g[side] = {name: _host(getattr(planes, name))
+                           for name in _PLANE_LEAVES}
+    tree["pres"] = _host(state.pres)
+    if state.ig is not None:
+        tree["ig"] = {name: _host(getattr(state.ig, name))
+                      for name in INLETGEN_NAMES}
+    # facet-EB state (the reference restarts facet temperatures via a
+    # re-written Tfacinit_layers.inp, initfac.f90:301-310; here the
+    # whole FacetState rides in the checkpoint)
+    if state.fac is not None:
+        tree["fac"] = {name: _host(getattr(state.fac, name))
+                       for name in _FAC_LEAVES}
+    tree.update(extra or {})
+    hdf5.write(path, tree)
 
 
 def _device(device, model):
@@ -104,32 +91,29 @@ def load_checkpoint(path: str | Path, grid, dtype=None, model=None,
     model's, else the card).  Pass `model` to restore the facet-EB state and
     to start fresh lwritefac accumulators, as the reference does; the State
     of a split `model` is its blocks of the checkpoint's whole State."""
-    h5py = _h5py()
     device = _device(device, model)
-    t = lambda a: torch.as_tensor(np.asarray(a), device=device)
-    with h5py.File(path, "r") as f:
-        def fields(grp):
-            g = f[grp]
-            planes = {side: cls(**{k: t(g[side][k][()])
-                                   for k in _PLANE_LEAVES})
-                      for side, cls in (("bx", XPlanes), ("by", YPlanes))
-                      if side in g}
-            return Fields(**{name: t(g[name][()]) for name in _FIELD_LEAVES},
-                          **planes)
-        fac = None
-        if "fac" in f and model is not None and model.eb is not None:
-            g = f["fac"]
-            fac = FacetState(**{name: t(g[name][()]) for name in _FAC_LEAVES})
-        dt = torch.as_tensor(f.attrs["dt"], dtype=grid.torch_dtype,
-                             device=device)
-        st = State(m=fields("m"), c=fields("c"), pres=t(f["pres"][()]),
-                   dt=dt, timee=torch.as_tensor(f.attrs["timee"],
-                                                dtype=grid.torch_dtype,
-                                                device=device),
-                   fac=fac)
-        if "ig" in f:
-            st = st.replace(ig=InletGen(**{k: t(f["ig"][k][()])
-                                           for k in INLETGEN_NAMES}))
+    t = lambda a: torch.as_tensor(a, device=device)
+    f = hdf5.read(path)
+
+    def fields(grp):
+        g = f[grp]
+        planes = {side: cls(**{k: t(g[side][k]) for k in _PLANE_LEAVES})
+                  for side, cls in (("bx", XPlanes), ("by", YPlanes))
+                  if side in g}
+        return Fields(**{name: t(g[name]) for name in _FIELD_LEAVES},
+                      **planes)
+    fac = None
+    if "fac" in f and model is not None and model.eb is not None:
+        fac = FacetState(**{name: t(f["fac"][name])
+                            for name in _FAC_LEAVES})
+    scalar = lambda v: torch.as_tensor(v, dtype=grid.torch_dtype,
+                                       device=device)
+    st = State(m=fields("m"), c=fields("c"), pres=t(f["pres"]),
+               dt=scalar(f.attrs["dt"]), timee=scalar(f.attrs["timee"]),
+               fac=fac)
+    if "ig" in f:
+        st = st.replace(ig=InletGen(**{k: t(f["ig"][k])
+                                       for k in INLETGEN_NAMES}))
     if (model is not None and model.cfg.walls.lwritefac
             and model.ibm is not None):
         st = st.replace(facstats=zero_facstats(model.ibm.nfcts,

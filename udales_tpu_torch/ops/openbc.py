@@ -33,6 +33,7 @@ import torch
 
 from ..config import BC_DRIVER, BC_PROFILE, Config
 from ..grid import Grid
+from ..io import hdf5
 
 BC_RECYCLE = 5  # rescale-recycle inlet (modinlet.f90 inletgen, Lund 1998)
 
@@ -294,16 +295,12 @@ def load_driver_inlet(path, dtype, device="cuda", rows=None) -> Inlet:
     """Load a recorded precursor-plane series (the h5 format written by
     ``sim.DriverRecorder``; the reference's per-y-rank unformatted ?driver
     files are the Fortran equivalent, moddriver.f90:515/750).  `dtype` is a
-    torch dtype; `rows` the y rows of a split Model's block (None: all).
-    Needs h5py."""
-    import h5py
-    with h5py.File(path, "r") as f:
-        d = ycut_series({k: np.asarray(f[k][()]) for k in f.keys()}, rows)
-        get = lambda k: (torch.as_tensor(np.ascontiguousarray(d[k]),
-                                         dtype=dtype, device=device)
-                         if k in d else None)
-        return Inlet(mode=BC_DRIVER, t=get("t"), u=get("u"), v=get("v"),
-                     w=get("w"), thl=get("thl"), qt=get("qt"), sv=get("sv"))
+    torch dtype; `rows` the y rows of a split Model's block (None: all)."""
+    d = ycut_series(dict(hdf5.read(path)), rows)
+    get = lambda k: (torch.as_tensor(np.ascontiguousarray(d[k]), dtype=dtype,
+                                     device=device) if k in d else None)
+    return Inlet(mode=BC_DRIVER, t=get("t"), u=get("u"), v=get("v"),
+                 w=get("w"), thl=get("thl"), qt=get("qt"), sv=get("sv"))
 
 
 def convect_planes(bx: XPlanes, fields, grid: Grid, rk3coef, uouttot,

@@ -45,6 +45,7 @@ import numpy as np
 import torch
 
 from .config import const
+from .io import hdf5
 from .io.driverfiles import write_driver_files
 from .io.fielddump import FieldDump
 from .io.netcdf import NCWriter
@@ -68,8 +69,8 @@ class DriverRecorder:
     writedriverfile:515): every dtdriver after tdriverstart, store the y-z
     planes of u (at face iplane), v, w, thl, qt, sv.  `save` writes the
     reference's Fortran direct-access ``?driver_*`` files, which
-    ``run.load_case`` replays (idriver=2), and, where h5py is installed,
-    ``driverdata.<exp>.h5`` for ``ops.openbc.load_driver_inlet``."""
+    ``run.load_case`` replays (idriver=2), and ``driverdata.<exp>.h5`` for
+    ``ops.openbc.load_driver_inlet``."""
 
     def __init__(self, cfg, grid, outdir):
         self.cfg = cfg
@@ -113,15 +114,9 @@ class DriverRecorder:
         write_driver_files(self.outdir, exp, np.asarray(self.times), planes,
                            self.grid.jtot, self.grid.ktot,
                            tdriverstart=self.cfg.driver.tdriverstart)
-        try:
-            import h5py
-        except ImportError:
-            return self.outdir / f"tdriver_000.{exp}"
-        with h5py.File(self.outdir / f"driverdata.{exp}.h5", "w") as f:
-            f.create_dataset("t", data=np.asarray(self.times))
-            for k, v in planes.items():
-                if v is not None:
-                    f.create_dataset(k, data=v)
+        hdf5.write(self.outdir / f"driverdata.{exp}.h5",
+                   {"t": np.asarray(self.times)}
+                   | {k: v for k, v in planes.items() if v is not None})
         return self.outdir / f"tdriver_000.{exp}"
 
 
@@ -561,39 +556,32 @@ class Simulation:
 
     def _write_restart(self, state):
         name = self.outdir / f"initd{self.ntrun:08d}.{self._exp()}.h5"
-        save_checkpoint(name, state, self.ntrun)
         # statistics continuation (the reference's lreadmean pathway,
         # modstartup.f90:2225-2280, reads legacy means/SGS files; here the
         # live accumulators of every enabled family ride the checkpoint)
-        import h5py
-        with h5py.File(name, "a") as f:
-            sg = f.create_group("stats")
-            for fam, w in self._stats_writers().items():
-                g = sg.create_group(fam)
-                for k, v in self._acc_items(w.acc):
-                    g.create_dataset(k, data=_host(v))
-                g.attrs["tnext_sample"] = w.tnext_sample
-                g.attrs["tnext_write"] = w.tnext_write
+        stats = {fam: hdf5.Group(
+            {k: _host(v) for k, v in self._acc_items(w.acc)},
+            attrs=dict(tnext_sample=w.tnext_sample,
+                       tnext_write=w.tnext_write))
+            for fam, w in self._stats_writers().items()}
+        save_checkpoint(name, state, self.ntrun, extra={"stats": stats})
 
     def resume_stats(self, ckpt_path):
         """Restore statistics accumulators from a checkpoint written by
         _write_restart (lreadmean-equivalent continuation)."""
-        import h5py
-        with h5py.File(ckpt_path, "r") as f:
-            if "stats" not in f:
-                return
-            for fam, w in self._stats_writers().items():
-                if fam not in f["stats"]:
-                    continue
-                g = f["stats"][fam]
-                data = {k: torch.as_tensor(g[k][()], device=self.model.device)
-                        for k in g}
-                if isinstance(w.acc, dict):
-                    w.acc = {k: data.get(k, v) for k, v in w.acc.items()}
-                else:
-                    w.acc = type(w.acc)(**data)
-                w.tnext_sample = float(g.attrs["tnext_sample"])
-                w.tnext_write = float(g.attrs["tnext_write"])
+        stats = hdf5.read(ckpt_path).get("stats", {})
+        for fam, w in self._stats_writers().items():
+            if fam not in stats:
+                continue
+            g = stats[fam]
+            data = {k: torch.as_tensor(v, device=self.model.device)
+                    for k, v in g.items()}
+            if isinstance(w.acc, dict):
+                w.acc = {k: data.get(k, v) for k, v in w.acc.items()}
+            else:
+                w.acc = type(w.acc)(**data)
+            w.tnext_sample = float(g.attrs["tnext_sample"])
+            w.tnext_write = float(g.attrs["tnext_write"])
 
     def _checksim(self, state, nsteps, wall0):
         """Runtime monitor (modchecksim.f90:76-205): Courant number,
