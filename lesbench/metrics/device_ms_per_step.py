@@ -1,0 +1,2 @@
+"""device_ms_per_step: ``lesbench.spans.device_ms_per_step``."""
+from lesbench.spans import device_ms_per_step as read  # noqa: F401
