@@ -1179,13 +1179,15 @@ def run_cli(args, timeout):
 
 
 def launches_of(stdout):
-    """(steps, unmasked, masked) from the CLI's closing line."""
+    """(steps, unmasked, masked) from the CLI's closing lines: the steps of
+    its ``done:`` line, the launches of its trace summary's counters."""
     import re
-    m = re.search(r"after (\d+) steps; kernel launches: fused_diff_mom "
-                  r"(\d+), fused_diff_mom_masked (\d+)", stdout)
-    if m is None:
+    m = re.search(r"after (\d+) steps;", stdout)
+    c = re.search(r"fused_diff_mom\.launches=(\d+) "
+                  r"fused_diff_mom\.masked_launches=(\d+)", stdout)
+    if m is None or c is None:
         raise RuntimeError(f"no closing line in the CLI's output:\n{stdout}")
-    return tuple(int(x) for x in m.groups())
+    return (int(m.group(1)),) + tuple(int(x) for x in c.groups())
 
 
 def flat_numpy(tree, prefix=""):

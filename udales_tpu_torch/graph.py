@@ -33,11 +33,15 @@ copy.  Host work between calls (``DriverStream.ensure``, the writers of
 ``Simulation``) reads ``S`` after the replay that wrote it and before the
 next one, on the same stream.
 
-``fused_diff_mom``'s launch counters, and a split Model's
-``Mesh.collectives`` and ``Mesh.bytes``, count executions: what the capture
-recorded is taken back at the end of the capture, and each replay adds it
-again, so "launches = 3 x steps" and the collectives a step hold for a
-captured run as for an eager one.
+Every count and byte counter of the run's trace (``trace``: among them
+``fused_diff_mom``'s launch counters and a split Model's ``Mesh.collectives``
+and ``Mesh.bytes``) counts executions: what the capture recorded is taken
+back at the end of the capture, and each replay adds it again, so
+"launches = 3 x steps" and the collectives a step hold for a captured run
+as for an eager one.  The body is a device step of the trace (the leaves of
+``Model.step`` and ``copy``, the copy into ``S``): its events are nodes of
+the graph, so each replay times its leaves on the card (``trace.device_ms``).
+A call is the host span ``graph.replay``, a build ``graph.capture``.
 
 A Model split over a mesh (``parallel.mesh``, the counterpart of
 udales_tpu's ``jax.jit(model.step)`` of a sharded Model) compiles the same
@@ -65,7 +69,7 @@ import time
 
 import torch
 
-from .ops.fused_diff import fused_diff_mom
+from . import trace
 from .state import State, copy_into, same_structure
 
 
@@ -74,6 +78,8 @@ class CompiledStep:
     the CPU); call it as ``model.step``.  ``builds`` counts the builds
     (captures on the card), ``capture_seconds`` the seconds of the last
     one, warm-up step included, and ``replays`` the calls since."""
+
+    builds = trace.counter("graph.builds")
 
     def __init__(self, model):
         if model.mesh is not None and not model.mesh.capturable:
@@ -88,30 +94,31 @@ class CompiledStep:
         self.builds = 0
         self.replays = 0
         self.capture_seconds = 0.0
-        # what one replay adds to each of `_counters()`
-        self.per_replay = [0] * len(self._counters())
+        # what one replay adds to the trace's counters, and its timeline
+        self._delta, self._timeline = [], None
 
-    def _counters(self):
-        """(object, attribute) of each counter of executions that a replay
-        adds to: fused_diff_mom's (unmasked, masked) launches, and a split
-        Model's collectives and bytes."""
-        out = [(fused_diff_mom, "launch_count"),
-               (fused_diff_mom, "masked_launch_count")]
-        if self.model.mesh is not None:
-            out += [(self.model.mesh, "collectives"),
-                    (self.model.mesh, "bytes")]
+    @property
+    def per_replay(self) -> dict:
+        """What one replay adds to each count and byte counter of the
+        trace, by name."""
+        out = {}
+        for _, name, n in self._delta:
+            out[name] = out.get(name, 0) + n
         return out
 
     @property
     def launches_per_replay(self) -> tuple:
         """fused_diff_mom's (unmasked, masked) launches in one replay."""
-        return tuple(self.per_replay[:2])
+        pr = self.per_replay
+        return (pr.get("fused_diff_mom.launches", 0),
+                pr.get("fused_diff_mom.masked_launches", 0))
 
     @property
     def collectives_per_replay(self) -> tuple:
         """A split Model's (collectives, bytes) in one replay; (0, 0)
         without a mesh."""
-        return tuple(self.per_replay[2:]) or (0, 0)
+        pr = self.per_replay
+        return (pr.get("mesh.collectives", 0), pr.get("mesh.bytes", 0))
 
     @property
     def kind(self) -> str:
@@ -120,18 +127,26 @@ class CompiledStep:
         return "cuda graph" if self.model.device.type == "cuda" \
             else "eager body"
 
+    def _body(self, S: State):
+        """``copy_into(S, model.step(S))`` as one device step of the trace."""
+        with trace.device_step("graph.body", self.model.device):
+            out = self.model.step(S)
+            trace.leaf("copy")
+            copy_into(S, out)
+
     def __call__(self, state: State) -> State:
         S = self.state
         if S is None or (state is not S and not same_structure(S, state)):
             return self._build(state)
-        if state is not S:
-            copy_into(S, state)
-        if self.graph is None:
-            copy_into(S, self.model.step(S))
-        else:
-            self.graph.replay()
-            for (obj, attr), n in zip(self._counters(), self.per_replay):
-                setattr(obj, attr, getattr(obj, attr) + n)
+        with trace.span("graph.replay"):
+            if state is not S:
+                copy_into(S, state)
+            if self.graph is None:
+                self._body(S)
+            else:
+                self.graph.replay()
+                trace.REGISTRY.replay(self._delta)
+                trace.REGISTRY.replayed(self._timeline)
         self.replays += 1
         return S
 
@@ -142,10 +157,11 @@ class CompiledStep:
         t0 = time.perf_counter()
         self.graph = None
         self.state = None
-        if model.device.type != "cuda":
-            self.state = model.step(state).map(torch.clone)
-        else:
-            self.state = self._capture(state)
+        with trace.span("graph.capture"):
+            if model.device.type != "cuda":
+                self.state = model.step(state).map(torch.clone)
+            else:
+                self.state = self._capture(state)
         self.builds += 1
         self.replays = 0
         self.capture_seconds = time.perf_counter() - t0
@@ -165,16 +181,13 @@ class CompiledStep:
         torch.cuda.synchronize(model.device)
         del out
         graph = torch.cuda.CUDAGraph()
-        counters = self._counters()
-        before = [getattr(obj, attr) for obj, attr in counters]
+        # the capture records the step's launches and collectives; none ran
+        mark = trace.REGISTRY.checkpoint()
         try:
             with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-                copy_into(S, model.step(S))
+                self._body(S)
         finally:
-            after = [getattr(obj, attr) for obj, attr in counters]
-            # the capture recorded these launches and collectives; none ran
-            for (obj, attr), n in zip(counters, before):
-                setattr(obj, attr, n)
-        self.per_replay = [a - b for a, b in zip(after, before)]
+            delta = trace.REGISTRY.take_back(mark)
+        self._delta, self._timeline = delta, trace.REGISTRY.captured
         self.graph = graph
         return S

@@ -24,6 +24,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from .. import trace
 from ..ops.openbc import DriverWindow, ycut_series
 from .driverfiles import read_driver_files
 
@@ -32,7 +33,12 @@ class DriverStream:
     """Host-side chunk reader + device-window manager for driver replay.
     `dtype` is the torch dtype of the fields, `device` where the window
     lives, `rows` the y rows of a split Model's block (a slice; None: all
-    jtot).  `refills` counts the chunks read so far."""
+    jtot).  `refills` counts the chunks read so far (the trace's
+    ``driver.refills``).  `ensure` is the trace's span ``driver.ensure``:
+    ``driver.wait`` the host read of ``timee``, ``driver.refill`` a chunk
+    read with the bytes it puts on the device."""
+
+    refills = trace.counter("driver.refills")
 
     def __init__(self, ddir: str | Path, driverjobnr: int, jtot: int,
                  ktot: int, dtype, chunk: int = 100,
@@ -69,12 +75,15 @@ class DriverStream:
         kw = dict(dtype=self.dtype, device=self.device)
         t = lambda a: torch.as_tensor(np.ascontiguousarray(a), **kw)
         zero = lambda: torch.zeros((W, ny, nz), **kw)
-        return DriverWindow(
+        win = DriverWindow(
             t=t(d["t"]), u=t(d["u"]), v=t(d["v"]), w=t(d["w"]),
             thl=t(d["thl"]) if "thl" in d else zero(),
             qt=t(d["qt"]) if "qt" in d else zero(),
             sv=(t(d["sv"]) if "sv" in d
                 else torch.zeros((W, 0, ny, nz), **kw)))
+        trace.add_bytes(sum(a.numel() * a.element_size() for a in (
+            win.t, win.u, win.v, win.w, win.thl, win.qt, win.sv)))
+        return win
 
     def _pick_n0(self, timee: float) -> int:
         idx = int(np.searchsorted(self.t_all, timee, side="right")) - 1
@@ -86,10 +95,13 @@ class DriverStream:
         State without a window (a cold or warm start) gets the window of
         its own time, whatever this stream served before.  Called between
         steps (host-side; the comparison waits for timee)."""
-        timee = float(state.timee)
-        if self.n0 is not None and state.drv is not None:
-            hi = min(self.n0 + self.chunk - 2, self.nt - 2)
-            if timee < self.t_all[hi] or self.n0 >= self.nt - self.chunk:
-                return state
-        self.n0 = self._pick_n0(timee)
-        return state.replace(drv=self._window(self.n0))
+        with trace.span("driver.ensure"):
+            with trace.span("driver.wait"):
+                timee = float(state.timee)
+            if self.n0 is not None and state.drv is not None:
+                hi = min(self.n0 + self.chunk - 2, self.nt - 2)
+                if timee < self.t_all[hi] or self.n0 >= self.nt - self.chunk:
+                    return state
+            self.n0 = self._pick_n0(timee)
+            with trace.span("driver.refill"):
+                return state.replace(drv=self._window(self.n0))

@@ -5,13 +5,16 @@ The reference writes per-rank ``fielddump.<px>.<py>.<exp>.nc`` files merged
 offline by tools/gather_outputs.sh; this writes the already-merged
 full-domain file ``fielddump.<exp>.nc`` directly.  Variable naming follows
 modfielddump.f90:117-176 so udbase reads the output unchanged.  Each dump
-makes one host copy per variable.
+makes one host copy per variable; in the run's trace a dump that
+`maybe_dump` serves is the span ``fielddump`` (``sample``: the host copies,
+``write``: the file).
 """
 from __future__ import annotations
 
 from pathlib import Path
 
-from .netcdf import NCWriter
+from .. import trace
+from .ncwriter import NCWriter
 
 # fieldvars 2-letter codes -> (nc name, dims, units) (modfielddump.f90:121-176)
 _CODES = {
@@ -70,10 +73,18 @@ class FieldDump:
         if not self.due(t):
             return False
         self.tnext += self.cfg.output.tfielddump
-        self.dump(state, th, t)
+        with trace.span("fielddump"):
+            self.dump(state, th, t)
         return True
 
     def dump(self, state, th=None, t: float | None = None):
+        with trace.span("sample"):
+            data = self._fields(state, th)
+        with trace.span("write"):
+            self.writer.append(float(state.timee) if t is None else t, data)
+
+    def _fields(self, state, th=None) -> dict:
+        """Host copies of the dumped fields, by their file names."""
         c = state.c
         nz = self.grid.ktot
         data = {}
@@ -104,7 +115,7 @@ class FieldDump:
                 n = int(code[1:]) - 1
                 if n < c.sv.shape[0]:
                     data[name] = _host(c.sv[n])
-        self.writer.append(float(state.timee) if t is None else t, data)
+        return data
 
     def close(self):
         self.writer.close()

@@ -296,9 +296,10 @@ class _Reader:
 # Writer
 # ---------------------------------------------------------------------------
 
-def write(path: str | Path, tree: dict):
+def write(path: str | Path, tree: dict) -> int:
     """Write `tree` (a `Group` or a dict: names to arrays, anything
-    ``np.asarray`` takes, or to further groups) as a new file at `path`."""
+    ``np.asarray`` takes, or to further groups) as a new file at `path`;
+    returns the file's bytes."""
     with open(path, "wb") as fh:
         fh.write(bytes(96))
         header, btree, heap = _Writer(fh).group(tree, "/")
@@ -307,6 +308,7 @@ def write(path: str | Path, tree: dict):
         fh.write(_SIGNATURE + struct.pack(
             "<8BHHI4Q", 0, 0, 0, 0, 0, 8, 8, 0, _LEAF_K, _NODE_K, 0,
             0, _UNDEF, eof, _UNDEF) + _entry(0, header, (btree, heap)))
+    return eof
 
 
 def _entry(name_off, header, stab=None):

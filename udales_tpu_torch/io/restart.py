@@ -34,6 +34,7 @@ from ..ops.inletgen import INLETGEN_NAMES, InletGen, init_inletgen
 from ..ops.openbc import XPlanes, YPlanes
 from ..parallel.mesh import shard_state
 from ..state import Fields, State, zero_facstats
+from .. import trace
 from . import hdf5
 
 _FIELD_LEAVES = ("u", "v", "w", "thl", "qt", "e12", "sv")
@@ -53,7 +54,18 @@ def _host(a):
 def save_checkpoint(path: str | Path, state, ntrun: int = 0,
                     extra: dict | None = None):
     """Write `state` as a native checkpoint; `extra` adds members to the
-    file's root (``Simulation``'s ``stats`` group) in the same write."""
+    file's root (``Simulation``'s ``stats`` group) in the same write.  In
+    the run's trace: ``sample`` the host copies, ``write`` the file, with
+    its bytes."""
+    with trace.span("sample"):
+        tree = _checkpoint_tree(state, ntrun)
+    tree.update(extra or {})
+    with trace.span("write"):
+        trace.add_bytes(hdf5.write(path, tree))
+
+
+def _checkpoint_tree(state, ntrun: int) -> "hdf5.Group":
+    """The host copy of `state` as a checkpoint's groups."""
     tree = hdf5.Group(attrs=dict(timee=float(state.timee),
                                  dt=float(state.dt), ntrun=ntrun))
     for grp, flds in (("m", state.m), ("c", state.c)):
@@ -74,8 +86,7 @@ def save_checkpoint(path: str | Path, state, ntrun: int = 0,
     if state.fac is not None:
         tree["fac"] = {name: _host(getattr(state.fac, name))
                        for name in _FAC_LEAVES}
-    tree.update(extra or {})
-    hdf5.write(path, tree)
+    return tree
 
 
 def _device(device, model):

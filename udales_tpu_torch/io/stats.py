@@ -9,6 +9,10 @@ each family the host value `t` of ``state.timee``, read once a step, so a
 sample adds no host wait of its own.  The variable tables are the
 reference's, letter for letter, so udbase-style post-processing reads the
 files unchanged.
+
+Each family that serves an event is a span of the run's trace named
+`family` (``tdump``, ...), with the children ``sample`` and ``write``;
+``NCWriter.append`` adds the bytes it is handed to ``write``.
 """
 from __future__ import annotations
 
@@ -19,10 +23,11 @@ from typing import Any
 import numpy as np
 import torch
 
+from .. import trace
 from ..config import const
 from ..ops import subgrid as sgs
 from ..ops.thermo import avexy_masked, slab_mean, thermodynamics
-from .netcdf import NCWriter
+from .ncwriter import NCWriter
 
 
 def _host(a):
@@ -262,10 +267,13 @@ class _Sampled:
         if not self.due(t):
             return
         self.tnext_sample += self.cfg.output.tsample
-        self.acc = self._acc(self.acc, state, masks)
-        if t >= self.tnext_write:
-            self.tnext_write += self.cfg.output.tstatsdump
-            self.write(t)
+        with trace.span(self.family):
+            with trace.span("sample"):
+                self.acc = self._acc(self.acc, state, masks)
+            if t >= self.tnext_write:
+                self.tnext_write += self.cfg.output.tstatsdump
+                with trace.span("write"):
+                    self.write(t)
 
     def _host_acc(self):
         return {k: _host(v) for k, v in self.acc.items()}
@@ -279,6 +287,8 @@ class TKEDump(_Sampled):
     modstatistics.tkestats): shear production, buoyancy, turbulent
     transport, pressure transport, SGS dissipation, and the TKE itself,
     written to tkedump.<exp>.nc every tstatsdump."""
+
+    family = "tkedump"
 
     # descriptive names plus the reference's ncstattke aliases
     # (modstatsdump.f90:396-404: p_b t_p adv t_t t_sgs p_t t_v d_sgs) so
@@ -418,6 +428,8 @@ class TDump(_Sampled):
     SGS scalar fluxes sv<n>sgs; written to tdump.<exp>.nc every
     tstatsdump."""
 
+    family = "tdump"
+
     def __init__(self, cfg, grid, outdir: str | Path = ".", nsv: int = 0,
                  model=None, device="cpu"):
         self.cfg = cfg
@@ -534,6 +546,8 @@ class MinTDump(_Sampled):
     modstatsdump.f90:341-363,1670-1684): writes mintdump.<exp>.nc with
     time means of u, v, w, thl, qt, p every tstatsdump."""
 
+    family = "mintdump"
+
     def __init__(self, cfg, grid, outdir: str | Path = ".", device="cpu"):
         self.cfg = cfg
         self.grid = grid
@@ -580,6 +594,8 @@ class TreeDump(_Sampled):
     modstatsdump.f90:364-390,1237-1290): writes treedump.<exp>.nc with
     means of the canopy drag/energy-balance/deposition tendencies."""
 
+    family = "treedump"
+
     VARS = ("tr_u", "tr_v", "tr_w", "tr_thl", "tr_qt", "tr_qtR", "tr_qtA",
             "tr_sv1", "tr_sv2", "tr_omega")
 
@@ -618,6 +634,8 @@ class TreeDump(_Sampled):
 class SliceDump:
     """Instantaneous k/i/j slices every tsample (modstatsdump l*slicedump):
     kslicedump.<exp>.nc etc."""
+
+    family = "slices"
 
     def __init__(self, cfg, grid, outdir: str | Path = ".", nsv: int = 0):
         self.cfg = cfg
@@ -659,27 +677,27 @@ class SliceDump:
         o = self.cfg.output
         nz = self.grid.ktot
         # one host copy of the five slices of each direction
-        if "k" in self.writers:
-            k = min(o.kslice - 1, nz - 1)
-            s = _host(torch.stack([c.u[:, :, k], c.v[:, :, k], c.w[:, :, k],
-                                   c.thl[:, :, k], c.qt[:, :, k]]))
-            self.writers["k"].append(t, {
-                f"{v}_kslice": a.T for v, a in zip(
-                    ("u", "v", "w", "thl", "qt"), s)})
-        if "i" in self.writers:
-            i = min(o.islice - 1, self.grid.itot - 1)
-            s = _host(torch.stack([c.u[i], c.v[i], c.w[i, :, :nz], c.thl[i],
-                                   c.qt[i]]))
-            self.writers["i"].append(t, {
-                f"{v}_islice": a.T for v, a in zip(
-                    ("u", "v", "w", "thl", "qt"), s)})
-        if "j" in self.writers:
-            j = min(o.jslice - 1, self.grid.jtot - 1)
-            s = _host(torch.stack([c.u[:, j], c.v[:, j], c.w[:, j, :nz],
-                                   c.thl[:, j], c.qt[:, j]]))
-            self.writers["j"].append(t, {
-                f"{v}_jslice": a.T for v, a in zip(
-                    ("u", "v", "w", "thl", "qt"), s)})
+        cuts = {}
+        with trace.span(self.family):
+            with trace.span("sample"):
+                if "k" in self.writers:
+                    k = min(o.kslice - 1, nz - 1)
+                    cuts["k"] = [c.u[:, :, k], c.v[:, :, k], c.w[:, :, k],
+                                 c.thl[:, :, k], c.qt[:, :, k]]
+                if "i" in self.writers:
+                    i = min(o.islice - 1, self.grid.itot - 1)
+                    cuts["i"] = [c.u[i], c.v[i], c.w[i, :, :nz], c.thl[i],
+                                 c.qt[i]]
+                if "j" in self.writers:
+                    j = min(o.jslice - 1, self.grid.jtot - 1)
+                    cuts["j"] = [c.u[:, j], c.v[:, j], c.w[:, j, :nz],
+                                 c.thl[:, j], c.qt[:, j]]
+                cuts = {d: _host(torch.stack(f)) for d, f in cuts.items()}
+            with trace.span("write"):
+                for d, s in cuts.items():
+                    self.writers[d].append(t, {
+                        f"{v}_{d}slice": a.T for v, a in zip(
+                            ("u", "v", "w", "thl", "qt"), s)})
 
     def close(self):
         for w in self.writers.values():
@@ -690,6 +708,8 @@ class YTDump(_Sampled):
     """y- and time-averaged x-z statistics (modstatsdump lytdump, ncinfo
     table at modstatsdump.f90:164-202): means, turbulent + kinematic +
     SGS fluxes, and variances of u/w/thl/qt/sca<n> on the x-z plane."""
+
+    family = "ytdump"
 
     def __init__(self, cfg, grid, outdir: str | Path = ".", masks=None,
                  nsv: int = 0, model=None, device="cpu"):
@@ -813,6 +833,8 @@ class XYDump:
     fluxes (primes vs the instantaneous slab mean), SGS fluxes, kinematic
     fluxes."""
 
+    family = "xydump"
+
     _VARS = ["uxy", "vxy", "wxy", "thlxy", "qtxy", "pxy",
              "upwpxy", "wpthlpxy", "vpwpxy",
              "usgsxy", "thlsgsxy", "vsgsxy",
@@ -863,10 +885,13 @@ class XYDump:
             return
         self.tnext += self.cfg.output.tsample
         nz = self.grid.ktot
-        out = self.profiles(state, masks)
-        # one host copy: every profile cut to its first nz levels
-        host = _host(torch.stack([v[:nz] for v in out.values()]))
-        self.writer.append(t, dict(zip(out, host)))
+        with trace.span(self.family):
+            with trace.span("sample"):
+                out = self.profiles(state, masks)
+                # one host copy: every profile cut to its first nz levels
+                host = _host(torch.stack([v[:nz] for v in out.values()]))
+            with trace.span("write"):
+                self.writer.append(t, dict(zip(out, host)))
 
     def close(self):
         self.writer.close()
@@ -876,6 +901,8 @@ class YDump:
     """Instantaneous y-averaged x-z fields every tsample (modstatsdump
     lydump, ncinfo table at modstatsdump.f90:134-148): means + turbulent/
     SGS/advective fluxes + sca<n>y."""
+
+    family = "ydump"
 
     def __init__(self, cfg, grid, outdir: str | Path = ".", nsv: int = 0,
                  model=None):
@@ -929,9 +956,12 @@ class YDump:
         if not self.due(t):
             return
         self.tnext += self.cfg.output.tsample
-        out = self.fields(state, masks)
-        host = _host(torch.stack(list(out.values())))
-        self.writer.append(t, dict(zip(out, host)))
+        with trace.span(self.family):
+            with trace.span("sample"):
+                out = self.fields(state, masks)
+                host = _host(torch.stack(list(out.values())))
+            with trace.span("write"):
+                self.writer.append(t, dict(zip(out, host)))
 
     def close(self):
         self.writer.close()
@@ -945,6 +975,8 @@ class XYTDump(_Sampled):
     fluxes uw/wthl/uv/vw/ww, SGS fluxes usgs/thlsgs/vsgs, variances
     thlpthlp/upup/vpvp/wpwp + tke) plus wpqtpxyt/qtpqtptxy (moisture
     moments, reference yt-family names adapted)."""
+
+    family = "xytdump"
 
     _VARS = [
         ("uxyt", ("zt",), "m/s"), ("vxyt", ("zt",), "m/s"),

@@ -34,6 +34,7 @@ from pathlib import Path
 
 import torch
 
+from .. import trace
 from ..grid import Grid
 from . import subgrid as sgs
 
@@ -108,10 +109,14 @@ class FusedDiffMom:
 
     ``launch_count`` counts launches of the unmasked kernel and
     ``masked_launch_count`` those of the masked one (never the CPU path),
-    so a run can show that its main path went through them.  They count the
-    host's calls: a call captured into a CUDA graph counts once, at capture,
-    and the graph's replays not at all.  ``build_log`` holds nvcc's output
-    (register and spill report) after the build."""
+    so a run can show that its main path went through them.  They are
+    counters of the run's trace (``fused_diff_mom.launches``,
+    ``fused_diff_mom.masked_launches``), so a call captured into a CUDA
+    graph counts once per replay (``graph.CompiledStep``).  ``build_log``
+    holds nvcc's output (register and spill report) after the build."""
+
+    launch_count = trace.counter("fused_diff_mom.launches")
+    masked_launch_count = trace.counter("fused_diff_mom.masked_launches")
 
     def __init__(self):
         self.launch_count = 0

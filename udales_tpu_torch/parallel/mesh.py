@@ -54,6 +54,7 @@ from contextlib import contextmanager
 import torch
 import torch.distributed as dist
 
+from .. import trace
 from ..state import map_state
 
 @contextmanager
@@ -77,9 +78,14 @@ class Mesh:
     ``collectives``, ``bytes`` (sent by this rank), and for host-staged
     exchanges ``wait_seconds`` (host waits for the card's queue before each
     copy out) and ``comm_seconds`` (the host copy, the backend call and the
-    copy back issued) count since ``reset_counts``."""
+    copy back issued) count since ``reset_counts``; they are counters of the
+    run's trace (``mesh.<name>``)."""
 
     axis_names = ("x", "y")
+    collectives = trace.counter("mesh.collectives")
+    bytes = trace.counter("mesh.bytes")
+    wait_seconds = trace.counter("mesh.wait_seconds")
+    comm_seconds = trace.counter("mesh.comm_seconds")
 
     def __init__(self, nprocx: int, nprocy: int, host_staged: bool = False):
         if not dist.is_initialized():

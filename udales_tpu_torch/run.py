@@ -75,6 +75,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from . import trace
 from .config import (BCTOPM_PRESSURE, BC_DRIVER, BC_PROFILE,
                      IADV_KAPPA, SGS_ONEEQN, Config, const, load_namoptions)
 from .convert import load_profiles
@@ -282,7 +283,19 @@ class Model:
                 closure_out=None) -> State:
         """One substep.  `th`/`closure_out` hand down the diagnostics `step`
         already computed on `m` for the adaptive dt; valid only for
-        rk3step == 1, where c == m."""
+        rk3step == 1, where c == m.  In the run's trace it is the span
+        ``rk<rk3step>`` of the leaves thermo, openbc, closure, ghosts,
+        advection (with the pressure-gradient terms and the shifted periodic
+        boundaries), diffusion, forces, wallfun, ibmnorm (with the
+        free-stream controllers and the volume-flow correction before it and
+        the canopy, heat pumps and scalar sources after it), poisson and
+        integrate (purifiers, the RK3 update, the inlet and outlet planes,
+        chemistry)."""
+        with trace.span(f"rk{rk3step}"):
+            return self._substep(state, rk3step, th, closure_out)
+
+    def _substep(self, state: State, rk3step: int, th, closure_out) -> State:
+        trace.leaf("thermo")
         cfg, grid = self.cfg, self.grid
         nx, ny, nz = grid.shape
         c, m = state.c, state.m
@@ -298,6 +311,7 @@ class Model:
                                 ibm.masks if ibm is not None else None)
 
         # --- open-x inlet/outlet context (modboundary.f90:688-996) ---------
+        trace.leaf("openbc")
         openx = uouttot = inlet_planes = None
         ig = state.ig
         if self.inlet is not None:
@@ -318,6 +332,7 @@ class Model:
             vouttot = vouttot_value(cfg, th.v0av, grid)
 
         # --- SGS closure (modsubgrid.closure) ------------------------------
+        trace.leaf("closure")
         thvs = cfg.bc.thls if cfg.bc.thls > 0 else 288.0
         if closure_out is None:
             gvel = _velocity_ghosts(c, cfg, grid, openx, openy)
@@ -327,9 +342,11 @@ class Model:
         else:
             ekm, ekh, zlt = closure_out
 
+        trace.leaf("ghosts")
         g = make_ghosts(c, ekm, ekh, cfg, grid, openx=openx, openy=openy)
 
         # --- advection (+ pressure-gradient term, modadvection) ------------
+        trace.leaf("advection")
         gp = _pad_pres(state.pres, openx, openy, grid.mesh)
         du = adv.adv_u(g, grid) \
             - (gp[1:-1, 1:-1, :] - gp[:-2, 1:-1, :]) * grid.dxi
@@ -360,6 +377,7 @@ class Model:
         # --- subgrid diffusion: the hand-written kernel on CUDA ------------
         # the IBM diffusion corrections (diffu_corr..diffc_corr) are folded
         # into the sweeps as {0,1} flux masks, as in udales_tpu
+        trace.leaf("diffusion")
         pmasks = Mc = None
         if ibm is not None:
             pmasks = dict(u=ibm.pmask_u, v=ibm.pmask_v, w=ibm.pmask_w)
@@ -381,6 +399,7 @@ class Model:
 
         # --- floor wall functions (modibm.bottom; the scalars' floor flux
         # is zero) ----------------------------------------------------------
+        trace.leaf("forces")
         bu, bv, bthl, bqt, _ = bottom_tendencies(g, cfg, grid)
         du, dv = du + bu, dv + bv
         if ltemp:
@@ -447,6 +466,7 @@ class Model:
                     dqt = dqt + nqt
 
         # --- IBM wall functions (modibm.ibmwallfun) ------------------------
+        trace.leaf("wallfun")
         fac, facstats = state.fac, state.facstats
         taud = state.taud
         need_tau = self.need_taudiag and rk3step == 3
@@ -491,6 +511,7 @@ class Model:
             taud = dict(x=bu, y=bv, z=torch.zeros_like(dw), hf=bthl)
 
         # --- free-stream controllers (modforces.fixuinf1/2) ----------------
+        trace.leaf("ibmnorm")
         ctl = state.ctl
         if cfg.physics.ifixuinf == 1 and rk3step == 3:
             cu1, cv1 = fixuinf1(c, grid, cfg, state.dt, th.u0av, th.v0av)
@@ -544,6 +565,7 @@ class Model:
         dw[..., 0] = 0.0
 
         # --- pressure projection (modpois.poisson) -------------------------
+        trace.leaf("poisson")
         du, dv, dw, p, du_out, dv_out = self._project(
             du, dv, dw, m, rk3coef, state.pres, c=c, openx=openx,
             uouttot=uouttot, openy=openy, vouttot=vouttot)
@@ -552,6 +574,7 @@ class Model:
         # --- purifiers (modpurifiers.f90, between poisson and integrate):
         # they set m and c velocities after the projection, so div u is not
         # zero in and around their boxes by design ---------------------------
+        trace.leaf("integrate")
         if self.purifiers is not None:
             m, c, du, dv, dw, dsv = self.purifiers.apply(m, c, du, dv, dw,
                                                          dsv)
@@ -748,45 +771,57 @@ class Model:
 
     # -- full step -----------------------------------------------------------
     def step(self, state: State) -> State:
-        """One full RK3 timestep (3 substeps) + dt/time bookkeeping."""
-        cfg, grid = self.cfg, self.grid
-        # the closure for the dt limit sees the inlet planes at the old time
-        openx0 = openy0 = None
-        if self.inlet is not None:
-            openx0 = {"inlet": self._inlet_planes(state, state.m, state.ig),
-                      "bx": state.m.bx}
-        if self.inlet_y is not None:
-            openy0 = {"inlet": self.inlet_y.planes(state.timee, grid.itot,
-                                                   grid.ktot),
-                      "by": state.m.by}
-        gvel = _velocity_ghosts(state.m, cfg, grid, openx0, openy0)
-        th = thermodynamics(state.m, cfg, grid,
-                            self.ibm.masks if self.ibm is not None else None)
-        thvs = cfg.bc.thls if cfg.bc.thls > 0 else 288.0
-        closure_out = sgs.closure(gvel, grid, cfg, e12=state.m.e12,
-                                  dthvdz=th.dthvdz, thl=state.m.thl,
-                                  thvs=thvs)
-        dt = self.new_dt(state, closure_out[0], closure_out[1])
-        state = state.replace(dt=dt, timee=state.timee + dt)
-        # c == m at step entry, so substep 1 reuses the diagnostics computed
-        # for the adaptive dt.  With open boundaries the velocity ghosts are
-        # time-interpolated inlet planes and timee just advanced, so the
-        # closure is recomputed there (th has no ghosts and stays exact).
-        closed = openx0 is None and openy0 is None
-        state = self.substep(state, 1, th=th,
-                             closure_out=closure_out if closed else None)
-        for rk3step in (2, 3):
-            state = self.substep(state, rk3step)
-        # the facet energy balance fires every dtEB (quantized),
-        # modEB.f90:429; gated on the device, see FacetEB.maybe_update
-        if self.eb is not None and state.fac is not None:
-            skyLW = netsw = None
-            if self.timedep is not None:
-                skyLW = self.timedep.sky_lw(state.timee)
-                netsw = self.timedep.net_sw(state.timee)
-            state = state.replace(fac=self.eb.maybe_update(
-                state.fac, state.timee, skyLW=skyLW, netsw=netsw))
-        return state
+        """One full RK3 timestep (3 substeps) + dt/time bookkeeping.  In the
+        run's trace it is a device step (``model.step``): the leaves ghosts,
+        thermo, closure and new_dt of the span ``entry``, those of each
+        `substep`, and eb, the facet energy balance."""
+        with trace.device_step("model.step", self.device):
+            cfg, grid = self.cfg, self.grid
+            with trace.span("entry"):
+                # the closure for the dt limit sees the inlet planes at the
+                # old time
+                trace.leaf("ghosts")
+                openx0 = openy0 = None
+                if self.inlet is not None:
+                    openx0 = {"inlet": self._inlet_planes(state, state.m,
+                                                          state.ig),
+                              "bx": state.m.bx}
+                if self.inlet_y is not None:
+                    openy0 = {"inlet": self.inlet_y.planes(
+                        state.timee, grid.itot, grid.ktot), "by": state.m.by}
+                gvel = _velocity_ghosts(state.m, cfg, grid, openx0, openy0)
+                trace.leaf("thermo")
+                th = thermodynamics(state.m, cfg, grid, self.ibm.masks
+                                    if self.ibm is not None else None)
+                trace.leaf("closure")
+                thvs = cfg.bc.thls if cfg.bc.thls > 0 else 288.0
+                closure_out = sgs.closure(gvel, grid, cfg, e12=state.m.e12,
+                                          dthvdz=th.dthvdz, thl=state.m.thl,
+                                          thvs=thvs)
+                trace.leaf("new_dt")
+                dt = self.new_dt(state, closure_out[0], closure_out[1])
+                state = state.replace(dt=dt, timee=state.timee + dt)
+            # c == m at step entry, so substep 1 reuses the diagnostics
+            # computed for the adaptive dt.  With open boundaries the
+            # velocity ghosts are time-interpolated inlet planes and timee
+            # just advanced, so the closure is recomputed there (th has no
+            # ghosts and stays exact).
+            closed = openx0 is None and openy0 is None
+            state = self.substep(state, 1, th=th,
+                                 closure_out=closure_out if closed else None)
+            for rk3step in (2, 3):
+                state = self.substep(state, rk3step)
+            # the facet energy balance fires every dtEB (quantized),
+            # modEB.f90:429; gated on the device, see FacetEB.maybe_update
+            trace.leaf("eb")
+            if self.eb is not None and state.fac is not None:
+                skyLW = netsw = None
+                if self.timedep is not None:
+                    skyLW = self.timedep.sky_lw(state.timee)
+                    netsw = self.timedep.net_sw(state.timee)
+                state = state.replace(fac=self.eb.maybe_update(
+                    state.fac, state.timee, skyLW=skyLW, netsw=netsw))
+            return state
 
     def step_jit(self):
         """The compiled step (``graph.CompiledStep``): `step` as one CUDA
@@ -809,12 +844,13 @@ class Model:
         on-device ``lax.scan``), on one process or on every rank of a
         capturable mesh, and the State returned is a copy of the compiled
         step's static State, the caller's to keep; eagerly (the default)
-        each step is `step`."""
+        each step is `step`.  The loop is the trace's span ``model.run``."""
         step = self.step_jit() if graph else self.step
-        for _ in range(nsteps):
-            if self.driver_stream is not None:
-                state = self.driver_stream.ensure(state)
-            state = step(state)
+        with trace.span("model.run"):
+            for _ in range(nsteps):
+                if self.driver_stream is not None:
+                    state = self.driver_stream.ensure(state)
+                state = step(state)
         if graph and nsteps > 0:
             state = state.map(torch.clone)
         return state

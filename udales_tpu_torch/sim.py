@@ -27,9 +27,22 @@ it, and the flags' read of that decision is a host wait between steps,
 outside the graph.  A host-staged mesh (shared-card gloo ranks) steps
 eagerly: its exchanges wait on the host, which a graph cannot hold.
 
+The loop is traced (``trace``): each step is the span ``sim.step`` (the
+replay), ``sim.sync`` its one host read, ``sim.outputs`` the events after
+it, one child span per writer family that serves an event
+(``fielddump``, ``xytdump``, ``driverrec``, ``inletrec``, ``tdump``,
+``tkedump``, ``xydump``, ``ydump``, ``ytdump``, ``slices``, ``mintdump``,
+``treedump``, ``monitor``, ``fac``, ``facstats``, ``restart``), each with
+``sample`` (the device work and copies to the host) and ``write`` (what
+goes to the file, with the bytes handed to the writer), and
+``sim.exit_now`` the look for the stop sentinel.  The stop's checkpoint is
+the span ``restart`` outside ``sim.outputs``; the writers' last flush at
+the end is ``sim.close``.
+
 `main` is ``python -m udales_tpu_torch <case>``: runmodes 1003-1005, a cold
 or warm start (native ``.h5`` checkpoint or the reference's Fortran restart
-files, ``lstratstart``) and the run, on the card unless ``--device cpu``.
+files, ``lstratstart``) and the run, on the card unless ``--device cpu``;
+it ends with the trace's summary.
 """
 from __future__ import annotations
 
@@ -44,15 +57,15 @@ from types import SimpleNamespace
 import numpy as np
 import torch
 
+from . import trace
 from .config import const
 from .io import hdf5
 from .io.driverfiles import write_driver_files
 from .io.fielddump import FieldDump
-from .io.netcdf import NCWriter
+from .io.ncwriter import NCWriter
 from .io.restart import save_checkpoint
 from .io.stats import (MinTDump, SliceDump, TDump, TKEDump, TreeDump,
                        XYDump, XYTDump, YDump, YTDump)
-from .ops.fused_diff import fused_diff_mom
 from .parallel.mesh import gather_state
 from .state import zero_facstats
 
@@ -96,10 +109,11 @@ class DriverRecorder:
         ip = self.cfg.driver.iplane % nx    # face index (wraps at itot)
         ic = min(ip, nx - 1)
         self.times.append(t)
-        self.frames.append(dict(
-            u=_host(c.u[ip % nx]), v=_host(c.v[ic]), w=_host(c.w[ic]),
-            thl=_host(c.thl[ic]), qt=_host(c.qt[ic]),
-            sv=_host(c.sv[:, ic]) if c.sv.shape[0] else None))
+        with trace.span("driverrec"), trace.span("sample"):
+            self.frames.append(dict(
+                u=_host(c.u[ip % nx]), v=_host(c.v[ic]), w=_host(c.w[ic]),
+                thl=_host(c.thl[ic]), qt=_host(c.qt[ic]),
+                sv=_host(c.sv[:, ic]) if c.sv.shape[0] else None))
 
     def save(self):
         """Write the recorded series; returns the path of the time file
@@ -114,9 +128,10 @@ class DriverRecorder:
         write_driver_files(self.outdir, exp, np.asarray(self.times), planes,
                            self.grid.jtot, self.grid.ktot,
                            tdriverstart=self.cfg.driver.tdriverstart)
-        hdf5.write(self.outdir / f"driverdata.{exp}.h5",
-                   {"t": np.asarray(self.times)}
-                   | {k: v for k, v in planes.items() if v is not None})
+        trace.add_bytes(hdf5.write(
+            self.outdir / f"driverdata.{exp}.h5",
+            {"t": np.asarray(self.times)}
+            | {k: v for k, v in planes.items() if v is not None}))
         return self.outdir / f"tdriver_000.{exp}"
 
 
@@ -170,6 +185,9 @@ class Simulation:
     """The run loop of one Model with every writer its configuration
     switches on; the writers' tensors live on the model's device.  On a
     split Model the writers live on rank 0 and read the gathered State."""
+
+    gathers = trace.counter("sim.gathers")
+    gather_seconds = trace.counter("sim.gather_seconds")
 
     def __init__(self, model, outdir: str | Path = ".", monitor: bool = True):
         self.model = model
@@ -340,18 +358,24 @@ class Simulation:
                         # streaming precursor replay: swap in the next chunk
                         # when timee crosses the device window (lchunkread)
                         state = self.model.driver_stream.ensure(state)
-                    state = self.step(state)
+                    with trace.span("sim.step"):
+                        state = self.step(state)
                     nsteps += 1
                     self.ntrun += 1
-                    t, dt = self._time_and_dt(state)   # the step's one sync
+                    with trace.span("sim.sync"):    # the step's one sync
+                        t, dt = self._time_and_dt(state)
                     if self.mesh is None:
-                        state = self._outputs(state, t, masks, nsteps, wall0)
-                        stop = self._exit_now()
+                        with trace.span("sim.outputs"):
+                            state = self._outputs(state, t, masks, nsteps,
+                                                  wall0)
+                        with trace.span("sim.exit_now"):
+                            stop = self._exit_now()
                         if stop:
                             self._write_restart(state)
                     else:
-                        state, stop = self._split_outputs(state, t, masks,
-                                                          nsteps, wall0)
+                        with trace.span("sim.outputs"):
+                            state, stop = self._split_outputs(
+                                state, t, masks, nsteps, wall0)
                     if mon is not None:
                         mon.write(f"{t:14.6e} {dt:14.6e}\n")
                     if stop:
@@ -362,7 +386,8 @@ class Simulation:
         finally:
             if prof is not None:
                 self._stop_profile(prof)
-            self._close()
+            with trace.span("sim.close"):
+                self._close()
         # the compiled step's State is its own until its next call
         return state.map(torch.clone) if self.compiled else state
 
@@ -443,8 +468,9 @@ class Simulation:
         if self._inlet_rec_due(state):
             self._inlet_rec_t.append(t)
             ig = state.ig
-            self.inlet_rec.append(dict(u=_host(ig.u0), v=_host(ig.v0),
-                                       w=_host(ig.w0), thl=_host(ig.t0)))
+            with trace.span("inletrec"), trace.span("sample"):
+                self.inlet_rec.append(dict(u=_host(ig.u0), v=_host(ig.v0),
+                                           w=_host(ig.w0), thl=_host(ig.t0)))
         if self.tdump is not None:
             self.tdump.maybe_sample(state, t)
         if self.tkedump is not None:
@@ -463,12 +489,15 @@ class Simulation:
             self.treedump.maybe_sample(state, t)
         if self._monitor_due(t, nsteps):
             self.tnextcheck = t + self.tcheck
-            self._checksim(state, nsteps, wall0)
+            with trace.span("monitor"):
+                self._checksim(state, nsteps, wall0)
         if self._fac_due(state, t):
             self._last_facwrite = t
-            self._write_fac(state, t)
+            with trace.span("fac"):
+                self._write_fac(state, t)
         if self._facstat_due(state, t):
-            state = self._write_facstats(state, t)
+            with trace.span("facstats"):
+                state = self._write_facstats(state, t)
             self.tnextfacstat = round(t + self.cfg.walls.dtfac)
         if t >= self.tnextrestart:
             self.tnextrestart += self.cfg.run.trestart
@@ -486,12 +515,15 @@ class Simulation:
             if w is not None:
                 w.close()
         if self.driver_rec is not None:
-            self.driver_rec.save()
+            with trace.span("driverrec"), trace.span("write"):
+                self.driver_rec.save()
         if self.inlet_rec:
-            np.savez(self.outdir / f"inletdata.{self._exp()}.npz",
-                     t=np.asarray(self._inlet_rec_t),
-                     **{k: np.stack([f[k] for f in self.inlet_rec])
-                        for k in ("u", "v", "w", "thl")})
+            planes = {k: np.stack([f[k] for f in self.inlet_rec])
+                      for k in ("u", "v", "w", "thl")}
+            with trace.span("inletrec"), trace.span("write"):
+                trace.add_bytes(sum(a.nbytes for a in planes.values()))
+                np.savez(self.outdir / f"inletdata.{self._exp()}.npz",
+                         t=np.asarray(self._inlet_rec_t), **planes)
 
     def _write_facstats(self, state, t):
         """fac.<exp>.nc write (modibm.f90:1256-1280): normalize the
@@ -501,15 +533,18 @@ class Simulation:
         dtfac and tfac in the mean-square term; udales_tpu's deliberate
         deviation, followed here)."""
         fs = state.facstats
-        tint = max(t - float(fs.tlast), 1e-9)
-        avg = lambda a: _host(a) / tint
-        pav = avg(fs.pres)
-        self.facstatwriter.append(t, {
-            "tau_x": avg(fs.tau_x), "tau_y": avg(fs.tau_y),
-            "tau_z": avg(fs.tau_z), "pres": pav,
-            "htc": avg(fs.htc), "cth": avg(fs.cth),
-            "pres_flc": avg(fs.pres2) - pav * pav,
-        })
+        with trace.span("sample"):
+            tint = max(t - float(fs.tlast), 1e-9)
+            avg = lambda a: _host(a) / tint
+            pav = avg(fs.pres)
+            data = {
+                "tau_x": avg(fs.tau_x), "tau_y": avg(fs.tau_y),
+                "tau_z": avg(fs.tau_z), "pres": pav,
+                "htc": avg(fs.htc), "cth": avg(fs.cth),
+                "pres_flc": avg(fs.pres2) - pav * pav,
+            }
+        with trace.span("write"):
+            self.facstatwriter.append(t, data)
         return state.replace(facstats=self._fresh_facstats(fs, t))
 
     def _fresh_facstats(self, fs, t):
@@ -525,17 +560,21 @@ class Simulation:
         eb = self.model.eb
         fac = state.fac
         wT, wEB = self.facwriter
-        T = _host(fac.T)
-        wT.append(t, {"T": T, "dTdz": _host(fac.Tdash)})
-        em = _host(eb.facem)
-        wEB.append(t, {
-            "netsw": _host(eb.netsw),
-            "LWin": _host(eb.calclw(fac.T)),
-            "LWout": const.boltz * em * T[:, 0] ** 4,
-            "hf": _host(fac.hfi),
-            "ef": _host(fac.efi),
-            "WGR": _host(fac.wsoil),
-        })
+        with trace.span("sample"):
+            T = _host(fac.T)
+            dT = {"T": T, "dTdz": _host(fac.Tdash)}
+            em = _host(eb.facem)
+            data = {
+                "netsw": _host(eb.netsw),
+                "LWin": _host(eb.calclw(fac.T)),
+                "LWout": const.boltz * em * T[:, 0] ** 4,
+                "hf": _host(fac.hfi),
+                "ef": _host(fac.efi),
+                "WGR": _host(fac.wsoil),
+            }
+        with trace.span("write"):
+            wT.append(t, dT)
+            wEB.append(t, data)
 
     def _stats_writers(self):
         """Active statistics writers with resumable accumulators."""
@@ -559,12 +598,14 @@ class Simulation:
         # statistics continuation (the reference's lreadmean pathway,
         # modstartup.f90:2225-2280, reads legacy means/SGS files; here the
         # live accumulators of every enabled family ride the checkpoint)
-        stats = {fam: hdf5.Group(
-            {k: _host(v) for k, v in self._acc_items(w.acc)},
-            attrs=dict(tnext_sample=w.tnext_sample,
-                       tnext_write=w.tnext_write))
-            for fam, w in self._stats_writers().items()}
-        save_checkpoint(name, state, self.ntrun, extra={"stats": stats})
+        with trace.span("restart"):
+            with trace.span("sample"):
+                stats = {fam: hdf5.Group(
+                    {k: _host(v) for k, v in self._acc_items(w.acc)},
+                    attrs=dict(tnext_sample=w.tnext_sample,
+                               tnext_write=w.tnext_write))
+                    for fam, w in self._stats_writers().items()}
+            save_checkpoint(name, state, self.ntrun, extra={"stats": stats})
 
     def resume_stats(self, ckpt_path):
         """Restore statistics accumulators from a checkpoint written by
@@ -591,33 +632,35 @@ class Simulation:
         from .run import _velocity_ghosts
         grid, cfg = self.view.grid, self.view.cfg
         c = state.c
-        nz = grid.ktot
-        dev = c.u.device
-        cour = torch.max(
-            c.u.abs() * grid.dxi + c.v.abs() * grid.dyi
-            + c.w[..., :nz].abs() / grid.t("dzh", dev)[:nz]) * state.dt
-        gu = torch.cat([c.u, c.u[:1]], dim=0)
-        gv = torch.cat([c.v, c.v[:, :1]], dim=1)
-        div = ((gu[1:] - gu[:-1]) * grid.dxi
-               + (gv[:, 1:] - gv[:, :-1]) * grid.dyi
-               + (c.w[:, :, 1:] - c.w[:, :, :-1]) * grid.t("dzfi", dev))
-        # diffusion number (modchecksim.calcdiffnr:129-160): recompute the
-        # closure on the current fields, max over ekm AND ekh
-        th = thermodynamics(c, cfg, grid,
-                            self.view.ibm.masks if self.view.ibm else None)
-        gvel = _velocity_ghosts(c, cfg, grid)
-        thvs = cfg.bc.thls if cfg.bc.thls > 0 else 288.0
-        ekm, ekh, _ = sgs.closure(gvel, grid, cfg, e12=c.e12,
-                                  dthvdz=th.dthvdz, thl=c.thl, thvs=thvs)
-        coef = grid.t("dzh2i", dev)[:nz] + grid.dx2i + grid.dy2i
-        diffnr = torch.maximum(torch.max(ekm * coef),
-                               torch.max(ekh * coef)) * state.dt
-        t, dt, cour, diffnr, dmax = torch.stack([
-            state.timee, state.dt, cour, diffnr, div.abs().max()]).tolist()
+        with trace.span("sample"):
+            nz = grid.ktot
+            dev = c.u.device
+            cour = torch.max(
+                c.u.abs() * grid.dxi + c.v.abs() * grid.dyi
+                + c.w[..., :nz].abs() / grid.t("dzh", dev)[:nz]) * state.dt
+            gu = torch.cat([c.u, c.u[:1]], dim=0)
+            gv = torch.cat([c.v, c.v[:, :1]], dim=1)
+            div = ((gu[1:] - gu[:-1]) * grid.dxi
+                   + (gv[:, 1:] - gv[:, :-1]) * grid.dyi
+                   + (c.w[:, :, 1:] - c.w[:, :, :-1]) * grid.t("dzfi", dev))
+            # diffusion number (modchecksim.calcdiffnr:129-160): recompute the
+            # closure on the current fields, max over ekm AND ekh
+            th = thermodynamics(c, cfg, grid,
+                                self.view.ibm.masks if self.view.ibm else None)
+            gvel = _velocity_ghosts(c, cfg, grid)
+            thvs = cfg.bc.thls if cfg.bc.thls > 0 else 288.0
+            ekm, ekh, _ = sgs.closure(gvel, grid, cfg, e12=c.e12,
+                                      dthvdz=th.dthvdz, thl=c.thl, thvs=thvs)
+            coef = grid.t("dzh2i", dev)[:nz] + grid.dx2i + grid.dy2i
+            diffnr = torch.maximum(torch.max(ekm * coef),
+                                   torch.max(ekh * coef)) * state.dt
+            t, dt, cour, diffnr, dmax = torch.stack([
+                state.timee, state.dt, cour, diffnr, div.abs().max()]).tolist()
         rate = nsteps / max(time.time() - wall0, 1e-9)
-        print(f"  t={t:9.2f}s dt={dt:.4f} CFL={cour:.3f} "
-              f"diffnr={diffnr:.3f} max|div|={dmax:.2e} "
-              f"[{rate:.1f} steps/s]", flush=True)
+        with trace.span("write"):
+            print(f"  t={t:9.2f}s dt={dt:.4f} CFL={cour:.3f} "
+                  f"diffnr={diffnr:.3f} max|div|={dmax:.2e} "
+                  f"[{rate:.1f} steps/s]", flush=True)
 
 
 def execute_runmode_actions(model, case_dir) -> int | None:
@@ -711,7 +754,7 @@ def main(argv=None):
                          "'cpu' for a run without one)")
     ap.add_argument("--profile", default=None,
                     help="directory for a torch.profiler trace of the first "
-                         "12 steps")
+                         "12 steps, with the program's spans")
     args = ap.parse_args(argv)
     if torch.device(args.device).type == "cuda" \
             and not torch.cuda.is_available():
@@ -769,7 +812,6 @@ def main(argv=None):
               f"t={float(state.timee):.2f}", flush=True)
     final = sim.run(state, runtime=args.runtime, seed=args.seed)
     print(f"done: t={float(final.timee):.3f}s after {sim.ntrun} steps; "
-          f"kernel launches: fused_diff_mom {fused_diff_mom.launch_count}, "
-          f"fused_diff_mom_masked {fused_diff_mom.masked_launch_count}; "
           f"step {sim.step_kind}", flush=True)
+    print(trace.summary(), flush=True)
     return final
