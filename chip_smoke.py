@@ -26,7 +26,9 @@ without a result line:
 
   1. require a CUDA device (no CPU fallback)
   2. card name and power limit (nvidia-smi), torch / CUDA versions
-  3. build the kernels from the repository sources (nvcc, sm_90a)
+  3. build the kernels from the repository sources (nvcc, sm_90a):
+     fused_diff_mom.cu and fused_adv_mom.cu, their register and spill
+     reports and resident blocks per SM
   4. unmasked kernel against its plain PyTorch version on the card: a
      sweep of ragged shapes on a stretched grid (float32 and float64), then
      the main paths' shapes 128^3 and 256^3 in float32
@@ -240,6 +242,14 @@ without a result line:
      last line parsed: urban 128^3's rate is the headline, each rate
      finite and positive, 3 launches a step of the cell's variant as
      counted, the card named
+ 60. (run after phase 8) the advection kernel (csrc/fused_adv_mom.cu)
+     against its plain route advection.adv_mom on the card: the ragged
+     shapes on a stretched grid and a 64 x 64 x 128 rank block, float64
+     (1e-12) and float32 (1e-5), with and without thl, faces 0 and nz of
+     dw exactly zero; then 128^3 and 256^3 float32 with thl, timed as phase
+     8 times the diffusion kernel (eager, in a CUDA graph, the plain route,
+     the bound).  Every main path's timed run (phases 6, 7, 12, 16, 20,
+     22, 27-29, 52, 56, 58) also counts its launches: 3 a step
 The line before the last is a JSON object describing the kernels and the
 main paths; the last line is {"ok": true, "device": {...}}.
 
@@ -413,13 +423,16 @@ def captured_run(model, state, steps):
 def timed_run(model, state, steps, graph, fused, label):
     """`steps` steps of `model` from `state` between CUDA events, eagerly
     (``Model.run``) or as replays of the captured step (`captured_run`),
-    with both launch counts set to 0 just before and read just after: the
-    path's own variant must launch 3 times a step, counted across replays,
-    and the other not at all.  Returns (numbers, final State)."""
+    with the launch counts set to 0 just before and read just after: the
+    diffusion kernel's own variant must launch 3 times a step, counted
+    across replays, and the other not at all, and the advection kernel 3
+    times a step.  Returns (numbers, final State)."""
+    from udales_tpu_torch.ops.fused_adv import fused_adv_mom
     masked = model.ibm is not None
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     fused.launch_count = fused.masked_launch_count = 0
+    fused_adv_mom.launch_count = 0
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     t0 = time.perf_counter()
@@ -436,10 +449,15 @@ def timed_run(model, state, steps, graph, fused, label):
                            f"{counts} in {steps} {'captured' if graph else 'eager'} steps, "
                            f"expected {3 * steps} of the "
                            f"{'masked' if masked else 'unmasked'} variant")
+    if fused_adv_mom.launch_count != 3 * steps:
+        raise RuntimeError(f"{label}: {fused_adv_mom.launch_count} "
+                           f"advection kernel launches in {steps} steps, "
+                           f"expected {3 * steps}")
     ms = start.elapsed_time(end) / steps
     n = model.grid.itot * model.grid.jtot * model.grid.ktot
     return dict(ms_per_step=ms, host_ms_per_step=host,
                 points_per_s=n / (ms * 1e-3), launches=launches,
+                adv_launches=fused_adv_mom.launch_count,
                 peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
                 reserved_gib=torch.cuda.memory_reserved() / 2 ** 30), state
 
@@ -530,6 +548,92 @@ def flat_main_path(n, warm, steps, smi, fused):
     model = entry._build(n, n, n, "float32")    # the default device: the card
     return run_main_path(model, entry._init_state(model, seed=43), warm,
                          steps, smi, fused, f"flat {n}^3 float32")[0]
+
+
+def advection_inputs(grid, dtype, seed):
+    """Ghosted u, v, w, thl and the padded pressure as the advection kernel
+    takes them, from a numpy seed."""
+    nx, ny, nz = grid.shape
+    rng = np.random.default_rng(seed)
+    cell = (nx + 2, ny + 2, nz + 2)
+    t = lambda a: torch.tensor(a, dtype=dtype, device="cuda")
+    g = SimpleNamespace(
+        u=t(rng.standard_normal(cell)), v=t(rng.standard_normal(cell)),
+        w=t(rng.standard_normal((nx + 2, ny + 2, nz + 1))),
+        thl=t(288.0 + rng.standard_normal(cell)))
+    return g, t(rng.standard_normal((nx + 2, ny + 2, nz)))
+
+
+def advection_phase(smi, grids, n=60):
+    """Phase 60: the advection kernel against its plain route over the
+    ragged shapes and a rank block (both dtypes, with and without thl),
+    at the main paths' shapes, and its time there with thl (as
+    `time_kernel`).  Any miss raises.  Returns dict(err, t128, t256)."""
+    from udales_tpu_torch.grid import Grid
+    from udales_tpu_torch.ops.advection import adv_mom
+    from udales_tpu_torch.ops.fused_adv import fused_adv_mom, least_bytes
+
+    def check(grid, dtype, rtol, thl, label):
+        g, gp = advection_inputs(grid, dtype, seed=1)
+        got = fused_adv_mom(g, gp, grid, thl=thl)
+        torch.cuda.synchronize()
+        ref = adv_mom(g, gp, grid, thl)
+        if (got[3] is None) == thl:
+            raise RuntimeError(f"advection kernel: dthl on {label}")
+        keep = 4 if thl else 3
+        err, scale = max_rel_err(got[:keep], ref[:keep])
+        if not (err <= rtol * scale and bool((got[2][..., 0] == 0).all())
+                and bool((got[2][..., -1] == 0).all())):
+            raise RuntimeError(f"advection kernel disagrees with plain on "
+                               f"{label}: {err:.3e} of {scale:.4g}")
+        return err
+
+    worst = {}
+    for shape in RAGGED_SHAPES + [(64, 64, 128)]:
+        nz = shape[2]
+        zf = np.cumsum(1.04 ** np.arange(nz)) - 0.5 * 1.04 ** np.arange(nz)
+        for np_dt, dtype, rtol in ((np.float64, torch.float64, 1e-12),
+                                   (np.float32, torch.float32, 1e-5)):
+            grid = Grid(*shape, float(shape[0]), float(shape[1]), zf,
+                        dtype=np_dt)
+            for thl in (True, False):
+                err = check(grid, dtype, rtol, thl, f"{shape} {np_dt.__name__}"
+                            f"{' thl' if thl else ''}")
+                key = np_dt.__name__
+                worst[key] = max(worst.get(key, 0.0), err)
+    phase(n, f"advection kernel vs plain over {len(RAGGED_SHAPES) + 1} "
+             f"shapes (stretched), with and without thl: max abs err "
+             f"float64 {worst['float64']:.3e}, float32 {worst['float32']:.3e}")
+    err = max(check(grid, torch.float32, 1e-5, True,
+                    f"uniform {grid.shape} float32") for grid in grids)
+    times = []
+    for grid in grids:
+        g, gp = advection_inputs(grid, torch.float32, seed=2)
+        reps = 50 if grid.itot <= 128 else 20
+        kernel = lambda: fused_adv_mom(g, gp, grid, thl=True)
+        plain = lambda: adv_mom(g, gp, grid, True)
+        for _ in range(3):
+            kernel()
+            plain()
+        p1 = cuda_ms(plain, reps)
+        e1, k1 = cuda_ms(kernel, reps), graph_ms(kernel, reps)
+        e2, k2 = cuda_ms(kernel, reps), graph_ms(kernel, reps)
+        p2 = cuda_ms(plain, reps)
+        nbytes = least_bytes(grid.shape, 4, True)
+        out = dict(ms=(e1 + e2) / 2, plain_ms=(p1 + p2) / 2,
+                   bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+                   graph_ms=(k1 + k2) / 2)
+        out["share"] = out["bound_ms"] / out["graph_ms"]
+        phase(n, f"advection kernel {grid.itot}^3 float32 with thl on "
+                 f"{smi}: {out['ms']:.4f} ms issued eagerly ({e1:.4f}, "
+                 f"{e2:.4f}), {out['graph_ms']:.4f} ms in a CUDA graph "
+                 f"({k1:.4f}, {k2:.4f}); plain adv_mom {out['plain_ms']:.4f} "
+                 f"ms ({p1:.4f}, {p2:.4f}); bound {out['bound_ms']:.4f} ms "
+                 f"({nbytes / 1e6:.2f} MB at 3.35 TB/s): "
+                 f"{100 * out['share']:.1f}% of it in a graph; no library "
+                 f"call computes it")
+        times.append(out)
+    return dict(err=err, t128=times[0], t256=times[1])
 
 
 def check_kernel(fused, g, grid, pmasks, rtol, label, n):
@@ -3362,6 +3466,7 @@ def main():
                                         stage_urban_eb)
     from udales_tpu_torch.convert import state_from_numpy, state_to_numpy
     from udales_tpu_torch.grid import Grid
+    from udales_tpu_torch.ops.fused_adv import fused_adv_mom
     from udales_tpu_torch.ops.fused_diff import SOURCE, fused_diff_mom
     from udales_tpu_torch.run import load_case
     phase(1, f"CUDA device: {torch.cuda.get_device_name(0)}, "
@@ -3388,6 +3493,18 @@ def main():
         f"{'masked' if m else 'unmasked'} {str(dt)[6:]} "
         f"{fused_diff_mom.blocks_per_sm(dt, m)}"
         for dt in (torch.float32, torch.float64) for m in (False, True)),
+        flush=True)
+    t0 = time.perf_counter()
+    fused_adv_mom.load()
+    phase(3, f"built fused_adv_mom.cu for sm_90a in "
+             f"{time.perf_counter() - t0:.2f} s")
+    for line in fused_adv_mom.build_log.splitlines():
+        if "registers" in line or "spill" in line:
+            print("  " + line.strip(), flush=True)
+    print("  resident blocks per SM: " + ", ".join(
+        f"{'thl' if t else 'no thl'} {str(dt)[6:]} "
+        f"{fused_adv_mom.blocks_per_sm(dt, t)}"
+        for dt in (torch.float32, torch.float64) for t in (True, False)),
         flush=True)
 
     # 4. kernel against its plain version on the card
@@ -3432,6 +3549,9 @@ def main():
     t256 = time_kernel(fused_diff_mom,
                        random_ghosts(g256, torch.float32, "cuda", seed=2),
                        g256, None, smi, "256^3 float32", 8, reps=20)
+
+    # 60. the advection kernel against its plain route, and its time
+    adv = advection_phase(smi, (g128, g256))
 
     # 9. stage the urban case (host NumPy preprocessing, no JAX)
     t0 = time.perf_counter()
@@ -3596,6 +3716,12 @@ def main():
     rates = lambda d: {k: d[k] for k in ("ms_per_step", "points_per_s",
                                          "peak_mem_gib")}
     print(json.dumps({"kernels": [
+        {"name": "fused_adv_mom", "route": "cuda",
+         "source": "udales_tpu_torch/csrc/fused_adv_mom.cu",
+         "replaces": None, "launches": main["adv_launches"],
+         "max_abs_err": adv["err"], **adv["t128"], "bound_by": "bytes",
+         "library_ms": None, "launches_256": big["adv_launches"],
+         **{f"{k}_256": v for k, v in adv["t256"].items()}},
         {"name": "fused_diff_mom", "route": "cuda", "source": src,
          "replaces": "udales_tpu/ops/pallas_stencil.py:191",
          "launches": main["launches"], "max_abs_err": kernel_err,

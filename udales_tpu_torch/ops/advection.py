@@ -139,6 +139,24 @@ def adv_c2(gc, g, grid: Grid):
     return -(horiz + vert)
 
 
+def adv_mom(g, gp, grid: Grid, thl: bool = False):
+    """The advection leaf of a substep: ``adv_u``, ``adv_v``, ``adv_w`` with
+    the pressure-gradient terms the reference embeds in advecu/v/w_2nd, and
+    ``adv_c2`` of ``g.thl`` when `thl`.  `gp` is the pressure padded by one
+    cell in x and y (``run._pad_pres``).  Returns (du, dv, dw, dthl), dthl
+    None without `thl`.  The plain version of ``csrc/fused_adv_mom.cu``
+    (``ops/fused_adv.py``), which computes the same in the same order."""
+    nz = grid.ktot
+    du = adv_u(g, grid) - (gp[1:-1, 1:-1, :] - gp[:-2, 1:-1, :]) * grid.dxi
+    dv = adv_v(g, grid) - (gp[1:-1, 1:-1, :] - gp[1:-1, :-2, :]) * grid.dyi
+    dw = adv_w(g, grid)
+    p = gp[1:-1, 1:-1, :]
+    dzhi = grid.t("dzhi", gp.device)
+    dw[..., 1:nz] -= (p[:, :, 1:] - p[:, :, :-1]) * dzhi[1:nz][None, None, :]
+    dthl = adv_c2(g.thl, g, grid) if thl else None
+    return du, dv, dw, dthl
+
+
 def _rlim(d1, d2, eps1=1.0e-10):
     """Kappa-scheme flux limiter (modadvection.f90:410-421)."""
     ri = (d2 + eps1) / (d1 + eps1)

@@ -10,7 +10,9 @@ with m <- c on the third substep.  `dt` and `timee` stay 0-d device
 tensors and `step` makes no host synchronisation (no `.item()`, no Python
 branch on a tensor) and no host-to-device copy, so `step_jit` captures it
 as one CUDA graph (``graph.CompiledStep``) and ``run(..., graph=True)``
-replays it.
+replays it.  On the card two hand-written kernels do a substep's
+advection leaf (``ops.fused_adv``) and its momentum diffusion
+(``ops.fused_diff``); on the CPU their plain versions run.
 
 With an ``ibm.IBM`` the substep takes the IBM hooks where udales_tpu's does
 (run.py:162-535): masked thermodynamics slab averages, the pmask-folded
@@ -54,7 +56,7 @@ device mesh (run.py:46-65): the Model keeps this rank's block grid
 (``Grid.block``), the State holds this rank's blocks
 (``parallel.mesh.shard_state``; the facet state whole on every rank), the
 halos, slab means, the dt limit and the Poisson transposes go through the
-mesh's collectives, and each rank launches the kernel on its ghosted
+mesh's collectives, and each rank launches the kernels on its ghosted
 block.  The IBM, the scalar sources, the vegetation, the purifiers and the
 heat pumps are those of the rank's block (their ``block`` constructors),
 the facet sums of the wall functions are the domain's, and every rank runs
@@ -92,6 +94,7 @@ from .ops.forces import (coriolis, fixuinf1, forces, grwdamp, lstend,
                          masscorr_uvol, masscorr_vvol, nudge_top,
                          periodic_eb_corr, shift_profile, shifted_pbcs,
                          sponge_profile)
+from .ops.fused_adv import fused_adv_mom
 from .ops.fused_diff import fused_diff_mom
 from .ops.halo import pad_edge, pad_periodic_xy, pad_wrap
 from .ops.inletgen import (InletGenParams, init_inletgen, inletgen_planes,
@@ -347,22 +350,16 @@ class Model:
 
         # --- advection (+ pressure-gradient term, modadvection) ------------
         trace.leaf("advection")
+        # cd2 momentum, the pressure-gradient terms and cd2 thl in one
+        # pass: the hand-written kernel on CUDA
         gp = _pad_pres(state.pres, openx, openy, grid.mesh)
-        du = adv.adv_u(g, grid) \
-            - (gp[1:-1, 1:-1, :] - gp[:-2, 1:-1, :]) * grid.dxi
-        dv = adv.adv_v(g, grid) \
-            - (gp[1:-1, 1:-1, :] - gp[1:-1, :-2, :]) * grid.dyi
-        dw = adv.adv_w(g, grid)
-        dzhi = grid.t("dzhi", self.device)
-        dw[..., 1:nz] -= (state.pres[:, :, 1:] - state.pres[:, :, :-1]) \
-            * dzhi[1:nz][None, None, :]
-        dthl = None
-        if ltemp and cfg.iadv_thl == IADV_KAPPA:
+        kappa_thl = ltemp and cfg.iadv_thl == IADV_KAPPA
+        du, dv, dw, dthl = fused_adv_mom(g, gp, grid,
+                                         thl=ltemp and not kappa_thl)
+        if kappa_thl:
             dthl = adv.adv_kappa(_kappa_ghost_scalar(c.thl, cfg, openx,
                                                      openy, grid.mesh),
                                  g, grid)
-        elif ltemp:
-            dthl = adv.adv_c2(g.thl, g, grid)
         dqt = adv.adv_c2(g.qt, g, grid) if lmoist else None
         de12 = adv.adv_c2(g.e12, g, grid) if oneeqn else None
         # every scalar at once: g.sv is (nsv, ...) in the kappa layout
