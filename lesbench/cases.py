@@ -6,6 +6,11 @@ root.
 A case is staged into a directory of its own process and renamed into
 place when it is whole, so that a first run cut short leaves no
 half-staged case behind for the next run to load.
+
+A configuration's domain is its namelist's ``&DOMAIN`` (``itot``,
+``jtot``, ``ktot``, ``xlen``, ``ylen``) on cells of ``geometry.cell_m``,
+``ktot`` of them high; a cubic configuration may also state it as ``n``,
+which then has to agree.
 """
 from __future__ import annotations
 
@@ -30,14 +35,33 @@ def layout(cfg: dict) -> frozen.Layout:
     return frozen.Layout(*g["box_m"], *g["street_m"], g["facet_edge_m"])
 
 
-def _stage_into(cfg: dict, root: Path) -> Path:
-    """Stage the configuration's case under `root`; returns its directory."""
-    n = cfg["n"]
+def domain(cfg: dict) -> frozen.Domain:
+    """The configuration's domain (see the module's docstring); raises
+    where its ``n`` disagrees with ``&DOMAIN``, or where ``&DOMAIN``'s
+    lengths are not its cells of ``cell_m``."""
+    d, cell = cfg["namelist"]["DOMAIN"], cfg["geometry"]["cell_m"]
+    dom = frozen.Domain(int(d["itot"]), int(d["jtot"]), int(d["ktot"]),
+                        float(d["xlen"]), float(d["ylen"]),
+                        float(d["ktot"] * cell))
+    if "n" in cfg and (dom.itot, dom.jtot, dom.ktot) != (cfg["n"],) * 3:
+        raise ValueError(f"configuration {cfg['name']}: n = {cfg['n']}, "
+                         f"its &DOMAIN states {dom.itot} x {dom.jtot} x "
+                         f"{dom.ktot}")
+    if (dom.xlen, dom.ylen) != (dom.itot * cell, dom.jtot * cell):
+        raise ValueError(f"configuration {cfg['name']}: &DOMAIN xlen, ylen "
+                         f"= {dom.xlen}, {dom.ylen} m are not its "
+                         f"{dom.itot} x {dom.jtot} cells of {cell} m")
+    return dom
+
+
+def _stage_into(cfg: dict, dom: frozen.Domain, root: Path) -> Path:
+    """Stage the configuration's case over its domain `dom` under `root`;
+    returns its directory."""
     if cfg["case"] == "urban":
-        return frozen.stage_urban(n, root, layout(cfg))
+        return frozen.stage_urban(dom, root, layout(cfg))
     if cfg["case"] == "urban_driven":
         d = cfg["driver"]
-        return frozen.stage_urban_driven(n, root, nt=d["nt"],
+        return frozen.stage_urban_driven(dom, root, nt=d["nt"],
                                          chunk=d["chunk"],
                                          dtdriver=d["dtdriver"],
                                          layout=layout(cfg))
@@ -45,19 +69,26 @@ def _stage_into(cfg: dict, root: Path) -> Path:
                      f"{cfg['case']!r}")
 
 
+def case_name(cfg: dict) -> str:
+    """The name of a configuration's case directory: its name and a hash
+    of the whole configuration, so that another size or series never
+    finds a case staged for the old one."""
+    key = hashlib.sha1(json.dumps(cfg, sort_keys=True).encode())
+    return f"{cfg['name']}-{key.hexdigest()[:12]}"
+
+
 def case_dir(cfg: dict, cache: Path = CACHE) -> Path:
     """The staged case directory of a configuration (staged now unless a
-    whole one is in `cache`), checked against the file's namelist.  Its
-    name carries a hash of the configuration, so that another size or
-    series never finds a case staged for the old one."""
-    key = hashlib.sha1(json.dumps(cfg, sort_keys=True).encode())
-    final = cache / f"{cfg['name']}-{key.hexdigest()[:12]}"
+    whole one is in `cache`; named by `case_name`), checked against the
+    file's namelist and geometry."""
+    dom = domain(cfg)
+    final = cache / case_name(cfg)
     if not final.exists():
         tmp = cache / f".{final.name}.partial.{os.getpid()}"
         shutil.rmtree(tmp, ignore_errors=True)
         tmp.mkdir(parents=True)
         try:
-            staged = _stage_into(cfg, tmp)
+            staged = _stage_into(cfg, dom, tmp)
             try:
                 os.rename(staged, final)
             except OSError:
@@ -70,37 +101,46 @@ def case_dir(cfg: dict, cache: Path = CACHE) -> Path:
     return final
 
 
-def solid_cells(cfg: dict) -> set:
+def solid_cells(cfg: dict) -> np.ndarray:
     """The (i, j, k) cells, from 1, whose centres lie inside a building of
-    the configuration's ``geometry``: an aligned array of ``cubes``
-    boxes ``box_m`` along streets ``street_m``, the first box a half
-    street in from the domain's corner, on 1 m cells."""
+    the configuration's ``geometry``, as rows of an array: an aligned
+    array of ``cubes`` boxes ``box_m`` along streets ``street_m``, the
+    first box a half street in from the domain's corner, on cells of
+    ``cell_m``."""
     g = cfg["geometry"]
     (hx, hy, hz), (cx, cy) = g["box_m"], g["street_m"]
     cell = g["cell_m"]
-    span = lambda lo, hi: range(int(round(lo / cell)) + 1,
-                                int(round(hi / cell)) + 1)
-    out = set()
+    span = lambda lo, hi: np.arange(int(round(lo / cell)) + 1,
+                                    int(round(hi / cell)) + 1)
+    boxes = []
     for a in range(g["cubes"][0]):
         x0 = cx / 2 + a * (hx + cx)
         for b in range(g["cubes"][1]):
             y0 = cy / 2 + b * (hy + cy)
-            out.update((i, j, k) for i in span(x0, x0 + hx)
-                       for j in span(y0, y0 + hy) for k in span(0, hz))
-    return out
+            ijk = np.meshgrid(span(x0, x0 + hx), span(y0, y0 + hy),
+                              span(0, hz), indexing="ij")
+            boxes.append(np.stack([c.ravel() for c in ijk], axis=1))
+    return np.concatenate(boxes)
+
+
+def _cell_keys(rows: np.ndarray) -> np.ndarray:
+    """The distinct cells of (i, j, k) rows (each under 2**21), as sorted
+    integer keys."""
+    rows = rows.astype(np.int64).reshape(-1, 3)
+    return np.unique((rows[:, 0] << 42) | (rows[:, 1] << 21) | rows[:, 2])
 
 
 def check_geometry(cfg: dict, case: Path) -> None:
     """Raise unless the staged case's solid cells (``solid_c.txt``) are
     exactly the buildings the configuration's ``geometry`` states."""
-    rows = np.loadtxt(case / "solid_c.txt", skiprows=1, dtype=np.int64,
-                      ndmin=2)
-    staged = set(map(tuple, rows.tolist()))
-    want = solid_cells(cfg)
-    if staged != want:
-        raise ValueError(f"{case}: {len(staged)} solid cells staged, the "
+    staged = _cell_keys(np.loadtxt(case / "solid_c.txt", skiprows=1,
+                                   dtype=np.int64, ndmin=2))
+    want = _cell_keys(solid_cells(cfg))
+    if not np.array_equal(staged, want):
+        differ = np.setxor1d(staged, want, assume_unique=True).size
+        raise ValueError(f"{case}: {staged.size} solid cells staged, the "
                          f"configuration {cfg['name']}'s geometry has "
-                         f"{len(want)} ({len(staged ^ want)} differ)")
+                         f"{want.size} ({differ} differ)")
 
 
 def check_namelist(cfg: dict, path: Path) -> None:

@@ -280,6 +280,7 @@ def run_cell(work: dict, cfg: dict, seed: int, seconds: float, trace: bool,
     gc.collect()
     if device == "cuda":
         torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()     # the reference's own peak
     t0 = time.perf_counter()
     ref_model = check.build(cfg, case, "float64", device)
     ref = check.advance(ref_model, before, out["check_steps"]
@@ -297,6 +298,8 @@ def run_cell(work: dict, cfg: dict, seed: int, seconds: float, trace: bool,
     if work["entry"] == "run":
         gaps.update(writer_gaps(out))
     out["reference_s"] = time.perf_counter() - t0
+    out["reference_peak_bytes"] = (torch.cuda.max_memory_allocated()
+                                   if device == "cuda" else None)
     out["gaps"] = gaps
     return out
 
@@ -579,7 +582,8 @@ def main(argv=None, t_start: float | None = None) -> int:
 
 def report(name: str, out: dict) -> None:
     """Earlier lines of the output: the window's calls in ms a step (both
-    speeds show there), the set-up and the reference's seconds."""
+    speeds show there), the set-up and the reference's seconds, and the
+    reference's own peak on the card."""
     k = out["k"]
     ms = [1e3 * s / k for s in out["chunks"]]
     print(f"{name}: {out['steps']} steps in {out['window_s']:.4f} s, "
@@ -587,6 +591,8 @@ def report(name: str, out: dict) -> None:
           f" s; ms/step of the {len(ms)} calls: median "
           f"{statistics.median(ms):.4f}, min {min(ms):.4f}, max "
           f"{max(ms):.4f}")
+    if out.get("reference_peak_bytes") is not None:
+        print(f"reference peak {out['reference_peak_bytes']} bytes")
     print("calls ms/step: " + " ".join(f"{x:.3f}" for x in ms))
     if "span" in out:
         print("host activities in the traced call (name, s, count): "

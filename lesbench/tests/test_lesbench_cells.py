@@ -9,7 +9,9 @@ import shutil
 import subprocess
 import sys
 import textwrap
+import time
 
+from lesbench import harness
 from lesbench.harness import ROOT, cell_metrics
 from lesbench.tests.lesbench_small import small_config, small_work
 
@@ -66,3 +68,26 @@ def test_new_cell_is_found_by_name(tmp_path):
     assert metrics["steps_per_call"] == {"value": 2.0, "unit": "steps"}
     after = {p: p.read_bytes() for p in before}
     assert after == before       # no file the benchmark had was edited
+
+
+def test_urban_cubes_512_small_copy_is_correct(tmp_path):
+    """The 512 x 512 x 128 cell's small copy, 64 x 64 x 16 with 8 x 8
+    cubes of 4 cells, through a whole run on the CPU: its steps at that
+    shape, its rate, and correct by the cell's own limits.  The call
+    compared comes 200 steps after the cold start, as the cell's comes
+    ~280 steps after it: in the first ~100 the float32 thl of the top
+    level departs from float64 by up to 2e-4 of its range, in the
+    reference's own float32 too (PERF.md section 2)."""
+    work = small_work("urban_cubes_512.step", steps_per_call=2,
+                      warm_steps=200)
+    out = harness.run_cell(work, small_config("urban_cubes_512", 64),
+                           2 ** 33 + 5, 0.3, False, "cpu",
+                           time.perf_counter(), cache=tmp_path)
+    out["peak_bytes"] = None
+    line = harness.result(harness.benchmark(), "urban_cubes_512.step", work,
+                          out, False, dict(kind="cpu", power_limit=None))
+    assert out["shape"] == (64, 64, 16)
+    assert set(line["checks"]) == set(work["limits"])
+    assert line["correct"] is True, line["checks"]
+    assert line["metrics"]["step_points_per_s"]["value"] > 0
+    assert line["attempted"] == out["steps"] >= 2

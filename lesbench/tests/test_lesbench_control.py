@@ -2,7 +2,8 @@
 in the program's place one precision down (each cell file's ``control``)
 reads at least three times further from the float64 reference than the
 program does in one of the cell's numbers, on each step cell's
-configuration at 32^3, on three seeds, where the control comes out not
+configuration at 32^3 (64 x 64 x 16 for the 512 x 512 x 128 array), on
+three seeds, where the control comes out not
 correct by the cell's own limits and the program correct.  The cell-size readings come from
 ``python3 -m lesbench.control``; see PERF.md."""
 from __future__ import annotations
@@ -23,10 +24,12 @@ def card():
 @pytest.mark.cuda
 @pytest.mark.parametrize("config,cell", [
     ("urban_cubes", "urban_128.step"),
-    ("urban_cubes_driven", "driven_128.step")])
+    ("urban_cubes_driven", "driven_128.step"),
+    ("urban_cubes_512", "urban_cubes_512.step")])
 def test_control_reads_above_the_program(card, config, cell):
     work = small_work(cell)
-    rows = control.readings(work, small_config(config, 32), [1, 2, 3], 0.5)
+    n = 64 if config == "urban_cubes_512" else 32
+    rows = control.readings(work, small_config(config, n), [1, 2, 3], 0.5)
     for row in rows:
         ratios = [row["control"][n] / row["program"][n]
                   for n in work["limits"] if row["program"].get(n, 0) > 0]

@@ -50,8 +50,9 @@ def _run(monkeypatch, tmp_path, config, cell, fault=None):
             return FAULTS[fault](real, model, state, n)
         monkeypatch.setattr(program_run.Model, "run", broken)
     work = small_work(cell, steps_per_call=2, warm_steps=1)
-    out = harness.run_cell(work, small_config(config, 16), 2 ** 35 + 7, 0.3,
-                           False, "cpu", time.perf_counter(), cache=tmp_path)
+    out = harness.run_cell(work, small_config(config, SMALL.get(config, 16)),
+                           2 ** 35 + 7, 0.3, False, "cpu",
+                           time.perf_counter(), cache=tmp_path)
     out["peak_bytes"] = None
     line = harness.result(harness.benchmark(), cell, work, out, False,
                           dict(kind="cpu", power_limit=None))
@@ -59,7 +60,11 @@ def _run(monkeypatch, tmp_path, config, cell, fault=None):
 
 
 STEP_CELLS = [("urban_cubes", "urban_128.step"),
-              ("urban_cubes_driven", "driven_128.step")]
+              ("urban_cubes_driven", "driven_128.step"),
+              ("urban_cubes_512", "urban_cubes_512.step")]
+# cells along x of a configuration's small copy where not 16: the
+# 512 x 512 x 128 array's is 64 x 64 x 16, 8 x 8 cubes of 4 cells
+SMALL = {"urban_cubes_512": 64}
 
 
 @pytest.mark.parametrize("config,cell", STEP_CELLS)
@@ -73,7 +78,8 @@ def test_fault_is_not_correct(monkeypatch, tmp_path, config, cell, fault):
 @pytest.mark.parametrize("config,cell", STEP_CELLS)
 def test_sound_run_reads_far_below_the_faults(monkeypatch, tmp_path, config,
                                               cell):
-    """The sound run's widest gap at 16^3 on the CPU, two steps: the
+    """The sound run's widest gap at 16^3 (64 x 64 x 16) on the CPU, two
+    steps: the
     float32 program against the float64 reference, far under the altered
     value's 1e-3 of the field's range."""
     _, gaps = _run(monkeypatch, tmp_path, config, cell)

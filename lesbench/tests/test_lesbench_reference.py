@@ -1,5 +1,6 @@
 """The frozen reference against the program's eager path on the CPU, at
-16^3 in float64, on each configuration; and the reference's imports."""
+16^3 (64 x 64 x 16 for the 512 x 512 x 128 array) in float64, on each
+configuration; and the reference's imports."""
 from __future__ import annotations
 
 import subprocess
@@ -21,12 +22,13 @@ def _program(cfg, case):
     return model, model.cold_start(seed=5)
 
 
-@pytest.mark.parametrize("config", ["urban_cubes", "urban_cubes_driven"])
+@pytest.mark.parametrize("config", ["urban_cubes", "urban_cubes_driven",
+                                    "urban_cubes_512"])
 def test_reference_follows_the_program(tmp_path, config):
     """Three steps of the reference from the program's State after two
     equal the program's next three steps to rounding, in every compared
     field (the driven case's outlet planes too)."""
-    cfg = small_config(config, 16)
+    cfg = small_config(config, 64 if config == "urban_cubes_512" else 16)
     case = cases.case_dir(cfg, tmp_path)
     model, state = _program(cfg, case)
     state = model.run(state, 2)
