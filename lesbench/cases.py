@@ -11,6 +11,14 @@ A configuration's domain is its namelist's ``&DOMAIN`` (``itot``,
 ``jtot``, ``ktot``, ``xlen``, ``ylen``) on cells of ``geometry.cell_m``,
 ``ktot`` of them high; a cubic configuration may also state it as ``n``,
 which then has to agree.
+
+A configuration's ``case`` is the kind of case it stages: ``urban`` (the
+building array), ``urban_driven`` (the same behind a driver inlet, from
+its ``driver`` block) or ``urban_dispersion`` (the same with the scalars,
+source rows, tree boxes and tree parameters of its ``air`` block, written
+as they are, and its namelist's ``SCALARS``, ``CHEMISTRY`` and ``TREES``
+groups; see ``reference.les.cases.stage_urban_dispersion``).  Trees are not solid:
+the geometry check sees the buildings alone.
 """
 from __future__ import annotations
 
@@ -65,6 +73,11 @@ def _stage_into(cfg: dict, dom: frozen.Domain, root: Path) -> Path:
                                          chunk=d["chunk"],
                                          dtdriver=d["dtdriver"],
                                          layout=layout(cfg))
+    if cfg["case"] == "urban_dispersion":
+        groups = {g: v for g, v in cfg["namelist"].items()
+                  if g in frozen.AIR_GROUPS}
+        return frozen.stage_urban_dispersion(dom, root, layout(cfg),
+                                             cfg["air"], groups)
     raise ValueError(f"configuration {cfg['name']}: no staged case of kind "
                      f"{cfg['case']!r}")
 

@@ -157,29 +157,42 @@ def advance(model: Model, tree, steps: int, tf32: bool = False,
     return out
 
 
+def _field_gaps(out: dict, name: str, a, b) -> None:
+    """`out[name + "_gap"]`: the largest absolute difference of the field
+    `a` from `b` over `b`'s range (max - min); `out[name + "_rms"]`: the
+    root-mean-square difference over `b`'s standard deviation, steadier
+    from seed to seed than the widest gap.  Where one side is missing or
+    the shapes differ, the gap reads inf and no rms is given."""
+    if a is None or b is None or a.shape != b.shape:
+        out[name + "_gap"] = float("inf")
+        return
+    a, b = a.double(), b.double()
+    scale = float(b.max() - b.min())
+    diff = float((a - b).abs().max())
+    out[name + "_gap"] = diff / scale if scale > 0 else diff
+    sd = float(b.std())
+    rms = float((a - b).pow(2).mean().sqrt())
+    out[name + "_rms"] = rms / sd if sd > 0 else rms
+
+
 def gaps(prog, ref) -> dict:
     """How far the program's State tree `prog` lies from the reference's
     `ref`: for each compared field the largest absolute difference over
-    the reference's range (max - min) of that field, and for dt the
-    relative difference.  A field that one side lacks, or whose shapes
-    differ, reads inf."""
+    the reference's range (max - min) of that field (`_field_gaps`), and
+    for dt the relative difference.  A field that one side lacks, or
+    whose shapes differ, reads inf.  Where the reference's State carries
+    scalars, scalar n (from 1) is compared over its own range as
+    ``sv<n>_gap`` and ``sv<n>_rms``."""
     out = {}
     paths = FIELDS + (OUTLET if leaf(ref, "c.bx") is not None else ())
     for path in paths:
-        a, b = leaf(prog, path), leaf(ref, path)
-        name = path.replace("c.", "").replace(".", "_") + "_gap"
-        if a is None or b is None or a.shape != b.shape:
-            out[name] = float("inf")
-            continue
-        a, b = a.double(), b.double()
-        scale = float(b.max() - b.min())
-        diff = float((a - b).abs().max())
-        out[name] = diff / scale if scale > 0 else diff
-        # the root-mean-square difference over the field's standard
-        # deviation: steadier from seed to seed than the widest gap
-        sd = float(b.std())
-        rms = float((a - b).pow(2).mean().sqrt())
-        out[name.replace("_gap", "_rms")] = rms / sd if sd > 0 else rms
+        _field_gaps(out, path.replace("c.", "").replace(".", "_"),
+                    leaf(prog, path), leaf(ref, path))
+    sv_ref, sv_prog = leaf(ref, "c.sv"), leaf(prog, "c.sv")
+    for n in range(sv_ref.shape[0] if sv_ref is not None else 0):
+        have = sv_prog is not None and sv_prog.shape == sv_ref.shape
+        _field_gaps(out, f"sv{n + 1}", sv_prog[n] if have else None,
+                    sv_ref[n])
     a, b = float(leaf(prog, "dt")), float(leaf(ref, "dt"))
     out["dt_gap"] = abs(a - b) / abs(b) if b != 0 else abs(a - b)
     return out

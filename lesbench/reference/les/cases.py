@@ -16,6 +16,12 @@ such as Coceal's cubes repeated 8 x 8 at 512 x 512 x 128.
 boundary: a ``BCxm = 3`` driver inlet replayed from synthesized precursor
 planes through the ``lchunkread`` window, and a convective outlet
 (``root/urban{n}drv``).
+
+``stage_urban_dispersion(dom, root, layout, air, groups)`` stages the same
+array as a street-canyon air-quality case (``root/urban{n}disp``): the
+scalars, their source rows, the chemistry and the tree cells that a
+configuration's ``air`` block and namelist groups state, written as they
+are.
 """
 from __future__ import annotations
 
@@ -202,6 +208,169 @@ def stage_urban_driven(n: int | Domain, root, nt: int = 120,
                   layout=layout, nt=nt, chunk=chunk)
 
 
+# the namelist groups a dispersion configuration adds to the template
+AIR_GROUPS = ("SCALARS", "CHEMISTRY", "TREES")
+_LINE_HEADER = "# Scalar source data\n#xSb ySb zSb xSe ySe zSe SS sigS\n"
+_POINT_HEADER = "# Scalar source data\n#xS yS zS SS sigS\n"
+
+
+def _source_rows(dom: Domain, air: dict) -> tuple[int, int, int]:
+    """(nsv, line rows, point rows a scalar) of an `air` block; raises
+    unless every scalar has a background and as many line (point) rows as
+    the others, each row of 8 (5) numbers with sigma > 0, and every row's
+    3 sigma support stays inside the domain `dom` but at the floor: a
+    point's in x, y and up; a line's ends inside, its reach across x (y)
+    inside where it runs at one x (y), and its reach up under the top.
+    Neither package's sources wrap around a periodic side."""
+    nsv = len(air["species"])
+    if len(air["background"]) != nsv:
+        raise ValueError(f"{nsv} species, {len(air['background'])} "
+                         f"backgrounds")
+    counts = []
+    for kind, width in (("lines", 8), ("points", 5)):
+        per = air.get(kind, [])
+        if per and len(per) != nsv:
+            raise ValueError(f"{kind}: rows for {len(per)} scalars, "
+                             f"{nsv} species")
+        if len({len(rows) for rows in per}) > 1:
+            raise ValueError(f"{kind}: each scalar needs as many rows")
+        counts.append(len(per[0]) if per else 0)
+        for rows in per:
+            for r in rows:
+                if len(r) != width or r[-1] <= 0:
+                    raise ValueError(f"{kind} row {r}: {width} numbers, "
+                                     f"sigma > 0")
+                reach = 3.0 * r[-1]
+                ends = (r[:3], r[3:6]) if width == 8 else (r[:3],)
+                top = max(e[2] for e in ends) + reach
+                out = top > dom.zsize or any(
+                    not 0.0 <= e[2] <= dom.zsize for e in ends)
+                for a, size in ((0, dom.xlen), (1, dom.ylen)):
+                    lo = min(e[a] for e in ends)
+                    hi = max(e[a] for e in ends)
+                    pad = reach if lo == hi else 0.0
+                    out |= lo - pad < 0.0 or hi + pad > size
+                if out:
+                    raise ValueError(f"{kind} row {r}: its 3 sigma support "
+                                     f"leaves the domain")
+    return nsv, counts[0], counts[1]
+
+
+def tree_cells(air: dict) -> list[tuple[int, int, int, int]]:
+    """The (i, j, k, id) tree cells, from 1, of an `air` block's ``trees``
+    boxes ``(il, iu, jl, ju, kl, ku, id)`` (inclusive), sorted; raises
+    where a box is empty, names an id that ``tree_params`` lacks, or
+    overlaps another."""
+    ids = {int(r[0]) for r in air.get("tree_params", [])}
+    cells = {}
+    for il, iu, jl, ju, kl, ku, pid in air.get("trees", []):
+        if il > iu or jl > ju or kl > ku or pid not in ids:
+            raise ValueError(f"tree box {(il, iu, jl, ju, kl, ku, pid)}: "
+                             f"empty, or no tree_params row {pid}")
+        for ijk in np.ndindex(iu - il + 1, ju - jl + 1, ku - kl + 1):
+            at = (il + ijk[0], jl + ijk[1], kl + ijk[2])
+            if at in cells:
+                raise ValueError(f"tree cell {at} is in two boxes")
+            cells[at] = pid
+    return sorted(at + (pid,) for at, pid in cells.items())
+
+
+def _refuse_misplaced(dom: Domain, air: dict, solid: set) -> None:
+    """Raise where a tree cell lies outside the domain `dom` or in a
+    `solid` cell ((i, j, k) from 1), or a source row's point or line
+    passes through one (the line sampled at a quarter cell)."""
+    for i, j, k, _ in tree_cells(air):
+        if not (1 <= i <= dom.itot and 1 <= j <= dom.jtot
+                and 1 <= k <= dom.ktot) or (i, j, k) in solid:
+            raise ValueError(f"tree cell {(i, j, k)} lies outside the "
+                             f"domain or in a building")
+    cell = np.array([dom.xlen / dom.itot, dom.ylen / dom.jtot,
+                     dom.zsize / dom.ktot])
+    top = np.array([dom.itot, dom.jtot, dom.ktot])
+    for kind in ("lines", "points"):
+        for rows in air.get(kind, []):
+            for r in rows:
+                ends = np.array([r[:3], r[3:6]] if kind == "lines"
+                                else [r[:3]], dtype=np.float64)
+                steps = int(np.ceil(np.abs(ends[-1] - ends[0]).max()
+                                    / (cell.min() / 4))) + 1
+                at = ends[0] + np.linspace(0.0, 1.0, steps)[:, None] \
+                    * (ends[-1] - ends[0])
+                ijk = np.minimum((at // cell).astype(np.int64), top - 1) + 1
+                if any(tuple(c) in solid for c in ijk):
+                    raise ValueError(f"{kind} row {r} passes through a "
+                                     f"building")
+
+
+def _namelist_groups(groups: dict) -> str:
+    """Namelist groups as text: booleans as .true./.false., strings
+    quoted."""
+    fmt = lambda v: ((".true." if v else ".false.") if isinstance(v, bool)
+                     else f"'{v}'" if isinstance(v, str) else repr(v))
+    return "".join(f"&{name}\n" + "".join(f"{k} = {fmt(v)}\n"
+                                         for k, v in kv.items()) + "/\n"
+                   for name, kv in groups.items())
+
+
+def stage_urban_dispersion(n: int | Domain, root, layout: Layout, air: dict,
+                           groups: dict) -> Path:
+    """The `stage_urban` array as a street-canyon air-quality case, its flow
+    and walls unchanged, from a configuration's `air` block and its
+    namelist `groups` (``SCALARS``, ``CHEMISTRY``, ``TREES``), which are
+    written into the namelist as given.  The block states, for scalars
+    ``species`` with their ``background``s (``scalar.inp``), the rows of
+    uDALES's input files, written as they are: ``lines[n]``, scalar n+1's
+    line sources (xSb ySb zSb xSe ySe zSe SS sigS, m;
+    ``scalarsourcel.inp.<n+1>.900``), ``points[n]`` its point sources (xS
+    yS zS SS sigS; ``scalarsourcep.inp.<n+1>.900``), ``trees``, boxes of
+    tree cells (il iu jl ju kl ku id, from 1, inclusive; ``veg.inp``, a
+    cell a row), and ``tree_params`` (id lad cd ud dec lsize rs;
+    ``veg_params.inp``).  Raises, before anything is written, where a
+    source's support leaves the domain (`_source_rows`) or ``SCALARS`` or
+    ``TREES`` states other counts or switches than the rows; and once the
+    buildings are staged, where a tree cell or a source lies in one.  Its
+    own directory, generated once: ``root/urban{n}disp``."""
+    dom = _domain(n)
+    nsv, nlines, npoints = _source_rows(dom, air)
+    trees = tree_cells(air)
+    stated = {k.lower(): v for g in ("SCALARS", "TREES")
+              for k, v in groups.get(g, {}).items()}
+    implied = dict(nsv=nsv, nscasrcl=nlines, nscasrc=npoints,
+                   lscasrcl=nlines > 0, lscasrc=npoints > 0,
+                   ltrees=bool(trees))
+    for key, want in implied.items():
+        # a switch left out is off; a count left out is the rows'
+        got = stated.get(key, False if key.startswith("l") else want)
+        if got != want:
+            raise ValueError(f"{key} = {got}, the air block's rows say "
+                             f"{want}")
+    namelist = _NAMELIST + _namelist_groups(groups)
+
+    def write_air(case):
+        solid = {tuple(r) for r in np.loadtxt(
+            case / "solid_c.txt", skiprows=1, dtype=np.int64, ndmin=2)}
+        _refuse_misplaced(dom, air, solid)
+        row = lambda vals: " ".join(f"{v:.6f}" for v in vals) + "\n"
+        for kind, stem, head in (("lines", "scalarsourcel", _LINE_HEADER),
+                                 ("points", "scalarsourcep", _POINT_HEADER)):
+            for s, rows in enumerate(air.get(kind, [])):
+                (case / f"{stem}.inp.{s + 1}.900").write_text(
+                    head + "".join(row(r) for r in rows))
+        if trees:
+            (case / "veg.inp.900").write_text(
+                "# position (i,j,k) id\n" + "".join(
+                    f"{i:7d} {j:7d} {k:7d} {p:7d}\n"
+                    for i, j, k, p in trees))
+            (case / "veg_params.inp.900").write_text(
+                "# id lad cd ud dec lsize r_s\n" + "".join(
+                    f"{int(r[0]):7d} " + " ".join(f"{v:12.6f}"
+                                                  for v in r[1:]) + "\n"
+                    for r in air["tree_params"]))
+    return _stage(dom, Path(root) / f"urban{_tag(dom)}disp", namelist,
+                  before=write_air, layout=layout,
+                  extras=dict(nsv=nsv, sv0=list(air["background"])))
+
+
 def with_namelist(case, dest, **groups) -> Path:
     """A copy of the staged `case` directory at `dest` whose namelist gains
     the given groups, for example ``with_namelist(case, dest,
@@ -213,20 +382,17 @@ def with_namelist(case, dest, **groups) -> Path:
     dest = Path(dest)
     shutil.copytree(case, dest, dirs_exist_ok=True)
     nam = sorted(dest.glob("namoptions.*"))[0]
-    fmt = lambda v: ((".true." if v else ".false.") if isinstance(v, bool)
-                     else f"'{v}'" if isinstance(v, str) else repr(v))
-    extra = "".join(
-        f"&{name}\n" + "".join(f"{k} = {fmt(v)}\n" for k, v in kv.items())
-        + "/\n" for name, kv in groups.items())
-    nam.write_text(nam.read_text() + extra)
+    nam.write_text(nam.read_text() + _namelist_groups(groups))
     return dest
 
 
 def _stage(dom: Domain, case: Path, namelist: str, before=None,
-           layout: Layout | None = None, **values) -> Path:
+           layout: Layout | None = None, extras: dict | None = None,
+           **values) -> Path:
     """Stage the array `layout` (default ``default_layout(dom.itot)``) over
     the domain `dom` under `case` unless its namelist, which is written
-    last, exists.  `before(case)` writes further inputs."""
+    last, exists.  `extras` are ``prepare_case``'s scalar inputs,
+    `before(case)` writes further inputs."""
     nam = case / "namoptions.900"
     if nam.exists():
         return case
@@ -237,7 +403,7 @@ def _stage(dom: Domain, case: Path, namelist: str, before=None,
     counts = prepare_case(case / "geom.stl", case, PrepConfig(
         itot=dom.itot, jtot=dom.jtot, ktot=dom.ktot, xlen=dom.xlen,
         ylen=dom.ylen, zsize=dom.zsize, expnr="900", u0=1.5, thl0=290.0,
-        facT0=295.0, with_radiation=False, vf_subdiv=1))
+        facT0=295.0, with_radiation=False, vf_subdiv=1), extras)
     if before is not None:
         before(case)
     nam.write_text(namelist_text(namelist, dom, counts, **values))

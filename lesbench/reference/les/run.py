@@ -34,9 +34,16 @@ substep keeps the wall-stress diagnostics in ``State.taud``, as udales_tpu's
 run.py:356-403 does.  An IBM case built without its IBM raises
 NotImplementedError when the Model is built, as does a case that switches
 on a path this frozen copy leaves out (`_unsupported`): the facet energy
-balance, the time-dependent series, the inlet generator, scalar sources,
-trees, purifiers, heat pumps, chemistry and the split over ranks, none of
-which the benchmark's cases run.
+balance, the time-dependent series, the inlet generator, road-network
+sources, the canopy's energy balance, purifiers, heat pumps and the split
+over ranks, none of which the benchmark's cases run.
+
+The air-quality physics (scalar sources, trees, the NO-NO2-O3 chemistry)
+is not part of the frozen copy: ``physics.py`` was written for the
+benchmark (after the measured package's reading of the equations; see its
+docstring), and `load_case` builds it from a case's files.  The canopy
+(``Model.canopy``) and the sources (``Model.sources``) act after ibmnorm,
+before the projection; the chemistry after the third substep's integrate.
 
 """
 from __future__ import annotations
@@ -70,6 +77,7 @@ from .ops.openbc import (BC_RECYCLE, Inlet, convect_planes, convect_planes_y,
 from .ops.poisson import PoissonSolver
 from .ops.thermo import ThermoDiag, avexy_masked, thermodynamics
 from .ibm.bottom import bottom_tendencies
+from .physics import Canopy, chemistry, read_sources, source_field
 
 
 def _unsupported(cfg: Config, ibm=None):
@@ -84,12 +92,13 @@ def _unsupported(cfg: Config, ibm=None):
             or ph.ltimedepsw),
         "the inlet generator and its replay (iinletgen)": (
             cfg.driver.iinletgen != 0),
-        "scalar sources (lscasrc*)": (
-            sc.lscasrc or sc.lscasrcl or sc.lscasrcr),
-        "trees (ltrees)": cfg.trees.ltrees,
+        "road-network scalar sources (lscasrcr)": sc.lscasrcr,
+        "the canopy's energy balance (ltrees in a moist run)": (
+            cfg.trees.ltrees and ph.lmoist),
         "purifiers (lpurif)": cfg.purifs.lpurif,
         "heat pumps (lheatpump)": cfg.heatpump.lheatpump,
-        "chemistry (lchem)": cfg.chem.lchem,
+        "chemistry (lchem) on fewer than three scalars": (
+            cfg.chem.lchem and sc.nsv < 3),
     }
     return [name for name, on in checks.items() if on]
 
@@ -130,6 +139,8 @@ class Model:
         self.inlet_y = None  # ops.openbc.Inlet for open-y runs (profile only)
         self.driver_stream = None  # io.driverstream.DriverStream (lchunkread)
         self.has_lstend = False    # lscale.inp holds subsidence or dqtdt
+        self.canopy = None   # physics.Canopy of a case with trees
+        self.sources = None  # (nsv, nx, ny, nz) tendency of the sources
         # tau_x/y/z + thl_flux diagnostics only when fielddump asks for them
         codes = {c.strip() for c in cfg.output.fieldvars.split(",")}
         self.need_taudiag = bool(cfg.output.lfielddump
@@ -445,6 +456,14 @@ class Model:
             du, dv, dw, dthl, dqt, dsv, m = ibm.ibmnorm(
                 c, m, du, dv, dw, dthl, thl_vmean, dqt, dsv)
 
+        # --- tree canopy: drag and deposition (vegetation.f90:351) ---------
+        if self.canopy is not None:
+            du, dv, dw, dsv = self.canopy.forcing(m, du, dv, dw, dsv)
+
+        # --- scalar sources (modscalsource.f90:385) ------------------------
+        if self.sources is not None:
+            dsv = dsv + self.sources
+
         # --- forces hard-zeroes wp at the floor (modforces.f90:125) --------
         dw[..., 0] = 0.0
 
@@ -507,6 +526,11 @@ class Model:
             m_new = replace(m_new, bx=bxm)
         if oneeqn:
             m_new = replace(m_new, e12=torch.clamp(m.e12, min=const.e12min))
+        # --- chemistry once a full step (modtstep.f90:236, modchem.f90) ----
+        if cfg.chem.lchem and rk3step == 3:
+            c_new = replace(c_new, sv=chemistry(
+                c_new.sv, state.dt, cfg.chem.k1, cfg.chem.JNO2,
+                ibm.masks.c if ibm is not None else 1.0))
         if rk3step == 3:
             m_new = c_new
         return state.replace(c=c_new, m=m_new, pres=pres, fac=fac,
@@ -724,8 +748,24 @@ def load_case(case_dir, expnr: str | None = None, dtype: str = "float32",
     model.inputs = inputs
     model.has_lstend = bool(np.any(inputs.lscale["wfls"] != 0)
                             or np.any(inputs.lscale["dqtdt"] != 0))
+    _load_air(model, case_dir, expnr)
     _load_inlet(model, case_dir, inputs)
     return model
+
+
+def _load_air(model: Model, case_dir: Path, expnr: str) -> None:
+    """The air-quality physics of a case (``physics.py``): the source
+    field, built in float64 and held in the model's dtype, where
+    ``lscasrc`` or ``lscasrcl`` is on; the canopy where ``ltrees`` is on
+    (its files must be there)."""
+    cfg, grid = model.cfg, model.grid
+    kw = dict(dtype=grid.torch_dtype, device=model.device)
+    points, lines = read_sources(case_dir, expnr, cfg)
+    if cfg.scalars.nsv > 0 and (points is not None or lines is not None):
+        model.sources = source_field(grid, points, lines,
+                                     model.device).to(**kw)
+    if cfg.trees.ltrees:
+        model.canopy = Canopy.load(case_dir, expnr, grid.shape, **kw)
 
 
 def _load_inlet(model: Model, case_dir: Path, inputs) -> None:
