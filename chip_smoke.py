@@ -27,8 +27,8 @@ without a result line:
   1. require a CUDA device (no CPU fallback)
   2. card name and power limit (nvidia-smi), torch / CUDA versions
   3. build the kernels from the repository sources (nvcc, sm_90a):
-     fused_diff_mom.cu and fused_adv_mom.cu, their register and spill
-     reports and resident blocks per SM
+     fused_diff_mom.cu, fused_adv_mom.cu and fused_vreman.cu, their
+     register and spill reports and resident blocks per SM
   4. unmasked kernel against its plain PyTorch version on the card: a
      sweep of ragged shapes on a stretched grid (float32 and float64), then
      the main paths' shapes 128^3 and 256^3 in float32
@@ -250,6 +250,14 @@ without a result line:
      8 times the diffusion kernel (eager, in a CUDA graph, the plain route,
      the bound).  Every main path's timed run (phases 6, 7, 12, 16, 20,
      22, 27-29, 52, 56, 58) also counts its launches: 3 a step
+ 61. (run after phase 60) the Vreman closure kernel (csrc/fused_vreman.cu)
+     against its plain route subgrid.vreman_closure on the card: the
+     ragged shapes on a stretched grid and a 64 x 64 x 128 rank block,
+     float64 (1e-12) and float32 (1e-5), with and without the buoyancy
+     correction; then 128^3, 256^3 and 512 x 512 x 128 float32 without
+     it, timed as phase 60 times the advection kernel.  Every main path's
+     timed run also counts its launches: 3 a step with closed boundaries,
+     4 with an open one, none where the closure is not Vreman's
 The line before the last is a JSON object describing the kernels and the
 main paths; the last line is {"ok": true, "device": {...}}.
 
@@ -420,19 +428,32 @@ def captured_run(model, state, steps):
     return state
 
 
+def vreman_calls(model):
+    """Closure calls a step of `model` that take the Vreman kernel: the
+    step entry's and those of substeps 2 and 3, and substep 1's too where
+    an open boundary's inlet planes move with the time (``Model.step``);
+    none where the closure is another model's."""
+    from udales_tpu_torch.config import SGS_VREMAN
+    if model.cfg.subgrid.model != SGS_VREMAN:
+        return 0
+    return 4 if model.inlet is not None or model.inlet_y is not None else 3
+
+
 def timed_run(model, state, steps, graph, fused, label):
     """`steps` steps of `model` from `state` between CUDA events, eagerly
     (``Model.run``) or as replays of the captured step (`captured_run`),
     with the launch counts set to 0 just before and read just after: the
     diffusion kernel's own variant must launch 3 times a step, counted
     across replays, and the other not at all, and the advection kernel 3
-    times a step.  Returns (numbers, final State)."""
+    times a step, and the Vreman kernel as often as the step calls the
+    closure (`vreman_calls`).  Returns (numbers, final State)."""
     from udales_tpu_torch.ops.fused_adv import fused_adv_mom
+    from udales_tpu_torch.ops.fused_vreman import fused_vreman
     masked = model.ibm is not None
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     fused.launch_count = fused.masked_launch_count = 0
-    fused_adv_mom.launch_count = 0
+    fused_adv_mom.launch_count = fused_vreman.launch_count = 0
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     t0 = time.perf_counter()
@@ -453,11 +474,16 @@ def timed_run(model, state, steps, graph, fused, label):
         raise RuntimeError(f"{label}: {fused_adv_mom.launch_count} "
                            f"advection kernel launches in {steps} steps, "
                            f"expected {3 * steps}")
+    if fused_vreman.launch_count != vreman_calls(model) * steps:
+        raise RuntimeError(f"{label}: {fused_vreman.launch_count} Vreman "
+                           f"kernel launches in {steps} steps, expected "
+                           f"{vreman_calls(model) * steps}")
     ms = start.elapsed_time(end) / steps
     n = model.grid.itot * model.grid.jtot * model.grid.ktot
     return dict(ms_per_step=ms, host_ms_per_step=host,
                 points_per_s=n / (ms * 1e-3), launches=launches,
                 adv_launches=fused_adv_mom.launch_count,
+                vreman_launches=fused_vreman.launch_count,
                 peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
                 reserved_gib=torch.cuda.memory_reserved() / 2 ** 30), state
 
@@ -609,31 +635,122 @@ def advection_phase(smi, grids, n=60):
     times = []
     for grid in grids:
         g, gp = advection_inputs(grid, torch.float32, seed=2)
-        reps = 50 if grid.itot <= 128 else 20
-        kernel = lambda: fused_adv_mom(g, gp, grid, thl=True)
-        plain = lambda: adv_mom(g, gp, grid, True)
-        for _ in range(3):
-            kernel()
-            plain()
-        p1 = cuda_ms(plain, reps)
-        e1, k1 = cuda_ms(kernel, reps), graph_ms(kernel, reps)
-        e2, k2 = cuda_ms(kernel, reps), graph_ms(kernel, reps)
-        p2 = cuda_ms(plain, reps)
-        nbytes = least_bytes(grid.shape, 4, True)
-        out = dict(ms=(e1 + e2) / 2, plain_ms=(p1 + p2) / 2,
-                   bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
-                   graph_ms=(k1 + k2) / 2)
-        out["share"] = out["bound_ms"] / out["graph_ms"]
-        phase(n, f"advection kernel {grid.itot}^3 float32 with thl on "
-                 f"{smi}: {out['ms']:.4f} ms issued eagerly ({e1:.4f}, "
-                 f"{e2:.4f}), {out['graph_ms']:.4f} ms in a CUDA graph "
-                 f"({k1:.4f}, {k2:.4f}); plain adv_mom {out['plain_ms']:.4f} "
-                 f"ms ({p1:.4f}, {p2:.4f}); bound {out['bound_ms']:.4f} ms "
-                 f"({nbytes / 1e6:.2f} MB at 3.35 TB/s): "
-                 f"{100 * out['share']:.1f}% of it in a graph; no library "
-                 f"call computes it")
-        times.append(out)
+        times.append(kernel_turns(
+            lambda: fused_adv_mom(g, gp, grid, thl=True),
+            lambda: adv_mom(g, gp, grid, True), grid,
+            least_bytes(grid.shape, 4, True), smi,
+            f"advection kernel {grid.itot}^3 float32 with thl", "adv_mom",
+            n))
     return dict(err=err, t128=times[0], t256=times[1])
+
+
+def kernel_turns(kernel, plain, grid, nbytes, smi, label, plain_name, n):
+    """A kernel's time beside its plain route and its bound, in turns plain,
+    kernel, kernel, plain (as `time_kernel`; 50 calls a run up to 128^3,
+    20 above), printed as phase `n`.  Returns dict(ms, plain_ms, bound_ms,
+    graph_ms, share)."""
+    reps = 50 if grid.itot <= 128 else 20
+    for _ in range(3):
+        kernel()
+        plain()
+    p1 = cuda_ms(plain, reps)
+    e1, k1 = cuda_ms(kernel, reps), graph_ms(kernel, reps)
+    e2, k2 = cuda_ms(kernel, reps), graph_ms(kernel, reps)
+    p2 = cuda_ms(plain, reps)
+    out = dict(ms=(e1 + e2) / 2, plain_ms=(p1 + p2) / 2,
+               bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+               graph_ms=(k1 + k2) / 2)
+    out["share"] = out["bound_ms"] / out["graph_ms"]
+    phase(n, f"{label} on {smi}: {out['ms']:.4f} ms issued eagerly "
+             f"({e1:.4f}, {e2:.4f}), {out['graph_ms']:.4f} ms in a CUDA "
+             f"graph ({k1:.4f}, {k2:.4f}); plain {plain_name} "
+             f"{out['plain_ms']:.4f} ms ({p1:.4f}, {p2:.4f}); bound "
+             f"{out['bound_ms']:.4f} ms ({nbytes / 1e6:.2f} MB at 3.35 "
+             f"TB/s): {100 * out['share']:.1f}% of it in a graph; no "
+             f"library call computes it")
+    return out
+
+
+def vreman_inputs(grid, dtype, seed):
+    """Ghosted u, v, w, and the interior dthvdz and thl, as the Vreman
+    kernel takes them, from a numpy seed: (ghosts, dthvdz, thl)."""
+    nx, ny, nz = grid.shape
+    rng = np.random.default_rng(seed)
+    cell = (nx + 2, ny + 2, nz + 2)
+    t = lambda a: torch.tensor(a, dtype=dtype, device="cuda")
+    g = SimpleNamespace(
+        u=t(rng.standard_normal(cell)), v=t(rng.standard_normal(cell)),
+        w=t(rng.standard_normal((nx + 2, ny + 2, nz + 1))))
+    return (g, t(5.0 * rng.standard_normal(grid.shape)),
+            t(288.0 + rng.standard_normal(grid.shape)))
+
+
+def vreman_phase(smi, n=61):
+    """Phase 61: the Vreman kernel against its plain route over the ragged
+    shapes and a rank block (both dtypes, with and without the buoyancy
+    correction), and its time without it at 128^3, 256^3 and 512 x 512 x
+    128 float32 (as `advection_phase`).  Any miss raises.  Returns
+    dict(err, t128, t256, t512)."""
+    from udales_tpu_torch.config import (Config, DomainConfig,
+                                         PhysicsConfig, SubgridConfig)
+    from udales_tpu_torch.grid import Grid
+    from udales_tpu_torch.ops.fused_vreman import fused_vreman, least_bytes
+    from udales_tpu_torch.ops.subgrid import vreman_closure
+
+    def config(grid, buoy):
+        return Config(domain=DomainConfig(
+            itot=grid.itot, jtot=grid.jtot, ktot=grid.ktot, xlen=grid.xlen,
+            ylen=grid.ylen), physics=PhysicsConfig(lbuoyancy=buoy),
+            subgrid=SubgridConfig(lbuoycorr=buoy))
+
+    def check(grid, dtype, rtol, buoy, label):
+        g, dthvdz, thl = vreman_inputs(grid, dtype, seed=1)
+        cfg = config(grid, buoy)
+        got = fused_vreman(g, grid, cfg, dthvdz, thl)
+        torch.cuda.synchronize()
+        err, scale = max_rel_err(got, vreman_closure(g, grid, cfg, dthvdz,
+                                                     thl))
+        if not err <= rtol * scale:
+            raise RuntimeError(f"Vreman kernel disagrees with plain on "
+                               f"{label}: {err:.3e} of {scale:.4g}")
+        return err
+
+    worst = {}
+    for shape in RAGGED_SHAPES + [(64, 64, 128)]:
+        nz = shape[2]
+        zf = np.cumsum(1.04 ** np.arange(nz)) - 0.5 * 1.04 ** np.arange(nz)
+        for np_dt, dtype, rtol in ((np.float64, torch.float64, 1e-12),
+                                   (np.float32, torch.float32, 1e-5)):
+            grid = Grid(*shape, float(shape[0]), float(shape[1]), zf,
+                        dtype=np_dt)
+            for buoy in (False, True):
+                err = check(grid, dtype, rtol, buoy,
+                            f"{shape} {np_dt.__name__}"
+                            f"{' buoycorr' if buoy else ''}")
+                key = np_dt.__name__
+                worst[key] = max(worst.get(key, 0.0), err)
+    phase(n, f"Vreman kernel vs plain over {len(RAGGED_SHAPES) + 1} shapes "
+             f"(stretched), with and without the buoyancy correction: max "
+             f"abs err float64 {worst['float64']:.3e}, float32 "
+             f"{worst['float32']:.3e}")
+    grids = [Grid.uniform(nx, nx, nz, float(nx), float(nx), float(nz),
+                          dtype=np.float32)
+             for nx, nz in ((128, 128), (256, 256), (512, 128))]
+    err = max(check(grid, torch.float32, 1e-5, False,
+                    f"uniform {grid.shape} float32") for grid in grids)
+    times = []
+    for grid in grids:
+        g, _, _ = vreman_inputs(grid, torch.float32, seed=2)
+        cfg = config(grid, False)
+        times.append(kernel_turns(
+            lambda: fused_vreman(g, grid, cfg),
+            lambda: vreman_closure(g, grid, cfg), grid,
+            least_bytes(grid.shape, 4, False), smi,
+            f"Vreman kernel {'x'.join(map(str, grid.shape))} float32",
+            "vreman_closure", n))
+        del g
+        torch.cuda.empty_cache()
+    return dict(err=err, t128=times[0], t256=times[1], t512=times[2])
 
 
 def check_kernel(fused, g, grid, pmasks, rtol, label, n):
@@ -3468,6 +3585,7 @@ def main():
     from udales_tpu_torch.grid import Grid
     from udales_tpu_torch.ops.fused_adv import fused_adv_mom
     from udales_tpu_torch.ops.fused_diff import SOURCE, fused_diff_mom
+    from udales_tpu_torch.ops.fused_vreman import fused_vreman
     from udales_tpu_torch.run import load_case
     phase(1, f"CUDA device: {torch.cuda.get_device_name(0)}, "
              f"count {torch.cuda.device_count()}")
@@ -3505,6 +3623,19 @@ def main():
         f"{'thl' if t else 'no thl'} {str(dt)[6:]} "
         f"{fused_adv_mom.blocks_per_sm(dt, t)}"
         for dt in (torch.float32, torch.float64) for t in (True, False)),
+        flush=True)
+
+    t0 = time.perf_counter()
+    fused_vreman.load()
+    phase(3, f"built fused_vreman.cu for sm_90a (no FMA contraction) in "
+             f"{time.perf_counter() - t0:.2f} s")
+    for line in fused_vreman.build_log.splitlines():
+        if "registers" in line or "spill" in line:
+            print("  " + line.strip(), flush=True)
+    print("  resident blocks per SM: " + ", ".join(
+        f"{'buoycorr' if b else 'plain'} {str(dt)[6:]} "
+        f"{fused_vreman.blocks_per_sm(dt, b)}"
+        for dt in (torch.float32, torch.float64) for b in (False, True)),
         flush=True)
 
     # 4. kernel against its plain version on the card
@@ -3552,6 +3683,9 @@ def main():
 
     # 60. the advection kernel against its plain route, and its time
     adv = advection_phase(smi, (g128, g256))
+
+    # 61. the Vreman closure kernel against its plain route, and its time
+    vre = vreman_phase(smi)
 
     # 9. stage the urban case (host NumPy preprocessing, no JAX)
     t0 = time.perf_counter()
@@ -3716,6 +3850,14 @@ def main():
     rates = lambda d: {k: d[k] for k in ("ms_per_step", "points_per_s",
                                          "peak_mem_gib")}
     print(json.dumps({"kernels": [
+        {"name": "fused_vreman", "route": "cuda",
+         "source": "udales_tpu_torch/csrc/fused_vreman.cu",
+         "replaces": None, "launches": main["vreman_launches"],
+         "max_abs_err": vre["err"], **vre["t128"], "bound_by": "bytes",
+         "library_ms": None, "launches_256": big["vreman_launches"],
+         "launches_urban_driven": drv["driven"]["vreman_launches"],
+         **{f"{k}_256": v for k, v in vre["t256"].items()},
+         **{f"{k}_512x512x128": v for k, v in vre["t512"].items()}},
         {"name": "fused_adv_mom", "route": "cuda",
          "source": "udales_tpu_torch/csrc/fused_adv_mom.cu",
          "replaces": None, "launches": main["adv_launches"],

@@ -27,7 +27,8 @@ import torch
 from .. import trace
 from ..grid import Grid
 from . import advection as adv
-from .fused_diff import compile_library
+from .fused_diff import (blocks_per_sm, check_inputs, check_launch,
+                         compile_library)
 
 SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "fused_adv_mom.cu"
 _METRICS = ("dzf_g", "dzhi", "dzhiq", "dzfi5")
@@ -82,14 +83,7 @@ class FusedAdvMom:
     def blocks_per_sm(self, dtype, thl: bool) -> int:
         """Resident blocks per SM of one instantiation on the current card
         (the CUDA occupancy calculator's answer)."""
-        fn = self.load().fused_adv_mom_blocks_per_sm
-        fn.argtypes = [ctypes.c_int, ctypes.c_int]
-        fn.restype = ctypes.c_int
-        n = fn(int(dtype == torch.float64), int(thl))
-        if n < 0:
-            raise RuntimeError(f"fused_adv_mom: occupancy query failed "
-                               f"with cudaError {-n}")
-        return n
+        return blocks_per_sm(self.load(), "fused_adv_mom", dtype, thl)
 
     # -- call --------------------------------------------------------------
     def __call__(self, g, gp, grid: Grid, thl: bool = False):
@@ -106,27 +100,13 @@ class FusedAdvMom:
     def _launch(self, g, gp, grid: Grid, thl: bool):
         nx, ny, nz = grid.shape
         dtype = g.u.dtype
-        if dtype not in (torch.float32, torch.float64):
-            raise TypeError(f"fused_adv_mom: unsupported dtype {dtype}")
-        if dtype != grid.torch_dtype:   # the metric vectors come in this type
-            raise ValueError(f"fused_adv_mom: fields are {dtype}, grid "
-                             f"metrics {grid.torch_dtype}")
         cell = (nx + 2, ny + 2, nz + 2)
         inputs = [("u", g.u, cell), ("v", g.v, cell),
                   ("w", g.w, (nx + 2, ny + 2, nz + 1)),
                   ("p", gp, (nx + 2, ny + 2, nz))]
         if thl:
             inputs.append(("thl", g.thl, cell))
-        for name, t, shape in inputs:
-            if t.device != g.u.device or t.dtype != dtype:
-                raise ValueError(f"fused_adv_mom: {name} is {t.dtype} on "
-                                 f"{t.device}, expected {dtype} on "
-                                 f"{g.u.device}")
-            if tuple(t.shape) != shape:
-                raise ValueError(f"fused_adv_mom: {name} has shape "
-                                 f"{tuple(t.shape)}, expected {shape}")
-            if not t.is_contiguous():
-                raise ValueError(f"fused_adv_mom: {name} is not contiguous")
+        check_inputs("fused_adv_mom", grid, inputs)
         lib = self.load()
         dev = g.u.device
         metrics = [grid.t(name, dev) for name in _METRICS]
@@ -146,9 +126,7 @@ class FusedAdvMom:
                      dthl.data_ptr() if thl else None,
                      nx, ny, nz, grid.dxi, grid.dyi, grid.dxiq, grid.dyiq,
                      grid.dxi5, grid.dyi5, stream)
-        if err != 0:
-            raise RuntimeError(f"fused_adv_mom: CUDA launch failed with "
-                               f"cudaError {err}")
+        check_launch("fused_adv_mom", err)
         self.launch_count += 1
         return du, dv, dw, dthl
 

@@ -104,6 +104,53 @@ def compile_library(source: Path, flags=NVCC_FLAGS):
     return lib, log
 
 
+def check_inputs(kernel: str, grid: Grid, inputs) -> None:
+    """Raise unless the tensors a kernel reads through raw pointers are what
+    it takes: each (name, tensor, shape) of `inputs` present, float32 or
+    float64 in the type of the grid's metric vectors and of the first, on
+    the first one's device, of `shape` and contiguous.  `kernel` names the
+    kernel in the messages."""
+    like = inputs[0][1]
+    dtype = like.dtype
+    if dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"{kernel}: unsupported dtype {dtype}")
+    if dtype != grid.torch_dtype:   # the metric vectors come in this type
+        raise ValueError(f"{kernel}: fields are {dtype}, grid metrics "
+                         f"{grid.torch_dtype}")
+    for name, t, shape in inputs:
+        if t is None:
+            raise ValueError(f"{kernel}: {name} is missing")
+        if t.device != like.device or t.dtype != dtype:
+            raise ValueError(f"{kernel}: {name} is {t.dtype} on {t.device}, "
+                             f"expected {dtype} on {like.device}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{kernel}: {name} has shape {tuple(t.shape)}, "
+                             f"expected {shape}")
+        if not t.is_contiguous():
+            raise ValueError(f"{kernel}: {name} is not contiguous")
+
+
+def blocks_per_sm(lib, kernel: str, dtype, variant: bool) -> int:
+    """Resident blocks per SM of one instantiation of `kernel` in `lib` on
+    the current card (the CUDA occupancy calculator's answer, from the
+    library's ``<kernel>_blocks_per_sm``)."""
+    fn = getattr(lib, f"{kernel}_blocks_per_sm")
+    fn.argtypes = [ctypes.c_int, ctypes.c_int]
+    fn.restype = ctypes.c_int
+    n = fn(int(dtype == torch.float64), int(variant))
+    if n < 0:
+        raise RuntimeError(f"{kernel}: occupancy query failed with "
+                           f"cudaError {-n}")
+    return n
+
+
+def check_launch(kernel: str, err: int) -> None:
+    """Raise if a launcher returned a cudaError."""
+    if err != 0:
+        raise RuntimeError(f"{kernel}: CUDA launch failed with cudaError "
+                           f"{err}")
+
+
 class FusedDiffMom:
     """Callable wrapper around the CUDA kernels.
 
@@ -150,14 +197,7 @@ class FusedDiffMom:
     def blocks_per_sm(self, dtype, masked: bool) -> int:
         """Resident blocks per SM of one instantiation on the current card
         (the CUDA occupancy calculator's answer)."""
-        fn = self.load().fused_diff_mom_blocks_per_sm
-        fn.argtypes = [ctypes.c_int, ctypes.c_int]
-        fn.restype = ctypes.c_int
-        n = fn(int(dtype == torch.float64), int(masked))
-        if n < 0:
-            raise RuntimeError(f"fused_diff_mom: occupancy query failed "
-                               f"with cudaError {-n}")
-        return n
+        return blocks_per_sm(self.load(), "fused_diff_mom", dtype, masked)
 
     # -- call --------------------------------------------------------------
     def __call__(self, g, grid: Grid, pmasks=None):
@@ -180,27 +220,13 @@ class FusedDiffMom:
     def _launch(self, g, grid: Grid, pmasks=None):
         nx, ny, nz = grid.shape
         dtype = g.u.dtype
-        if dtype not in (torch.float32, torch.float64):
-            raise TypeError(f"fused_diff_mom: unsupported dtype {dtype}")
-        if dtype != grid.torch_dtype:   # the metric vectors come in this type
-            raise ValueError(f"fused_diff_mom: fields are {dtype}, grid "
-                             f"metrics {grid.torch_dtype}")
         cell = (nx + 2, ny + 2, nz + 2)
         inputs = [("u", g.u, cell), ("v", g.v, cell),
                   ("w", g.w, (nx + 2, ny + 2, nz + 1)), ("ekm", g.ekm, cell)]
         if pmasks is not None:
             # pmask_w: x/y-ghosted faces 0..nz plus one top ghost face
             inputs += [(f"pmask_{k}", pmasks[k], cell) for k in "uvw"]
-        for name, t, shape in inputs:
-            if t.device != g.u.device or t.dtype != dtype:
-                raise ValueError(f"fused_diff_mom: {name} is {t.dtype} on "
-                                 f"{t.device}, expected {dtype} on "
-                                 f"{g.u.device}")
-            if tuple(t.shape) != shape:
-                raise ValueError(f"fused_diff_mom: {name} has shape "
-                                 f"{tuple(t.shape)}, expected {shape}")
-            if not t.is_contiguous():
-                raise ValueError(f"fused_diff_mom: {name} is not contiguous")
+        check_inputs("fused_diff_mom", grid, inputs)
         lib = self.load()
         dev = g.u.device
         metrics = [grid.t(name, dev) for name in _METRICS]
@@ -223,9 +249,7 @@ class FusedDiffMom:
                      du.data_ptr(), dv.data_ptr(), dw.data_ptr(),
                      nx, ny, nz, grid.dxi, grid.dyi, grid.dx2i, grid.dy2i,
                      stream)
-        if err != 0:
-            raise RuntimeError(f"fused_diff_mom: CUDA launch failed with "
-                               f"cudaError {err}")
+        check_launch("fused_diff_mom", err)
         if pmasks is None:
             self.launch_count += 1
         else:

@@ -9,10 +9,11 @@ Re-derivations of src/modsubgrid.f90:
     (:540), diffe (:627)
 
 ``diff_u/v/w`` are the plain version of the hand-written CUDA kernel in
-``ops/fused_diff.py`` and the path it takes for CPU tensors.  ``diff_c``
-takes a stack of scalars with a leading axis as one tensor.  udales_tpu's
-``GradPack`` (shared strain primitives) is a TPU layout the port does not
-carry: every function here is the unpacked form.
+``ops/fused_diff.py`` and the path it takes for CPU tensors;
+``vreman_closure`` is that of ``ops/fused_vreman.py``, which ``closure``
+calls.  ``diff_c`` takes a stack of scalars with a leading axis as one
+tensor.  udales_tpu's ``GradPack`` (shared strain primitives) is a TPU
+layout the port does not carry: every function here is the unpacked form.
 """
 from __future__ import annotations
 
@@ -24,6 +25,7 @@ import torch
 from ..config import SGS_DNS, SGS_ONEEQN, SGS_SMAGORINSKY, SGS_VREMAN, \
     Config, const
 from ..grid import Grid
+from . import fused_vreman as fv
 from .stencil import kvec, sh, shw
 
 
@@ -83,6 +85,12 @@ def _gradients(g, grid: Grid):
     return a11, a12, a13, a21, a22, a23, a31, a32, a33
 
 
+def buoycorr(cfg: Config) -> bool:
+    """Whether the Vreman closure applies the stable-stratification
+    correction (modsubgrid.f90:332)."""
+    return cfg.physics.lbuoyancy and cfg.subgrid.lbuoycorr
+
+
 def vreman_closure(g, grid: Grid, cfg: Config, dthvdz=None, thl=None):
     """Vreman (2004) eddy viscosity (modsubgrid.f90:269-360)."""
     nz = grid.ktot
@@ -102,7 +110,7 @@ def vreman_closure(g, grid: Grid, cfg: Config, dthvdz=None, thl=None):
     ekm = torch.where(bb < 1e-8, 0.0, cfg.subgrid.c_vreman * torch.sqrt(
         bb / torch.clamp(aa, min=1e-30)))
 
-    if cfg.physics.lbuoyancy and cfg.subgrid.lbuoycorr:
+    if buoycorr(cfg):
         # stable-stratification correction (modsubgrid.f90:332-354)
         nx, ny, _ = grid.shape
         S = partial(sh, nx=nx, ny=ny, nz=nz, h=1, hk=1)
@@ -209,7 +217,8 @@ def closure(g, grid: Grid, cfg: Config, e12=None, dthvdz=None, thl=None,
     zlt (None but for the one-equation model, which defines it)."""
     model = cfg.subgrid.model
     if model == SGS_VREMAN:
-        ekm, ekh = vreman_closure(g, grid, cfg, dthvdz, thl)
+        # the hand-written kernel on CUDA, vreman_closure on the CPU
+        ekm, ekh = fv.fused_vreman(g, grid, cfg, dthvdz, thl)
         return ekm, ekh, None
     if model == SGS_SMAGORINSKY:
         ekm, ekh = smagorinsky_closure(g, grid, cfg)
