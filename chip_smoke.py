@@ -19,8 +19,7 @@ and the compiled step, a CUDA graph replayed once a step, against the
 eager one on every main path (phases 52-54), and the compiled step of a
 Model split over a 1 x 1 NCCL mesh (phases 55-57).  ``Simulation``, the
 CLI and the validation step with the compiled step (phases 31-34, 49-51,
-57).  Then the bench, ``python -m udales_tpu_torch.bench``, on two of its
-cells (phase 59).
+57).
 Phases, one line each; any failure raises and the script exits non-zero
 without a result line:
 
@@ -237,11 +236,6 @@ without a result line:
      are freed, and a 1 x 1 gloo mesh that stages through the host refuses
      the compiled step on the card (NotImplementedError, printed) and its
      Simulation steps eagerly
- 59. the bench: ``python -m udales_tpu_torch.bench --cell urban_128
-     --cell flat_128 --runs 2`` in a subprocess (its tables printed); its
-     last line parsed: urban 128^3's rate is the headline, each rate
-     finite and positive, 3 launches a step of the cell's variant as
-     counted, the card named
  60. (run after phase 8) the advection kernel (csrc/fused_adv_mom.cu)
      against its plain route advection.adv_mom on the card: the ragged
      shapes on a stretched grid and a 64 x 64 x 128 rank block, float64
@@ -399,14 +393,29 @@ def numpy_state(grid, seed):
 
 
 def max_divergence(model, c):
-    """(max|div u| of the projected velocity, the same over the top level
-    alone): ``udales_tpu_torch.bench.max_divergence`` on the model's grid.
-    Periodic directions wrap; an open x takes its outlet face from the
-    prognostic plane c.bx.u, and the inflow/outflow defect of the mean
-    pressure mode then sits in the top level, which the first number leaves
-    out."""
-    from udales_tpu_torch.bench import max_divergence as divergence
-    return divergence(model.grid, c)
+    """(max|div u| of the projected velocity `c` on the model's grid, the
+    same over the top level alone).  Periodic directions wrap; an open x
+    takes its outlet face from the prognostic plane ``c.bx.u`` (open y from
+    ``c.by.v``), and the inflow/outflow defect of the mean pressure mode
+    then sits in the top level, which the first number leaves out."""
+    grid = model.grid
+    gu = torch.cat([c.u, c.u[:1] if c.bx is None else c.bx.u[None]], dim=0)
+    gv = torch.cat([c.v, c.v[:, :1] if c.by is None else c.by.v[:, None]],
+                   dim=1)
+    dzfi = grid.t("dzfi", c.u.device)
+    div = ((gu[1:] - gu[:-1]) * grid.dxi + (gv[:, 1:] - gv[:, :-1]) * grid.dyi
+           + (c.w[:, :, 1:] - c.w[:, :, :-1]) * dzfi[None, None, :]).abs()
+    top = float(div[:, :, -1].max())
+    if c.bx is None and c.by is None:
+        return float(div.max()), top
+    return float(div[:, :, :-1].max()), top
+
+
+def replay_launches(step):
+    """The hand kernels' launches in one replay of the compiled `step`, by
+    counter name (``fused_diff_mom.launches``, ...)."""
+    return {k: n for k, n in step.per_replay.items()
+            if k.endswith("launches")}
 
 
 def captured_run(model, state, steps):
@@ -934,7 +943,7 @@ def open_boundary_phases(smi, fused, div_bound, pm128):
     import dataclasses
     from udales_tpu_torch import cases
     from udales_tpu_torch.convert import state_from_numpy, state_to_numpy
-    from udales_tpu_torch.ops import subgrid as sgs
+    from udales_tpu_torch.ops import fused_vreman as fv
     from udales_tpu_torch.ops.boundary import make_ghosts
     from udales_tpu_torch.io.driverfiles import read_driver_files
     from udales_tpu_torch.ops.openbc import (driver_window_planes,
@@ -1105,7 +1114,7 @@ def open_boundary_phases(smi, fused, div_bound, pm128):
                      "bx": c.bx}
         masks = model.ibm.masks if model.ibm is not None else None
         th = thermodynamics(c, cfg, grid, masks)
-        ekm, ekh, _ = sgs.closure(
+        ekm, ekh, _ = fv.closure(
             _velocity_ghosts(c, cfg, grid, openx, openy), grid, cfg,
             dthvdz=th.dthvdz, thl=c.thl, thvs=cfg.bc.thls)
         return make_ghosts(c, ekm, ekh, cfg, grid, openx=openx, openy=openy)
@@ -3000,7 +3009,7 @@ def compiled_phases(smi, fused, div_bound, urban, eb32):
             eager=runs["eager"], captured=runs["captured"],
             median_ms=med, speedup=med["eager"] / med["captured"],
             capture_s=step.capture_seconds, graph_pool_gib=pool,
-            launches_per_replay=step.launches_per_replay,
+            replay_launches=replay_launches(step),
             captured_vs_eager=rel, max_div=div, top_div=top, busy=busy)
         ms = lambda w: ", ".join(f"{r['ms_per_step']:.3f}" for r in runs[w])
         phase(52, f"{name} float32 on {smi}, ms/step in turns eager, "
@@ -3012,7 +3021,7 @@ def compiled_phases(smi, fused, div_bound, urban, eb32):
                   f"{runs['captured'][1]['points_per_s']:.6g} points/s "
                   f"captured); launches 3 x {steps} in every run (the "
                   f"{'masked' if model.ibm is not None else 'unmasked'} "
-                  f"variant, {step.launches_per_replay} a replay); capture "
+                  f"variant, {replay_launches(step)} a replay); capture "
                   f"{step.capture_seconds:.3f} s (warm-up step included), "
                   f"its pool and static State {pool:.3f} GiB; peak "
                   f"allocated eager {runs['eager'][0]['peak_mem_gib']:.3f}, "
@@ -3123,7 +3132,7 @@ def split_main_path(name, model, smi, fused, div_bound, one_ms):
                collectives_per_step=runs["captured"][0]["collectives"],
                bytes_per_step=runs["captured"][0]["bytes"],
                per_replay=step.collectives_per_replay,
-               launches_per_replay=step.launches_per_replay,
+               replay_launches=replay_launches(step),
                captured_vs_eager=rel, max_div=div, top_div=top)
     ms = lambda w: ", ".join(f"{r['ms_per_step']:.3f}" for r in runs[w])
     phase(56, f"{name} float32 on mesh 1 x 1 (NCCL) on {smi}, ms/step in "
@@ -3136,7 +3145,7 @@ def split_main_path(name, model, smi, fused, div_bound, one_ms):
               f"step {out['collectives_per_step']:.1f} and "
               f"{out['bytes_per_step']:.0f} in every run, "
               f"{step.collectives_per_replay} a replay; masked launches "
-              f"3 x {steps} in every run ({step.launches_per_replay} a "
+              f"3 x {steps} in every run ({replay_launches(step)} a "
               f"replay); capture {step.capture_seconds:.3f} s (warm-up step "
               f"included), its pool and static State {pool:.3f} GiB; peak "
               f"allocated eager {runs['eager'][0]['peak_mem_gib']:.3f}, "
@@ -3526,52 +3535,6 @@ def cards_mode():
                            f"{failed}")
 
 
-# phase 59's cells of the bench and the kernel variant each runs
-BENCH_CELLS = {"urban_128": "masked", "flat_128": "unmasked"}
-
-
-def bench_phase(smi):
-    """Phase 59: ``python -m udales_tpu_torch.bench --cell urban_128 --cell
-    flat_128 --runs 2`` in a subprocess from the repository's root, as a
-    user runs it.  Its last line is parsed: the headline is urban 128^3's
-    rate, each cell's rate (all its points over all its seconds) is finite
-    and positive with 3 launches a step of its variant as the bench
-    counted them, and the card is named.  Any failure raises.
-    Returns the parsed line."""
-    cmd = [sys.executable, "-m", "udales_tpu_torch.bench", "--runs", "2"]
-    for name in BENCH_CELLS:
-        cmd += ["--cell", name]
-    t0 = time.perf_counter()
-    res = subprocess.run(cmd, cwd=Path(__file__).resolve().parent,
-                         capture_output=True, text=True, timeout=600)
-    for line in res.stdout.splitlines()[:-1]:
-        print("  " + line, flush=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"the bench exited with {res.returncode}: "
-                           f"{res.stderr[-3000:]}")
-    out = json.loads(res.stdout.strip().splitlines()[-1])
-    for name, variant in BENCH_CELLS.items():
-        cell = out["cells"][name]
-        if not (math.isfinite(out[name]) and out[name] > 0
-                and out[name] == cell["points_per_s"]
-                and cell["launches_per_step"] == 3
-                and cell["variant"] == variant):
-            raise RuntimeError(f"the bench's {name}: {cell}")
-    if not (out["metric"] == "rk3_step_urban_ibm_grid_points_per_s_per_chip"
-            and out["value"] == out["urban_128"]
-            and out["device"]["name"] and out["device"]["count"] >= 1):
-        raise RuntimeError(f"the bench's line: {out}")
-    phase(59, f"python -m udales_tpu_torch.bench on {smi} in "
-              f"{time.perf_counter() - t0:.1f} s: " + ", ".join(
-                  f"{k} {out[k]:.6g} points/s (best run "
-                  f"{out['cells'][k]['points_per_s_best']:.6g}, "
-                  f"{out['cells'][k]['ms_per_step']:.4f} ms/step, "
-                  f"{out['cells'][k]['launches_per_step']:g} launches a "
-                  f"step)"
-                  for k in BENCH_CELLS) + f"; device {out['device']}")
-    return out
-
-
 def main():
     # 1. a CUDA device, or nothing
     if not torch.cuda.is_available():
@@ -3837,9 +3800,6 @@ def main():
         "urban_driven_128": cases.stage_urban_driven(128, CACHE,
                                                      dtdriver=0.1)},
         comp, split["_sim48"])
-
-    # 59. the bench, run as its users run it
-    bench_phase(smi)
 
     foreign = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "udales_tpu"))

@@ -46,8 +46,8 @@ import torch
 from chip_smoke import (HBM_BYTES_PER_S, check_kernel, cuda_ms, graph_ms,
                         plain_diff, random_ghosts, random_masks)
 from udales_tpu_torch.grid import Grid
-from udales_tpu_torch.ops.fused_diff import (BUILD_DIR, SOURCE, FusedDiffMom,
-                                            compile_library, least_bytes)
+from udales_tpu_torch.ops.fused_diff import SOURCE, FusedDiffMom, least_bytes
+from udales_tpu_torch.ops.kernel import BUILD_DIR
 
 OUT = Path(__file__).resolve().parent / "chiprun_out"
 
@@ -85,10 +85,6 @@ class Variant(FusedDiffMom):
     def __init__(self, source):
         super().__init__()
         self.source = Path(source)
-
-    def build(self):
-        lib, self.build_log = compile_library(self.source)
-        return lib
 
 
 def rewritten(name, edits, regex=False):

@@ -21,7 +21,7 @@ import numpy as np
 import pytest
 import torch
 
-from udales_tpu_torch import entry, run as trun, trace
+from udales_tpu_torch import entry, run as trun
 from udales_tpu_torch.config import (BC_PROFILE, BCConfig, Config,
                                      DomainConfig, PhysicsConfig, RunConfig,
                                      WallsConfig)
@@ -226,33 +226,6 @@ def test_least_bytes_counts_each_array_once():
                     "<float, true>(float const*, ...)"]
     assert metric.read(ctx) is None      # a program without the kernel
     assert metric.read(dict(ctx, span=None)) is None
-
-
-def test_launches_rolled_back_at_capture_and_added_per_replay():
-    """``fused_adv_mom.launches`` is a counter of the trace: what a
-    captured body launched is taken back at the end of the capture, and
-    each replay adds it again."""
-    kern = FusedAdvMom()
-    kern.launch_count = 4
-    name = "fused_adv_mom.launches"
-    total = trace.snapshot()["counters"][name]
-    mark = trace.REGISTRY.checkpoint()
-    for _ in range(3):           # the substeps' launches during a capture
-        kern.launch_count += 1
-    delta = trace.REGISTRY.take_back(mark)
-    assert kern.launch_count == 4
-    assert trace.snapshot()["counters"][name] == total
-    for _ in range(5):
-        trace.REGISTRY.replay(delta)
-    assert kern.launch_count == 4 + 5 * 3
-    assert trace.snapshot()["counters"][name] == total + 15
-
-
-def test_non_cuda_device_raises():
-    grid = Grid.uniform(4, 4, 4, 4.0, 4.0, 4.0, dtype=np.float64)
-    g, gp = random_inputs((4, 4, 4), seed=1, device="meta")
-    with pytest.raises(ValueError, match="unsupported device"):
-        fused_adv_mom(g, gp, grid, thl=True)
 
 
 # --- on the card ---------------------------------------------------------

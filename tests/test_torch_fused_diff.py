@@ -104,13 +104,6 @@ def test_masked_cpu_path_and_boundary_faces():
     assert torch.all(plain[2][..., -1] == 0)
 
 
-def test_non_cuda_device_raises():
-    grid = Grid.uniform(4, 4, 4, 4.0, 4.0, 4.0, dtype=np.float64)
-    g = torch_ghosts(ghosted_inputs((4, 4, 4), seed=1), device="meta")
-    with pytest.raises(ValueError, match="unsupported device"):
-        fused_diff_mom(g, grid)
-
-
 # --- on the card ---------------------------------------------------------
 
 @pytest.fixture

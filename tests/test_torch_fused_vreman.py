@@ -14,8 +14,6 @@ tests also run where JAX is not installed:
     python -m pytest --noconftest -m cuda tests/test_torch_fused_vreman.py
 """
 import importlib.util
-import subprocess
-import sys
 import types
 from dataclasses import replace
 from pathlib import Path
@@ -25,7 +23,7 @@ import pytest
 import torch
 
 from test_torch_fused_adv import DTYPES, _zf, small_model
-from udales_tpu_torch import run as trun, trace
+from udales_tpu_torch import run as trun
 from udales_tpu_torch.config import (Config, DomainConfig, PhysicsConfig,
                                      SubgridConfig)
 from udales_tpu_torch.grid import Grid
@@ -53,7 +51,7 @@ def vreman_model(kind, dt, buoy, device="cpu"):
 
 
 def closure_calls(model, monkeypatch, seed=3):
-    """Every call `subgrid.closure` makes of the wrapper in one step of
+    """Every call `fused_vreman.closure` makes of the wrapper in one step of
     `model` from a cold start: (g, dthvdz, thl, (ekm, ekh)) each."""
     calls = []
     real = fv.fused_vreman
@@ -128,43 +126,6 @@ def test_least_bytes_counts_each_array_once():
     assert metric.read(dict(ctx, span=None)) is None
 
 
-def test_launches_rolled_back_at_capture_and_added_per_replay():
-    """``fused_vreman.launches`` is a counter of the trace: what a captured
-    body launched is taken back at the end of the capture, and each replay
-    adds it again."""
-    kern = FusedVreman()
-    kern.launch_count = 4
-    name = "fused_vreman.launches"
-    total = trace.snapshot()["counters"][name]
-    mark = trace.REGISTRY.checkpoint()
-    for _ in range(3):           # the closure calls during a capture
-        kern.launch_count += 1
-    delta = trace.REGISTRY.take_back(mark)
-    assert kern.launch_count == 4
-    assert trace.snapshot()["counters"][name] == total
-    for _ in range(5):
-        trace.REGISTRY.replay(delta)
-    assert kern.launch_count == 4 + 5 * 3
-    assert trace.snapshot()["counters"][name] == total + 15
-
-
-@pytest.mark.parametrize("first", ["ops.fused_diff", "ops.fused_adv",
-                                   "ops.fused_vreman", "ops.subgrid"])
-def test_imports_in_any_order(first):
-    """``subgrid`` and the kernels' wrappers import one another; each of
-    them imported first in a fresh interpreter leaves the wrapper and its
-    build flags whole."""
-    code = (f"import udales_tpu_torch.{first}\n"
-            "from udales_tpu_torch.ops import fused_diff, fused_vreman as fv\n"
-            "from udales_tpu_torch.ops import subgrid\n"
-            "assert fv.fused_vreman.launch_count == 0\n"
-            "assert subgrid.fv is fv and fv.sgs is subgrid\n"
-            "assert fused_diff.NVCC_FLAGS and fv.NO_FMA\n")
-    res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
-                         capture_output=True, text=True, timeout=120)
-    assert res.returncode == 0, res.stderr
-
-
 def vreman_config(shape, dt, buoy):
     nx, ny, nz = shape
     return Config(domain=DomainConfig(itot=nx, jtot=ny, ktot=nz,
@@ -187,57 +148,6 @@ def random_inputs(shape, seed, dtype=np.float64, device="cpu"):
         w=t(rng.standard_normal((nx + 2, ny + 2, nz + 1))))
     return (g, t(5.0 * rng.standard_normal(shape)),
             t(288.0 + rng.standard_normal(shape)))
-
-
-def _refusal_inputs():
-    shape = (4, 3, 5)
-    grid = Grid.uniform(*shape, 4.0, 3.0, 5.0, dtype=np.float32)
-    g, dthvdz, thl = random_inputs(shape, seed=6, dtype=np.float32)
-    cell, face = (6, 5, 7), (6, 5, 6)
-    return grid, [("u", g.u, cell), ("v", g.v, cell), ("w", g.w, face),
-                  ("thl", thl, shape), ("dthvdz", dthvdz, shape)]
-
-
-REFUSALS = {
-    "half": (lambda ins: [(n, t.half(), s) for n, t, s in ins], TypeError,
-             "fused_vreman: unsupported dtype torch.float16"),
-    "metrics": (lambda ins: [(n, t.double(), s) for n, t, s in ins],
-                ValueError, "fields are torch.float64, grid metrics"),
-    "missing": (lambda ins: ins[:4] + [("dthvdz", None, ins[4][2])],
-                ValueError, "dthvdz is missing"),
-    "dtype": (lambda ins: ins[:1] + [("v", ins[1][1].double(), ins[1][2])]
-              + ins[2:], ValueError, "v is torch.float64 on cpu"),
-    "device": (lambda ins: ins[:3] + [("thl", ins[3][1].to("meta"),
-                                       ins[3][2])] + ins[4:],
-               ValueError, "thl is torch.float32 on meta"),
-    "shape": (lambda ins: ins[:2] + [("w", ins[0][1], ins[2][2])] + ins[3:],
-              ValueError, r"w has shape \(6, 5, 7\), expected \(6, 5, 6\)"),
-    "layout": (lambda ins: [(n, t.transpose(0, 1).contiguous()
-                             .transpose(0, 1), s) for n, t, s in ins[:1]]
-               + ins[1:], ValueError, "u is not contiguous"),
-}
-
-
-@pytest.mark.parametrize("case", sorted(REFUSALS))
-def test_check_inputs_refuses_what_a_kernel_does_not_take(case):
-    """The wrappers' shared check (``fused_diff.check_inputs``) refuses,
-    before any pointer reaches a kernel, each dtype, device, shape and
-    layout the kernels do not take, naming the kernel and the tensor; what
-    they take passes."""
-    from udales_tpu_torch.ops.fused_diff import check_inputs
-    grid, inputs = _refusal_inputs()
-    check_inputs("fused_vreman", grid, inputs)
-    spoil, exc, match = REFUSALS[case]
-    with pytest.raises(exc, match=match):
-        check_inputs("fused_vreman", grid, spoil(inputs))
-
-
-def test_non_cuda_device_raises():
-    shape = (4, 4, 4)
-    grid = Grid.uniform(*shape, 4.0, 4.0, 4.0, dtype=np.float64)
-    g, dthvdz, thl = random_inputs(shape, seed=1, device="meta")
-    with pytest.raises(ValueError, match="unsupported device"):
-        fused_vreman(g, grid, vreman_config(shape, "f64", True), dthvdz, thl)
 
 
 # --- on the card ---------------------------------------------------------

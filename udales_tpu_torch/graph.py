@@ -7,8 +7,10 @@
 ``copy_into(S, model.step(S))`` with its own memory pool.  A call copies
 the caller's State into ``S`` (unless it is ``S``) and replays the graph
 once: the step's ~2,000-6,500 launches become one, and the arithmetic is
-the eager step's, kernel for kernel.  The hand-written ``fused_diff_mom``
-is three kernel nodes of the graph.
+the eager step's, kernel for kernel.  Each of the three hand-written
+kernels (``ops/kernel.py``) is a kernel node of the graph at each of its
+launches: ``fused_adv_mom`` and ``fused_diff_mom`` three a step, and
+``fused_vreman`` three or four on a Vreman case.
 
 The first call, and a call with a State of another structure (a part that
 is None in one and set in the other, other shapes or dtypes), builds: one
@@ -34,13 +36,15 @@ copy.  Host work between calls (``DriverStream.ensure``, the writers of
 next one, on the same stream.
 
 Every count and byte counter of the run's trace (``trace``: among them
-``fused_diff_mom``'s launch counters and a split Model's ``Mesh.collectives``
+the hand kernels' launch counters and a split Model's ``Mesh.collectives``
 and ``Mesh.bytes``) counts executions: what the capture recorded is taken
 back at the end of the capture, and each replay adds it again, so
 "launches = 3 x steps" and the collectives a step hold for a captured run
-as for an eager one.  The body is a device step of the trace (the leaves of
-``Model.step`` and ``copy``, the copy into ``S``): its events are nodes of
-the graph, so each replay times its leaves on the card (``trace.device_ms``).
+as for an eager one; ``per_replay`` gives what one replay adds, by counter
+name (``per_replay["fused_diff_mom.launches"]``).  The body is a device
+step of the trace (the leaves of ``Model.step`` and ``copy``, the copy into
+``S``): its events are nodes of the graph, so each replay times its leaves
+on the card (``trace.device_ms``).
 A call is the host span ``graph.replay``, a build ``graph.capture``.
 
 A Model split over a mesh (``parallel.mesh``, the counterpart of
@@ -105,13 +109,6 @@ class CompiledStep:
         for _, name, n in self._delta:
             out[name] = out.get(name, 0) + n
         return out
-
-    @property
-    def launches_per_replay(self) -> tuple:
-        """fused_diff_mom's (unmasked, masked) launches in one replay."""
-        pr = self.per_replay
-        return (pr.get("fused_diff_mom.launches", 0),
-                pr.get("fused_diff_mom.masked_launches", 0))
 
     @property
     def collectives_per_replay(self) -> tuple:

@@ -25,7 +25,7 @@ import torch
 
 from .. import trace
 from ..config import const
-from ..ops import subgrid as sgs
+from ..ops import fused_vreman as fv, subgrid as sgs
 from ..ops.thermo import avexy_masked, slab_mean, thermodynamics
 from .ncwriter import NCWriter
 
@@ -117,8 +117,8 @@ def compute_diag(state, grid, cfg, model=None):
                      "by": c.by}
         g = _velocity_ghosts(c, cfg, grid, openx, openy)
         thvs = cfg.bc.thls if cfg.bc.thls > 0 else 288.0
-        ekm, ekh, _ = sgs.closure(g, grid, cfg, e12=c.e12,
-                                  dthvdz=th.dthvdz, thl=c.thl, thvs=thvs)
+        ekm, ekh, _ = fv.closure(g, grid, cfg, e12=c.e12,
+                                 dthvdz=th.dthvdz, thl=c.thl, thvs=thvs)
     else:
         ekm = torch.zeros_like(c.u)
         ekh = torch.zeros_like(c.u)
@@ -347,8 +347,8 @@ class TKEDump(_Sampled):
         # SGS dissipation estimate: ekm * 2 S_ij S_ij from the closure
         g = _velocity_ghosts(c, self.model.cfg, self.grid)
         s2 = sgs._strain2(g, self.grid)
-        ekm, ekh, _ = sgs.closure(g, self.grid, self.model.cfg, e12=c.e12,
-                                  dthvdz=None, thl=c.thl, thvs=288.0)
+        ekm, ekh, _ = fv.closure(g, self.grid, self.model.cfg, e12=c.e12,
+                                 dthvdz=None, thl=c.thl, thvs=288.0)
         eps = av(ekm * 2.0 * s2)
         eps_mol = av(const.numol * 2.0 * s2)
         # SGS flux of resolved KE through w faces: ekm|_w * d(e)/dz

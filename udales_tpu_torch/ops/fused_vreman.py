@@ -2,35 +2,30 @@
 
 The velocity-gradient tensor, Vreman's invariants aa and bb, ekm and ekh
 (with the stable-stratification correction where the case asks for it) in
-one pass over the grid (``udales_tpu_torch/csrc/fused_vreman.cu``).  It
-replaces no Pallas kernel: the closure's ~135 whole-field torch operations
-a call ran at about 1% of its memory bound on the H100.  The source is
-compiled with ``nvcc`` for ``sm_90a``, without FMA contraction, into a
-plain-C shared library on first use (``_build/``, as ``ops/fused_diff.py``
-builds its kernel) and bound with ``ctypes``.
+one pass over the grid (``udales_tpu_torch/csrc/fused_vreman.cu``, built
+and bound by ``ops/kernel.py``, without FMA contraction).  It replaces no
+Pallas kernel: the closure's ~135 whole-field torch operations a call ran
+at about 1% of its memory bound on the H100.
 
 What bounds it is bytes: per point it reads the three ghosted velocities
 and writes ekm and ekh.  The design is ``fused_diff_mom``'s plane ring (the
-source's note has it).
+source's note has it).  The plain route is ``subgrid.vreman_closure``.
 
-For CPU tensors the wrapper returns the plain ``subgrid.vreman_closure``,
-which is also the kernel's reference.  For CUDA tensors it launches the
-kernel or raises: there is no fallback.
+`closure` is ``subgrid.closure`` with its Vreman branch sent through the
+wrapper: the call of the step and of every other caller on the card.
 """
 from __future__ import annotations
-
-import ctypes
-from pathlib import Path
 
 import torch
 
 from .. import trace
-from ..config import Config, const
+from ..config import SGS_VREMAN, Config, const
 from ..grid import Grid
-from . import fused_diff, subgrid as sgs
+from . import subgrid as sgs
+from .kernel import CSRC, NVCC_FLAGS, HandKernel, check_inputs
 
-SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "fused_vreman.cu"
-# added to fused_diff's flags: no FMA contraction, so that each product and
+SOURCE = CSRC / "fused_vreman.cu"
+# added to the shared flags: no FMA contraction, so that each product and
 # sum rounds as the plain route's (the source's note says why)
 NO_FMA = ("--fmad=false",)
 _METRICS = ("dzf_g", "dzhi", "dzfi", "dzfiq", "dzf2")
@@ -50,94 +45,69 @@ def least_bytes(shape, itemsize: int, buoycorr: bool) -> int:
     return itemsize * (reads + 2 * interior)
 
 
-class FusedVreman:
-    """Callable wrapper around the CUDA kernel.
+class FusedVreman(HandKernel):
+    """``fused_vreman(g, grid, cfg, dthvdz=None, thl=None)``: (ekm, ekh) at
+    the cell centres from the h=1 ghosted ``g.u, g.v, g.w``
+    (``run._velocity_ghosts``); the interior `dthvdz` and `thl` are read
+    only where the case applies the buoyancy correction.
 
-    ``launch_count`` counts launches (never the CPU path), so a run can
-    show that every Vreman call went through the kernel.  It is a counter
-    of the run's trace (``fused_vreman.launches``), so a call captured
-    into a CUDA graph counts once per replay (``graph.CompiledStep``).
-    ``build_log`` holds nvcc's output (register and spill report) after
-    the build."""
+    ``launch_count`` counts launches (the trace's
+    ``fused_vreman.launches``)."""
 
+    name = "fused_vreman"
+    source = SOURCE
+    flags = NVCC_FLAGS + NO_FMA
+    signatures = dict.fromkeys(("fused_vreman_f32", "fused_vreman_f64"),
+                               "p" * 13 + "i" * 3 + "d" * 12 + "p")
     launch_count = trace.counter("fused_vreman.launches")
 
-    def __init__(self):
-        self.launch_count = 0
-        self.build_log = ""
-        self._lib = None
-
-    # -- build -------------------------------------------------------------
-    def load(self):
-        """Build if needed, then load the library and declare its entry
-        points."""
-        if self._lib is None:
-            path, self.build_log = fused_diff.compile_library(
-                SOURCE, fused_diff.NVCC_FLAGS + NO_FMA)
-            lib = ctypes.CDLL(str(path))
-            p, i, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-            for fn in (lib.fused_vreman_f32, lib.fused_vreman_f64):
-                fn.argtypes = [p] * 13 + [i] * 3 + [d] * 12 + [p]
-                fn.restype = ctypes.c_int
-            self._lib = lib
-        return self._lib
-
-    def blocks_per_sm(self, dtype, buoy: bool) -> int:
-        """Resident blocks per SM of one instantiation on the current card
-        (the CUDA occupancy calculator's answer)."""
-        return fused_diff.blocks_per_sm(self.load(), "fused_vreman", dtype,
-                                        buoy)
-
-    # -- call --------------------------------------------------------------
-    def __call__(self, g, grid: Grid, cfg: Config, dthvdz=None, thl=None):
-        """(ekm, ekh) at the cell centres from the h=1 ghosted ``g.u, g.v,
-        g.w`` (``run._velocity_ghosts``); the interior `dthvdz` and `thl`
-        are read only where the case applies the buoyancy correction."""
-        dev = g.u.device
-        if dev.type == "cpu":
-            return sgs.vreman_closure(g, grid, cfg, dthvdz, thl)
-        if dev.type != "cuda":
-            raise ValueError(f"fused_vreman: unsupported device {dev}")
-        return self._launch(g, grid, cfg, dthvdz, thl)
-
-    def _launch(self, g, grid: Grid, cfg: Config, dthvdz, thl):
+    def inputs(self, g, grid: Grid, cfg: Config, dthvdz=None, thl=None):
         nx, ny, nz = grid.shape
-        dtype = g.u.dtype
         cell = (nx + 2, ny + 2, nz + 2)
         inputs = [("u", g.u, cell), ("v", g.v, cell),
                   ("w", g.w, (nx + 2, ny + 2, nz + 1))]
-        buoy = sgs.buoycorr(cfg)
-        if buoy:    # the correction reads the interior thl and dthvdz
+        if sgs.buoycorr(cfg):  # the correction reads the interior fields
             inputs += [("thl", thl, grid.shape),
                        ("dthvdz", dthvdz, grid.shape)]
-        fused_diff.check_inputs("fused_vreman", grid, inputs)
-        lib = self.load()
-        dev = g.u.device
-        metrics = [grid.t(name, dev) for name in _METRICS]
+        return inputs
+
+    def plain(self, g, grid: Grid, cfg: Config, dthvdz=None, thl=None):
+        return sgs.vreman_closure(g, grid, cfg, dthvdz, thl)
+
+    def launch(self, g, grid: Grid, cfg: Config, dthvdz=None, thl=None):
+        check_inputs(self.name, grid,
+                     self.inputs(g, grid, cfg, dthvdz, thl))
+        nx, ny, nz = grid.shape
+        dtype, dev = g.u.dtype, g.u.device
+        buoy = sgs.buoycorr(cfg)
+        metrics = [grid.t(m, dev) for m in _METRICS]
         dzh = grid.t("dzh", dev) if buoy else None
         ekm = torch.empty(grid.shape, dtype=dtype, device=dev)
         ekh = torch.empty(grid.shape, dtype=dtype, device=dev)
         sg = cfg.subgrid
-        fn = (lib.fused_vreman_f32 if dtype == torch.float32
-              else lib.fused_vreman_f64)
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
-            err = fn(g.u.data_ptr(), g.v.data_ptr(), g.w.data_ptr(),
-                     thl.data_ptr() if buoy else None,
-                     dthvdz.data_ptr() if buoy else None,
-                     *[m.data_ptr() for m in metrics],
-                     dzh.data_ptr() if buoy else None,
-                     ekm.data_ptr(), ekh.data_ptr(), nx, ny, nz,
-                     grid.dxi, grid.dyi, grid.dxiq, grid.dyiq, grid.dx2,
-                     grid.dy2, sg.c_vreman, 1.0 / sg.prandtl,
-                     const.numol * const.prandtlmoli, const.numol,
-                     const.grav, sg.rigc, stream)
-        fused_diff.check_launch("fused_vreman", err)
+        self.run("fused_vreman", dtype, dev, g.u, g.v, g.w,
+                 thl if buoy else None, dthvdz if buoy else None, *metrics,
+                 dzh, ekm, ekh, nx, ny, nz, grid.dxi, grid.dyi, grid.dxiq,
+                 grid.dyiq, grid.dx2, grid.dy2, sg.c_vreman,
+                 1.0 / sg.prandtl, const.numol * const.prandtlmoli,
+                 const.numol, const.grav, sg.rigc)
         self.launch_count += 1
         return ekm, ekh
 
 
 # The process-wide wrapper: `fused_vreman(g, grid, cfg, dthvdz, thl)` is
-# the call `subgrid.closure` makes, `fused_vreman.launch_count` the counter
-# a run reads.
+# the call `closure` makes, `fused_vreman.launch_count` the counter a run
+# reads.
 fused_vreman = FusedVreman()
+
+
+def closure(g, grid: Grid, cfg: Config, e12=None, dthvdz=None, thl=None,
+            thvs=None):
+    """``subgrid.closure`` (interior ekm, ekh and zlt) with the Vreman
+    model through `fused_vreman`: the kernel on the card, the plain
+    ``vreman_closure`` on the CPU."""
+    if cfg.subgrid.model == SGS_VREMAN:
+        ekm, ekh = fused_vreman(g, grid, cfg, dthvdz, thl)
+        return ekm, ekh, None
+    return sgs.closure(g, grid, cfg, e12=e12, dthvdz=dthvdz, thl=thl,
+                       thvs=thvs)

@@ -10,10 +10,11 @@ Re-derivations of src/modsubgrid.f90:
 
 ``diff_u/v/w`` are the plain version of the hand-written CUDA kernel in
 ``ops/fused_diff.py`` and the path it takes for CPU tensors;
-``vreman_closure`` is that of ``ops/fused_vreman.py``, which ``closure``
-calls.  ``diff_c`` takes a stack of scalars with a leading axis as one
-tensor.  udales_tpu's ``GradPack`` (shared strain primitives) is a TPU
-layout the port does not carry: every function here is the unpacked form.
+``vreman_closure`` is that of ``ops/fused_vreman.py``, whose ``closure``
+is the callers' way to this module's ``closure`` on the card.  ``diff_c``
+takes a stack of scalars with a leading axis as one tensor.  udales_tpu's
+``GradPack`` (shared strain primitives) is a TPU layout the port does not
+carry: every function here is the unpacked form.
 """
 from __future__ import annotations
 
@@ -25,7 +26,6 @@ import torch
 from ..config import SGS_DNS, SGS_ONEEQN, SGS_SMAGORINSKY, SGS_VREMAN, \
     Config, const
 from ..grid import Grid
-from . import fused_vreman as fv
 from .stencil import kvec, sh, shw
 
 
@@ -217,8 +217,7 @@ def closure(g, grid: Grid, cfg: Config, e12=None, dthvdz=None, thl=None,
     zlt (None but for the one-equation model, which defines it)."""
     model = cfg.subgrid.model
     if model == SGS_VREMAN:
-        # the hand-written kernel on CUDA, vreman_closure on the CPU
-        ekm, ekh = fv.fused_vreman(g, grid, cfg, dthvdz, thl)
+        ekm, ekh = vreman_closure(g, grid, cfg, dthvdz, thl)
         return ekm, ekh, None
     if model == SGS_SMAGORINSKY:
         ekm, ekh = smagorinsky_closure(g, grid, cfg)

@@ -10,9 +10,10 @@ with m <- c on the third substep.  `dt` and `timee` stay 0-d device
 tensors and `step` makes no host synchronisation (no `.item()`, no Python
 branch on a tensor) and no host-to-device copy, so `step_jit` captures it
 as one CUDA graph (``graph.CompiledStep``) and ``run(..., graph=True)``
-replays it.  On the card two hand-written kernels do a substep's
-advection leaf (``ops.fused_adv``) and its momentum diffusion
-(``ops.fused_diff``); on the CPU their plain versions run.
+replays it.  On the card hand-written kernels (``ops.kernel``) do a
+substep's advection leaf (``ops.fused_adv``), its Vreman closure
+(``ops.fused_vreman``) and its momentum diffusion (``ops.fused_diff``); on
+the CPU their plain versions run.
 
 With an ``ibm.IBM`` the substep takes the IBM hooks where udales_tpu's does
 (run.py:162-535): masked thermodynamics slab averages, the pmask-folded
@@ -94,6 +95,7 @@ from .ops.forces import (coriolis, fixuinf1, forces, grwdamp, lstend,
                          masscorr_uvol, masscorr_vvol, nudge_top,
                          periodic_eb_corr, shift_profile, shifted_pbcs,
                          sponge_profile)
+from .ops import fused_vreman
 from .ops.fused_adv import fused_adv_mom
 from .ops.fused_diff import fused_diff_mom
 from .ops.halo import pad_edge, pad_periodic_xy, pad_wrap
@@ -339,9 +341,9 @@ class Model:
         thvs = cfg.bc.thls if cfg.bc.thls > 0 else 288.0
         if closure_out is None:
             gvel = _velocity_ghosts(c, cfg, grid, openx, openy)
-            ekm, ekh, zlt = sgs.closure(gvel, grid, cfg, e12=c.e12,
-                                        dthvdz=th.dthvdz, thl=c.thl,
-                                        thvs=thvs)
+            ekm, ekh, zlt = fused_vreman.closure(
+                gvel, grid, cfg, e12=c.e12, dthvdz=th.dthvdz, thl=c.thl,
+                thvs=thvs)
         else:
             ekm, ekh, zlt = closure_out
 
@@ -792,9 +794,9 @@ class Model:
                                     if self.ibm is not None else None)
                 trace.leaf("closure")
                 thvs = cfg.bc.thls if cfg.bc.thls > 0 else 288.0
-                closure_out = sgs.closure(gvel, grid, cfg, e12=state.m.e12,
-                                          dthvdz=th.dthvdz, thl=state.m.thl,
-                                          thvs=thvs)
+                closure_out = fused_vreman.closure(
+                    gvel, grid, cfg, e12=state.m.e12, dthvdz=th.dthvdz,
+                    thl=state.m.thl, thvs=thvs)
                 trace.leaf("new_dt")
                 dt = self.new_dt(state, closure_out[0], closure_out[1])
                 state = state.replace(dt=dt, timee=state.timee + dt)

@@ -627,7 +627,7 @@ class Simulation:
     def _checksim(self, state, nsteps, wall0):
         """Runtime monitor (modchecksim.f90:76-205): Courant number,
         diffusion number, and max divergence."""
-        from .ops import subgrid as sgs
+        from .ops import fused_vreman as fv
         from .ops.thermo import thermodynamics
         from .run import _velocity_ghosts
         grid, cfg = self.view.grid, self.view.cfg
@@ -649,8 +649,8 @@ class Simulation:
                                 self.view.ibm.masks if self.view.ibm else None)
             gvel = _velocity_ghosts(c, cfg, grid)
             thvs = cfg.bc.thls if cfg.bc.thls > 0 else 288.0
-            ekm, ekh, _ = sgs.closure(gvel, grid, cfg, e12=c.e12,
-                                      dthvdz=th.dthvdz, thl=c.thl, thvs=thvs)
+            ekm, ekh, _ = fv.closure(gvel, grid, cfg, e12=c.e12,
+                                     dthvdz=th.dthvdz, thl=c.thl, thvs=thvs)
             coef = grid.t("dzh2i", dev)[:nz] + grid.dx2i + grid.dy2i
             diffnr = torch.maximum(torch.max(ekm * coef),
                                    torch.max(ekh * coef)) * state.dt

@@ -48,7 +48,7 @@ import torch
 
 from udales_tpu_torch import entry
 from udales_tpu_torch.io.restart import warmstart_state, write_state_fortran
-from udales_tpu_torch.ops import subgrid as sgs
+from udales_tpu_torch.ops import fused_vreman as fv
 from udales_tpu_torch.ops.fused_diff import fused_diff_mom
 from udales_tpu_torch.ops.thermo import thermodynamics
 from udales_tpu_torch.run import _velocity_ghosts
@@ -85,7 +85,7 @@ def stress_profile(model, state):
     """Slab-averaged total x-z stress at the interior w-levels zh_1..nz-1
     (validate_abl.py:57-83): resolved <u'w'> in the scheme's cd2 flux form
     minus subgrid ekm (du/dz + dw/dx), ekm with its molecular part
-    (``subgrid.closure``).  Uniform grid."""
+    (``fused_vreman.closure``).  Uniform grid."""
     grid, cfg, c = model.grid, model.cfg, state.c
     u, w = c.u, c.w
     up = u - u.mean(dim=(0, 1))
@@ -97,8 +97,8 @@ def stress_profile(model, state):
     res = (uph * w_u).mean(dim=(0, 1))
     g = _velocity_ghosts(c, cfg, grid)
     th = thermodynamics(c, cfg, grid, None)
-    ekm, _, _ = sgs.closure(g, grid, cfg, e12=c.e12, dthvdz=th.dthvdz,
-                            thl=c.thl, thvs=288.0)
+    ekm, _, _ = fv.closure(g, grid, cfg, e12=c.e12, dthvdz=th.dthvdz,
+                           thl=c.thl, thvs=288.0)
     # the scheme's emom: x-z corner interpolation of ekm to the (u
     # x-position, w-level) point (subgrid.diff_u, uniform grid)
     ekm_u = 0.5 * (ekm + torch.roll(ekm, 1, dims=0))
