@@ -26,8 +26,9 @@ without a result line:
   1. require a CUDA device (no CPU fallback)
   2. card name and power limit (nvidia-smi), torch / CUDA versions
   3. build the kernels from the repository sources (nvcc, sm_90a):
-     fused_diff_mom.cu, fused_adv_mom.cu and fused_vreman.cu, their
-     register and spill reports and resident blocks per SM
+     fused_diff_mom.cu, fused_adv_mom.cu, fused_vreman.cu and
+     fused_ibmnorm.cu, their register and spill reports and resident
+     blocks per SM
   4. unmasked kernel against its plain PyTorch version on the card: a
      sweep of ragged shapes on a stretched grid (float32 and float64), then
      the main paths' shapes 128^3 and 256^3 in float32
@@ -252,6 +253,15 @@ without a result line:
      it, timed as phase 60 times the advection kernel.  Every main path's
      timed run also counts its launches: 3 a step with closed boundaries,
      4 with an open one, none where the closure is not Vreman's
+ 62. (run after phase 61) the ibmnorm kernel (csrc/fused_ibmnorm.cu)
+     against its plain route IBM.ibmnorm_uvw_thl on the card, bit for
+     bit: the ragged shapes on a stretched grid and a 64 x 64 x 128 rank
+     block, float64 and float32, with thl and the liberal correction,
+     with thl alone and without thl, on random masks with an enclosed
+     solid box; then 128^3, 256^3 and 512 x 512 x 128 float32 with thl
+     and the correction, timed as phase 61 times the Vreman kernel.
+     Every main path's timed run with an IBM also counts its launches: 3
+     a step
 The line before the last is a JSON object describing the kernels and the
 main paths; the last line is {"ok": true, "device": {...}}.
 
@@ -455,14 +465,17 @@ def timed_run(model, state, steps, graph, fused, label):
     diffusion kernel's own variant must launch 3 times a step, counted
     across replays, and the other not at all, and the advection kernel 3
     times a step, and the Vreman kernel as often as the step calls the
-    closure (`vreman_calls`).  Returns (numbers, final State)."""
+    closure (`vreman_calls`), and the ibmnorm kernel 3 times a step with
+    an IBM.  Returns (numbers, final State)."""
     from udales_tpu_torch.ops.fused_adv import fused_adv_mom
+    from udales_tpu_torch.ops.fused_ibmnorm import fused_ibmnorm
     from udales_tpu_torch.ops.fused_vreman import fused_vreman
     masked = model.ibm is not None
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     fused.launch_count = fused.masked_launch_count = 0
     fused_adv_mom.launch_count = fused_vreman.launch_count = 0
+    fused_ibmnorm.launch_count = 0
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     t0 = time.perf_counter()
@@ -487,12 +500,17 @@ def timed_run(model, state, steps, graph, fused, label):
         raise RuntimeError(f"{label}: {fused_vreman.launch_count} Vreman "
                            f"kernel launches in {steps} steps, expected "
                            f"{vreman_calls(model) * steps}")
+    if fused_ibmnorm.launch_count != (3 * steps if masked else 0):
+        raise RuntimeError(f"{label}: {fused_ibmnorm.launch_count} ibmnorm "
+                           f"kernel launches in {steps} steps, expected "
+                           f"{3 * steps if masked else 0}")
     ms = start.elapsed_time(end) / steps
     n = model.grid.itot * model.grid.jtot * model.grid.ktot
     return dict(ms_per_step=ms, host_ms_per_step=host,
                 points_per_s=n / (ms * 1e-3), launches=launches,
                 adv_launches=fused_adv_mom.launch_count,
                 vreman_launches=fused_vreman.launch_count,
+                ibmnorm_launches=fused_ibmnorm.launch_count,
                 peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
                 reserved_gib=torch.cuda.memory_reserved() / 2 ** 30), state
 
@@ -760,6 +778,121 @@ def vreman_phase(smi, n=61):
         del g
         torch.cuda.empty_cache()
     return dict(err=err, t128=times[0], t256=times[1], t512=times[2])
+
+
+# the variants of the ibmnorm kernel: ltempeq, and the scheme of thl (cd2:
+# the liberal correction; kappa: none)
+IBMNORM_VARIANTS = {"thl + correction": (True, 2), "thl": (True, 7),
+                    "no thl": (False, 2)}
+
+
+def ibmnorm_inputs(shape, np_dt, ltempeq, iadv_thl, seed, stretch=1.0):
+    """(ibm, c, m, du, dv, dw, dthl, thl_vmean) on the card as the ibmnorm
+    kernel takes them: an IBM of random 0/1 masks with an enclosed solid
+    box and no facet sections, random fields, from a numpy seed."""
+    from udales_tpu_torch.config import (Config, DomainConfig,
+                                         DynamicsConfig, PhysicsConfig)
+    from udales_tpu_torch.grid import Grid
+    from udales_tpu_torch.ibm.ibm import GRIDS, IBM, SecData
+    from udales_tpu_torch.state import Fields
+    nx, ny, nz = shape
+    rng = np.random.default_rng(seed)
+    zf = np.cumsum(stretch ** np.arange(nz)) - 0.5 * stretch ** np.arange(nz)
+    grid = Grid(nx, ny, nz, float(nx), float(ny), zf, dtype=np_dt)
+    cfg = Config(domain=DomainConfig(itot=nx, jtot=ny, ktot=nz,
+                                     xlen=float(nx), ylen=float(ny)),
+                 physics=PhysicsConfig(ltempeq=ltempeq),
+                 dynamics=DynamicsConfig(iadv_thl=iadv_thl),
+                 dtype=np.dtype(np_dt).name)
+    masks = {}
+    for k in GRIDS:
+        m = (rng.uniform(size=(nx, ny, nz + (k == "w"))) > 0.3).astype(
+            np.float32)
+        m[2:7, 3:8, :5] = 0.0
+        masks[k] = m
+    masks["w"][:, :, 0] = 0.0
+    z = np.zeros(0)
+    none = SecData(np.zeros((0, 3), np.int64), z, z, np.zeros(0, np.int64),
+                   z.astype(bool), z.astype(bool))
+    one = np.ones(1)
+    ibm = IBM(cfg, grid, masks, {k: none for k in GRIDS},
+              np.array([[0.0, 0.0, 1.0]]), 0.01 * one, 0.001 * one,
+              295.0 * one, one, device="cuda")
+    t = lambda a: torch.tensor(a, dtype=grid.torch_dtype, device="cuda")
+    face = (nx, ny, nz + 1)
+
+    def fields():
+        return Fields(u=t(rng.standard_normal(shape)),
+                      v=t(rng.standard_normal(shape)),
+                      w=t(rng.standard_normal(face)),
+                      thl=t(290.0 + rng.standard_normal(shape)),
+                      qt=t(np.zeros(shape)), e12=t(np.zeros(shape)),
+                      sv=t(np.zeros((0,) + shape)))
+    c, m = fields(), fields()
+    return (ibm, c, m, t(1e-2 * rng.standard_normal(shape)),
+            t(1e-2 * rng.standard_normal(shape)),
+            t(1e-2 * rng.standard_normal(face)),
+            t(1e-3 * rng.standard_normal(shape)) if ltempeq else None,
+            t(290.25))
+
+
+def same_bits(a, b):
+    """Whether two tensors hold the same bits (a zero's sign included)."""
+    bits = {4: torch.int32, 8: torch.int64}[a.element_size()]
+    return a.shape == b.shape and bool(
+        (a.contiguous().view(bits) == b.contiguous().view(bits)).all())
+
+
+def ibmnorm_phase(smi, n=62):
+    """Phase 62: the ibmnorm kernel against its plain route
+    ``IBM.ibmnorm_uvw_thl`` over the ragged shapes and a rank block, in
+    both dtypes and the three variants, bit for bit; then its time with
+    thl and the correction at 128^3, 256^3 and 512 x 512 x 128 float32 (as
+    `vreman_phase`).  Any miss raises.  Returns dict(shapes, t128, t256,
+    t512)."""
+    from udales_tpu_torch.ops.fused_ibmnorm import fused_ibmnorm, least_bytes
+
+    def check(shape, np_dt, name, stretch):
+        ibm, *args = ibmnorm_inputs(shape, np_dt, *IBMNORM_VARIANTS[name],
+                                    seed=1, stretch=stretch)
+        got = fused_ibmnorm(*args, ibm)
+        torch.cuda.synchronize()
+        ref = ibm.ibmnorm_uvw_thl(*args)
+        for key, a, b in zip(("du", "dv", "dw", "dthl", "m.u", "m.v", "m.w",
+                              "m.thl"), got, ref):
+            if b is None or a is b:
+                continue
+            if not same_bits(a, b):
+                raise RuntimeError(
+                    f"ibmnorm kernel differs from plain in {key} on {shape} "
+                    f"{np.dtype(np_dt).name} {name}: max abs err "
+                    f"{float((a - b).abs().max()):.3e}")
+
+    shapes = RAGGED_SHAPES + [(64, 64, 128)]
+    for shape in shapes:
+        for np_dt in (np.float64, np.float32):
+            for name in IBMNORM_VARIANTS:
+                check(shape, np_dt, name, 1.04)
+    for nx, nz in ((128, 128), (256, 256), (512, 128)):
+        check((nx, nx, nz), np.float32, "thl + correction", 1.0)
+    phase(n, f"ibmnorm kernel vs plain over {len(shapes)} shapes (stretched) "
+             f"in float64 and float32, {len(IBMNORM_VARIANTS)} variants, "
+             f"and 128^3, 256^3, 512 x 512 x 128 float32: bit for bit")
+    times = []
+    for nx, nz in ((128, 128), (256, 256), (512, 128)):
+        ibm, *args = ibmnorm_inputs((nx, nx, nz), np.float32,
+                                    *IBMNORM_VARIANTS["thl + correction"],
+                                    seed=2)
+        times.append(kernel_turns(
+            lambda: fused_ibmnorm(*args, ibm),
+            lambda: ibm.ibmnorm_uvw_thl(*args), ibm.grid,
+            least_bytes(ibm.grid.shape, 4, True, True), smi,
+            f"ibmnorm kernel {nx}x{nx}x{nz} float32 with thl and the "
+            f"correction", "ibmnorm_uvw_thl", n))
+        del ibm, args
+        torch.cuda.empty_cache()
+    return dict(shapes=len(shapes) + 3, t128=times[0], t256=times[1],
+                t512=times[2])
 
 
 def check_kernel(fused, g, grid, pmasks, rtol, label, n):
@@ -3548,6 +3681,7 @@ def main():
     from udales_tpu_torch.grid import Grid
     from udales_tpu_torch.ops.fused_adv import fused_adv_mom
     from udales_tpu_torch.ops.fused_diff import SOURCE, fused_diff_mom
+    from udales_tpu_torch.ops.fused_ibmnorm import fused_ibmnorm
     from udales_tpu_torch.ops.fused_vreman import fused_vreman
     from udales_tpu_torch.run import load_case
     phase(1, f"CUDA device: {torch.cuda.get_device_name(0)}, "
@@ -3600,6 +3734,18 @@ def main():
         f"{fused_vreman.blocks_per_sm(dt, b)}"
         for dt in (torch.float32, torch.float64) for b in (False, True)),
         flush=True)
+    t0 = time.perf_counter()
+    fused_ibmnorm.load()
+    phase(3, f"built fused_ibmnorm.cu for sm_90a (no FMA contraction) in "
+             f"{time.perf_counter() - t0:.2f} s")
+    for line in fused_ibmnorm.build_log.splitlines():
+        if "registers" in line or "spill" in line:
+            print("  " + line.strip(), flush=True)
+    print("  resident blocks per SM: " + ", ".join(
+        f"{'thl + correction' if c else 'thl'} {str(dt)[6:]} "
+        f"{fused_ibmnorm.blocks_per_sm(dt, c)}"
+        for dt in (torch.float32, torch.float64) for c in (False, True)),
+        flush=True)
 
     # 4. kernel against its plain version on the card
     ragged_sweep(fused_diff_mom, masked=False, n=4)
@@ -3649,6 +3795,9 @@ def main():
 
     # 61. the Vreman closure kernel against its plain route, and its time
     vre = vreman_phase(smi)
+
+    # 62. the ibmnorm kernel against its plain route, and its time
+    ibn = ibmnorm_phase(smi)
 
     # 9. stage the urban case (host NumPy preprocessing, no JAX)
     t0 = time.perf_counter()
@@ -3810,6 +3959,14 @@ def main():
     rates = lambda d: {k: d[k] for k in ("ms_per_step", "points_per_s",
                                          "peak_mem_gib")}
     print(json.dumps({"kernels": [
+        {"name": "fused_ibmnorm", "route": "cuda",
+         "source": "udales_tpu_torch/csrc/fused_ibmnorm.cu",
+         "replaces": None, "launches": urb["ibmnorm_launches"],
+         "bit_for_bit": ibn["shapes"], **ibn["t128"], "bound_by": "bytes",
+         "library_ms": None,
+         "launches_urban_driven": drv["driven"]["ibmnorm_launches"],
+         **{f"{k}_256": v for k, v in ibn["t256"].items()},
+         **{f"{k}_512x512x128": v for k, v in ibn["t512"].items()}},
         {"name": "fused_vreman", "route": "cuda",
          "source": "udales_tpu_torch/csrc/fused_vreman.cu",
          "replaces": None, "launches": main["vreman_launches"],

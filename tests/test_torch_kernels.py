@@ -1,12 +1,12 @@
 """The seam of the hand-written kernels (``ops/kernel.py``) under each of its
-three wrappers, on the CPU: the input checks refuse, naming the kernel and
+four wrappers, on the CPU: the input checks refuse, naming the kernel and
 the tensor, what a kernel does not take; a device other than the CPU and
 CUDA raises; the launch counters are taken back at capture and added per
 replay; each launcher's declared ctypes signature is the parameter list of
 its ``extern "C"`` declaration in ``csrc/``; and the modules import in any
 order, the plain layer importing none of them.  The kernels themselves are
 held against their plain routes in tests/test_torch_fused_{diff,adv,
-vreman}.py.
+vreman,ibmnorm}.py.
 """
 import ast
 import re
@@ -25,18 +25,24 @@ from udales_tpu_torch.config import (Config, DomainConfig, PhysicsConfig,
 from udales_tpu_torch.grid import Grid
 from udales_tpu_torch.ops.fused_adv import FusedAdvMom
 from udales_tpu_torch.ops.fused_diff import FusedDiffMom
+from udales_tpu_torch.ops.fused_ibmnorm import FusedIbmnorm
 from udales_tpu_torch.ops.fused_vreman import FusedVreman
 from udales_tpu_torch.ops.kernel import NVCC_FLAGS, check_inputs
+from test_torch_fused_ibmnorm import random_call
 
 REPO = Path(__file__).resolve().parents[1]
-KERNELS = {k.name: k for k in (FusedDiffMom, FusedAdvMom, FusedVreman)}
+KERNELS = {k.name: k for k in (FusedDiffMom, FusedAdvMom, FusedVreman,
+                                FusedIbmnorm)}
+NO_FMA = ("fused_vreman", "fused_ibmnorm")   # built with --fmad=false
 SHAPE = (4, 3, 5)
+DT_NAMES = {np.dtype(np.float32): "f32", np.dtype(np.float64): "f64"}
 
 
 def call_args(name, device="cpu", dtype=np.float32, seed=6):
     """(grid, the arguments of a call of kernel `name` in its variant that
     reads the most tensors: masked diffusion, advection with thl, the
-    Vreman closure with the buoyancy correction) on random inputs."""
+    Vreman closure with the buoyancy correction, ibmnorm with the thl fill
+    and the liberal correction) on random inputs."""
     nx, ny, nz = SHAPE
     grid = Grid.uniform(*SHAPE, 4.0, 3.0, 5.0, dtype=dtype)
     rng = np.random.default_rng(seed)
@@ -52,6 +58,10 @@ def call_args(name, device="cpu", dtype=np.float32, seed=6):
         return grid, (g, grid, {k: mask() for k in "uvw"})
     if name == "fused_adv_mom":
         return grid, (g, t((nx + 2, ny + 2, nz)), grid, True)
+    if name == "fused_ibmnorm":
+        ibm, args = random_call("liberal", DT_NAMES[np.dtype(dtype)],
+                                device=device, seed=seed, shape=SHAPE)
+        return ibm.grid, (*args, ibm)
     cfg = Config(domain=DomainConfig(itot=nx, jtot=ny, ktot=nz,
                                      xlen=float(nx), ylen=float(ny)),
                  physics=PhysicsConfig(ltempeq=True, lbuoyancy=True),
@@ -76,11 +86,13 @@ REFUSALS = {
                ValueError, lambda ins: f"{ins[3][0]} is torch.float32 on "
                                        f"meta"),
     "shape": (lambda ins: ins[:2] + [("w", ins[0][1], ins[2][2])] + ins[3:],
-              ValueError, lambda ins: r"w has shape \(6, 5, 7\), expected "
-                                      r"\(6, 5, 6\)"),
+              ValueError, lambda ins: re.escape(
+                  f"w has shape {tuple(ins[0][1].shape)}, expected "
+                  f"{ins[2][2]}")),
     "layout": (lambda ins: [(n, t.transpose(0, 1).contiguous()
                              .transpose(0, 1), s) for n, t, s in ins[:1]]
-               + ins[1:], ValueError, lambda ins: "u is not contiguous"),
+               + ins[1:], ValueError,
+               lambda ins: f"{re.escape(ins[0][0])} is not contiguous"),
 }
 
 
@@ -113,7 +125,8 @@ COUNTERS = [(FusedDiffMom, "launch_count", "fused_diff_mom.launches"),
             (FusedDiffMom, "masked_launch_count",
              "fused_diff_mom.masked_launches"),
             (FusedAdvMom, "launch_count", "fused_adv_mom.launches"),
-            (FusedVreman, "launch_count", "fused_vreman.launches")]
+            (FusedVreman, "launch_count", "fused_vreman.launches"),
+            (FusedIbmnorm, "launch_count", "fused_ibmnorm.launches")]
 
 
 @pytest.mark.parametrize("cls,attr,counter", COUNTERS,
@@ -162,16 +175,18 @@ def test_signature_is_the_extern_c_declaration(name, entry):
 @pytest.mark.parametrize("name", sorted(KERNELS))
 def test_every_entry_point_is_declared(name):
     """The source exports the declared launchers and the occupancy query,
-    nothing else; the Vreman kernel alone adds to the shared flags."""
+    nothing else; the Vreman and ibmnorm kernels alone add to the shared
+    flags."""
     kern = KERNELS[name]
     assert extern_c(kern.source) == {**kern.signatures,
                                      f"{name}_blocks_per_sm": "ii"}
     assert kern.flags == NVCC_FLAGS + (("--fmad=false",)
-                                       if name == "fused_vreman" else ())
+                                       if name in NO_FMA else ())
 
 
 @pytest.mark.parametrize("first", ["ops.kernel", "ops.fused_diff",
-                                   "ops.fused_adv", "ops.fused_vreman"])
+                                   "ops.fused_adv", "ops.fused_vreman",
+                                   "ops.fused_ibmnorm"])
 def test_imports_in_any_order(first):
     """The seam and each wrapper imported first in a fresh interpreter
     leave every wrapper, its counters and its build flags whole: no import
@@ -179,10 +194,12 @@ def test_imports_in_any_order(first):
     code = (f"import udales_tpu_torch.{first}\n"
             "from udales_tpu_torch.ops import fused_adv, fused_diff, kernel\n"
             "from udales_tpu_torch.ops import fused_vreman as fv\n"
+            "from udales_tpu_torch.ops import fused_ibmnorm as fi\n"
             "assert fv.fused_vreman.launch_count == 0\n"
+            "assert fi.fused_ibmnorm.launch_count == 0\n"
             "assert fused_adv.fused_adv_mom.launch_count == 0\n"
             "assert fused_diff.fused_diff_mom.masked_launch_count == 0\n"
-            "assert kernel.NVCC_FLAGS and fv.NO_FMA\n")
+            "assert kernel.NVCC_FLAGS and fv.NO_FMA and fi.NO_FMA\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
@@ -224,8 +241,9 @@ def test_plain_layer_imports_no_kernel(plain):
     assert "udales_tpu_torch.ops.stencil" in found
     assert not [m for m in found if m.split(".")[-1] == "kernel"
                 or m.split(".")[-1].startswith("fused_")], found
-    assert "udales_tpu_torch.ops.fused_vreman" in port_imports(
-        "udales_tpu_torch.run")
+    run = port_imports("udales_tpu_torch.run")
+    assert {"udales_tpu_torch.ops.fused_vreman",
+            "udales_tpu_torch.ops.fused_ibmnorm"} <= run
 
 
 # --- on the card ---------------------------------------------------------

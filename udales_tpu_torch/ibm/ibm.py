@@ -753,18 +753,41 @@ class IBM:
         their tendencies, fill solid thl, qt and passive-scalar cells (value
         and tendency; all scalars in one pass) and add the cd2 scalar
         advection correction to thl and qt.  Returns the tendencies (du,
-        dv, dw, dthl, dqt, dsv) and the masked `m` fields."""
+        dv, dw, dthl, dqt, dsv) and the masked `m` fields.  It is
+        `ibmnorm_uvw_thl` and then `ibmnorm_finish`."""
+        return self.ibmnorm_finish(
+            c, m, *self.ibmnorm_uvw_thl(c, m, du, dv, dw, dthl, thl_vmean),
+            dqt, dsv)
+
+    def ibmnorm_uvw_thl(self, c, m, du, dv, dw, dthl, thl_vmean):
+        """The part of `ibmnorm` that ``ops/fused_ibmnorm.py``'s kernel
+        does in one pass on the card: the masked velocities and their
+        tendencies and, with ltempeq, the solid fill of thl (value and
+        tendency) and the liberal cd2 correction where the case takes it.
+        Returns (du, dv, dw, dthl, m.u, m.v, m.w, m.thl), the last four
+        new."""
         cfg, M = self.cfg, self.masks
         du, dv, dw = du * M.u, dv * M.v, dw * M.w
-        m_new = replace(m, u=m.u * M.u, v=m.v * M.v, w=m.w * M.w)
+        mu, mv, mw, mthl = m.u * M.u, m.v * M.v, m.w * M.w, m.thl
+        if cfg.physics.ltempeq:
+            mthl, dthl = self.solid_fill(m.thl, dthl, thl_vmean)
+            if cfg.iadv_thl == IADV_CD2 and not cfg.physics.lconservativeibm:
+                dthl = dthl + self.advecc2nd_corr_liberal(c.thl, c)
+        return du, dv, dw, dthl, mu, mv, mw, mthl
+
+    def ibmnorm_finish(self, c, m, du, dv, dw, dthl, mu, mv, mw, mthl,
+                       dqt=None, dsv=None):
+        """The rest of `ibmnorm` after `ibmnorm_uvw_thl`, whose outputs it
+        takes: the conservative cd2 correction of thl, qt and the passive
+        scalars.  Returns what `ibmnorm` returns."""
+        cfg = self.cfg
+        m_new = replace(m, u=mu, v=mv, w=mw, thl=mthl)
         corr = (self.advecc2nd_corr_conservative
                 if cfg.physics.lconservativeibm
                 else self.advecc2nd_corr_liberal)
-        if cfg.physics.ltempeq:
-            thlm, dthl = self.solid_fill(m.thl, dthl, thl_vmean)
-            m_new = replace(m_new, thl=thlm)
-            if cfg.iadv_thl == IADV_CD2:
-                dthl = dthl + corr(c.thl, c)
+        if (cfg.physics.ltempeq and cfg.iadv_thl == IADV_CD2
+                and cfg.physics.lconservativeibm):
+            dthl = dthl + corr(c.thl, c)
         if cfg.physics.lmoist:
             qtm, dqt = self.solid_fill(m.qt, dqt, 0.0)
             m_new = replace(m_new, qt=qtm)

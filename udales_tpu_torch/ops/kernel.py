@@ -6,8 +6,8 @@ return a cudaError, and ``<name>_blocks_per_sm(f64, variant)``.  It is
 compiled with ``nvcc`` for ``sm_90a`` into a shared library on first use
 (into ``_build/`` beside this package) and bound with ``ctypes``.
 `HandKernel` holds what the wrappers share; each wrapper
-(``ops/fused_diff.py``, ``ops/fused_adv.py``, ``ops/fused_vreman.py``)
-keeps what is its own.
+(``ops/fused_diff.py``, ``ops/fused_adv.py``, ``ops/fused_vreman.py``,
+``ops/fused_ibmnorm.py``) keeps what is its own.
 """
 from __future__ import annotations
 

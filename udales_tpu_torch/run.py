@@ -12,8 +12,9 @@ branch on a tensor) and no host-to-device copy, so `step_jit` captures it
 as one CUDA graph (``graph.CompiledStep``) and ``run(..., graph=True)``
 replays it.  On the card hand-written kernels (``ops.kernel``) do a
 substep's advection leaf (``ops.fused_adv``), its Vreman closure
-(``ops.fused_vreman``) and its momentum diffusion (``ops.fused_diff``); on
-the CPU their plain versions run.
+(``ops.fused_vreman``), its momentum diffusion (``ops.fused_diff``) and the
+velocity and thl part of its ibmnorm (``ops.fused_ibmnorm``); on the CPU
+their plain versions run.
 
 With an ``ibm.IBM`` the substep takes the IBM hooks where udales_tpu's does
 (run.py:162-535): masked thermodynamics slab averages, the pmask-folded
@@ -95,7 +96,7 @@ from .ops.forces import (coriolis, fixuinf1, forces, grwdamp, lstend,
                          masscorr_uvol, masscorr_vvol, nudge_top,
                          periodic_eb_corr, shift_profile, shifted_pbcs,
                          sponge_profile)
-from .ops import fused_vreman
+from .ops import fused_ibmnorm, fused_vreman
 from .ops.fused_adv import fused_adv_mom
 from .ops.fused_diff import fused_diff_mom
 from .ops.halo import pad_edge, pad_periodic_xy, pad_wrap
@@ -543,8 +544,8 @@ class Model:
         if ibm is not None:
             dzf = grid.t("dzf", self.device)
             thl_vmean = torch.sum(th.thl0av * dzf) / float(grid.zh[-1])
-            du, dv, dw, dthl, dqt, dsv, m = ibm.ibmnorm(
-                c, m, du, dv, dw, dthl, thl_vmean, dqt, dsv)
+            du, dv, dw, dthl, dqt, dsv, m = fused_ibmnorm.ibmnorm(
+                ibm, c, m, du, dv, dw, dthl, thl_vmean, dqt, dsv)
 
         # --- vegetation canopy forcing (vegetation.f90:351) ----------------
         veg = self.vegetation
