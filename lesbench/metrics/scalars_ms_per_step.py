@@ -1,0 +1,7 @@
+"""scalars_ms_per_step: device ms of the program's ``scalars`` leaves in the last
+replay (``lesbench.program_trace.leaf_ms``); None where the step has none."""
+from lesbench.program_trace import leaf_ms
+
+
+def read(ctx):
+    return leaf_ms(ctx, "scalars")

@@ -3,7 +3,9 @@ udales_tpu (CPU, float64): ``cases.stage_urban_dispersion`` loaded by both
 packages from one directory, 5 adaptive steps from udales_tpu's cold start,
 every State leaf to 1e-8 relative (case (ii) of the long-tail physics; the
 variant with purifiers and heat pumps is in test_torch_physics.py, the
-one-equation variant in test_torch_oneeqn.py).
+one-equation variant in test_torch_oneeqn.py).  The same for the
+benchmark's dispersion configuration (``lesbench/configs/
+urban_cubes_dispersion.json``) cut to 32^3 and staged by the benchmark.
 """
 import pytest
 
@@ -60,3 +62,18 @@ def test_dispersion_steps_match_reference(disp_root, n):
     assert float(sv[2].min()) < cases.O3_BACKGROUND
 
 
+def test_benchmark_dispersion_case_matches_reference(disp_root):
+    """The case of the benchmark's dispersion cell, its configuration cut
+    to 32^3 and staged by ``lesbench.cases``: the port steps it through
+    its scalars, canopy and chem leaves as udales_tpu does, every leaf to
+    1e-8 over 5 steps."""
+    from lesbench import cases as bench_cases
+    from lesbench.tests.lesbench_small import small_config
+    cfg = small_config("urban_cubes_dispersion", 32)
+    case = bench_cases.case_dir(cfg, disp_root / "bench")
+    jm, tm = staged_pair(case)
+    assert tm.vegetation.has_canopy and tm.scalsources is not None
+    assert tm.cfg.chem.lchem and tm.cfg.scalars.nsv == 3
+    tst = five_case_steps(jm, tm)
+    assert tm.field_substeps == 5 * 3 * 3 and tm.chem_updates == 5
+    assert float(tst.c.sv[0].max()) > 0.1

@@ -113,6 +113,52 @@ def test_chem_conserves_nox_and_photolyses():
     assert float(out[1].max()) < 1.0
 
 
+def _cell_species(seed):
+    """Float32 NO, NO2, O3 over the dispersion cell's range (NO up to the
+    stack's strength 5, NO2 up to 0.5, O3 up to its background 80)."""
+    gen = torch.Generator().manual_seed(seed)
+    sv = torch.rand((3, 32, 24, 16), generator=gen, dtype=torch.float64)
+    return (sv * torch.tensor([5.0, 0.5, 80.0], dtype=torch.float64)
+            [:, None, None, None]).float()
+
+
+@pytest.mark.parametrize("dt", [0.05, 0.5])
+def test_chem_update_float32_within_ulps_of_float64(dt):
+    """In float32 (dt up to the cell's dtmax 0.5 s) each species lands
+    within 3 ulp of the float64 update of the same float32 fields, and O3,
+    the largest, within 1 ulp: ``sv + M d`` rounds the sum once, where
+    ``M (sv / M + d)`` reads ~2 ulp on O3 here."""
+    cfg = cfg_with(chem=CHEM)
+    sv = _cell_species(0)
+    mask = (torch.rand(sv.shape[1:], generator=torch.Generator()
+                       .manual_seed(1)) > 0.1).float()
+    got = tphys.chem_update(sv, dt, cfg, mask).double()
+    want = tphys.chem_update(sv.double(), dt, cfg, mask.double())
+    ulp = torch.as_tensor(np.spacing(want.float().abs().numpy()),
+                          dtype=torch.float64)
+    err = ((got - want).abs() / ulp).amax(dim=(1, 2, 3))
+    assert float(err.max()) <= 3.0, err
+    assert float(err[2]) <= 1.0, err
+    assert torch.equal(got[:, mask == 0], sv.double()[:, mask == 0])
+
+
+@pytest.mark.parametrize("dt", [0.05, 0.5, 5.0])
+def test_chem_update_float32_keeps_moles(dt):
+    """In float32, NO + NO2 and NO2 + O3 (moles, summed in float64) keep
+    their totals to float32 rounding: within 2^-23 of the total."""
+    cfg = cfg_with(chem=CHEM)
+    sv = _cell_species(2).double()
+    out = tphys.chem_update(sv.float(), dt, cfg, 1.0).double()
+    molar = lambda s: (s[0] / tphys.M_NO, s[1] / tphys.M_NO2,
+                       s[2] / tphys.M_O3)
+    before, after = molar(sv), molar(out)
+    for a, b in ((0, 1), (1, 2)):
+        total = before[a] + before[b]
+        drift = ((after[a] + after[b] - total) / total).abs().max()
+        assert float(drift) <= 2.0 ** -23, (a, b, float(drift))
+    assert float((out - sv).abs().max()) > 0
+
+
 # --- scalar sources ----------------------------------------------------------
 
 POINTS = [np.array([[4.0, 3.0, 2.0, 2.5, 0.8], [9.5, 7.0, 4.5, 1.0, 1.2]]),

@@ -1,15 +1,18 @@
 """The run's own trace (``udales_tpu_torch/trace.py``) and the benchmark's
 readers of it (``lesbench/program_trace.py``, ``lesbench/metrics/``).
 
-On the CPU: the leaves of one ``Model.step`` on the 16^3 urban and driven
-cases, each once per substep, in order, under its substep; spans open
+On the CPU: the leaves of one ``Model.step`` on the 16^3 urban, driven and
+dispersion cases, each once per substep, in order, under its substep (the
+dispersion case's scalars, canopy and chem leaves, which the others lack);
+the scalar stack's counters under a capture and its replays; spans open
 ``record_function`` only under an active profiler, and then under their
 paths; a compiled run counts as an eager one; the writers' bytes; each new
 metric's arithmetic on a synthetic registry, and None where it has nothing
-to read.  The test marked ``cuda`` holds the leaves of a captured 32^3
+to read.  The tests marked ``cuda`` hold the leaves of a captured 32^3
 urban replay, timed by the graph's own event nodes, to the step's event
-span and to CUDA events around the replay; it skips without a card.  On
-the card's machine:
+span and to CUDA events around the replay, and a captured dispersion
+replay's leaves and counters; they skip without a card.  On the card's
+machine:
 
     python -m pytest --noconftest -m cuda tests/test_torch_trace.py
 """
@@ -31,6 +34,16 @@ SUBSTEP = ["thermo", "openbc", "closure", "ghosts", "advection", "diffusion",
            "forces", "wallfun", "ibmnorm", "poisson", "integrate"]
 LEAVES = ([f"entry/{x}" for x in ENTRY]
           + [f"rk{k}/{x}" for k in (1, 2, 3) for x in SUBSTEP] + ["eb"])
+# with scalars, trees and chemistry: the scalar stack after advection, the
+# canopy after ibmnorm, the chemistry last in the third substep
+SCALAR_SUBSTEP = [y for x in SUBSTEP for y in
+                  {"advection": [x, "scalars"], "ibmnorm": [x, "canopy"]}
+                  .get(x, [x])]
+DISPERSION_LEAVES = ([f"entry/{x}" for x in ENTRY]
+                     + [f"rk{k}/{x}" for k in (1, 2, 3)
+                        for x in SCALAR_SUBSTEP] + ["rk3/chem", "eb"])
+CASE_LEAVES = {"urban": LEAVES, "driven": LEAVES,
+               "dispersion": DISPERSION_LEAVES}
 
 
 @pytest.fixture(scope="module")
@@ -38,7 +51,8 @@ def staged(tmp_path_factory):
     root = tmp_path_factory.mktemp("trace")
     return dict(urban=cases.stage_urban(N, root),
                 driven=cases.stage_urban_driven(N, root, nt=40, chunk=6,
-                                                dtdriver=0.05))
+                                                dtdriver=0.05),
+                dispersion=cases.stage_urban_dispersion(N, root))
 
 
 @pytest.fixture
@@ -52,18 +66,25 @@ def _model(staged, name, dtype="float64"):
     return load_case(staged[name], "900", dtype, device="cpu")
 
 
-@pytest.mark.parametrize("name", ["urban", "driven"])
+@pytest.mark.parametrize("name", ["urban", "driven", "dispersion"])
 def test_step_leaves_in_order(staged, fresh, name):
     """One ``Model.step``: the timeline is the leaves of the step entry,
-    each substep's in order and eb; each leaf is a host span once, under
-    its substep (``model.step/rk2/poisson``), and the substeps once under
-    the step."""
+    each substep's in order and eb, so that they partition the step; each
+    leaf is a host span once, under its substep
+    (``model.step/rk2/poisson``), and the substeps once under the step.
+    The scalars, canopy and chem leaves are the dispersion case's alone:
+    the urban and driven paths keep the leaves they had."""
     model = _model(staged, name)
     state = model.cold_start(seed=3)
     if model.driver_stream is not None:
         state = model.driver_stream.ensure(state)
     model.step(state)
+    LEAVES = CASE_LEAVES[name]
     assert trace.timeline() == LEAVES
+    own = {x.rsplit("/", 1)[-1] for x in LEAVES} & {"scalars", "canopy",
+                                                     "chem"}
+    assert own == (set() if name != "dispersion"
+                   else {"scalars", "canopy", "chem"})
     spans = trace.snapshot()["spans"]
     assert spans["model.step"]["count"] == 1
     for k in (1, 2, 3):
@@ -143,6 +164,44 @@ def test_capture_is_taken_back_and_replayed(fresh):
     trace.reset()
     assert obj.launches == 0 and trace.snapshot()["counters"][
         "test.launches"] == 0
+
+
+def test_scalar_counters_taken_back_at_capture_and_added_per_replay(
+        staged, fresh):
+    """``scalars.field_substeps`` (nsv a substep) and ``chem.updates`` (one
+    a step): a dispersion step recorded between the capture's checkpoint
+    and its end adds 3 nsv = 9 and 1, which the end takes back and each
+    replay adds again; a compiled run counts them as an eager one; an
+    urban step counts neither."""
+    model = _model(staged, "dispersion")
+    state = model.cold_start(seed=3)
+    assert state.c.sv.shape[0] == 3
+    mark = trace.REGISTRY.checkpoint()
+    model.step(state)
+    delta = trace.REGISTRY.take_back(mark)
+    added = {name: n for _, name, n in delta}
+    assert added["scalars.field_substeps"] == 9
+    assert added["chem.updates"] == 1
+    counters = trace.snapshot()["counters"]
+    assert counters.get("scalars.field_substeps", 0) == 0
+    assert counters.get("chem.updates", 0) == 0
+    for _ in range(4):
+        trace.REGISTRY.replay(delta)
+    counters = trace.snapshot()["counters"]
+    assert counters["scalars.field_substeps"] == 4 * 9
+    assert counters["chem.updates"] == 4
+    for graph in (False, True):
+        trace.reset()
+        model.run(state, 3, graph=graph)
+        counters = trace.snapshot()["counters"]
+        assert counters["scalars.field_substeps"] == 3 * 9, graph
+        assert counters["chem.updates"] == 3, graph
+    trace.reset()
+    urban = _model(staged, "urban")
+    urban.step(urban.cold_start(seed=3))
+    counters = trace.snapshot()["counters"]
+    assert counters.get("scalars.field_substeps", 0) == 0
+    assert counters.get("chem.updates", 0) == 0
 
 
 def test_compiled_run_counts_as_eager(staged, fresh):
@@ -321,4 +380,33 @@ def test_replayed_leaves_time_the_step(cuda, tmp_path):
     torch.cuda.empty_cache()
     again = trace.device_ms()
     assert again["step"] == pytest.approx(dev["step"])
+    trace.reset()
+
+
+@pytest.mark.cuda
+def test_replayed_dispersion_leaves_and_counters(cuda, tmp_path):
+    """A captured 32^3 dispersion step on the card: its timeline has the
+    scalars, canopy and chem leaves, which sum with the others to within
+    2% of the step's event span, each read above 0; one replay adds 9
+    scalar field substeps and 1 chemistry update, and a compiled run of 4
+    steps counts 36 and 4, as an eager one does."""
+    trace.reset()
+    model = load_case(cases.stage_urban_dispersion(32, tmp_path), "900",
+                      "float32", device="cuda")
+    state = model.run(model.cold_start(seed=7), 4, graph=True)
+    counters = trace.snapshot()["counters"]
+    assert counters["scalars.field_substeps"] == 4 * 9
+    assert counters["chem.updates"] == 4
+    step = model.step_jit()
+    assert step.per_replay["scalars.field_substeps"] == 9
+    assert step.per_replay["chem.updates"] == 1
+    dev = trace.device_ms()
+    assert list(dev["leaves"]) == DISPERSION_LEAVES + ["copy"]
+    total = sum(dev["leaves"].values())
+    assert abs(total - dev["step"]) <= 0.02 * dev["step"]
+    for name in ("rk1/scalars", "rk2/canopy", "rk3/chem"):
+        assert dev["leaves"][name] > 0, name
+    del model, step, state
+    gc.collect()
+    torch.cuda.empty_cache()
     trace.reset()

@@ -754,10 +754,12 @@ class IBM:
         and tendency; all scalars in one pass) and add the cd2 scalar
         advection correction to thl and qt.  Returns the tendencies (du,
         dv, dw, dthl, dqt, dsv) and the masked `m` fields.  It is
-        `ibmnorm_uvw_thl` and then `ibmnorm_finish`."""
-        return self.ibmnorm_finish(
+        `ibmnorm_uvw_thl`, `ibmnorm_finish` and then `fill_scalars`."""
+        du, dv, dw, dthl, dqt, m_new = self.ibmnorm_finish(
             c, m, *self.ibmnorm_uvw_thl(c, m, du, dv, dw, dthl, thl_vmean),
-            dqt, dsv)
+            dqt)
+        m_new, dsv = self.fill_scalars(m_new, dsv)
+        return du, dv, dw, dthl, dqt, dsv, m_new
 
     def ibmnorm_uvw_thl(self, c, m, du, dv, dw, dthl, thl_vmean):
         """The part of `ibmnorm` that ``ops/fused_ibmnorm.py``'s kernel
@@ -776,10 +778,10 @@ class IBM:
         return du, dv, dw, dthl, mu, mv, mw, mthl
 
     def ibmnorm_finish(self, c, m, du, dv, dw, dthl, mu, mv, mw, mthl,
-                       dqt=None, dsv=None):
-        """The rest of `ibmnorm` after `ibmnorm_uvw_thl`, whose outputs it
-        takes: the conservative cd2 correction of thl, qt and the passive
-        scalars.  Returns what `ibmnorm` returns."""
+                       dqt=None):
+        """The part of `ibmnorm` after `ibmnorm_uvw_thl`, whose outputs it
+        takes, and before `fill_scalars`: the conservative cd2 correction of
+        thl, and qt.  Returns (du, dv, dw, dthl, dqt, the masked `m`)."""
         cfg = self.cfg
         m_new = replace(m, u=mu, v=mv, w=mw, thl=mthl)
         corr = (self.advecc2nd_corr_conservative
@@ -792,10 +794,17 @@ class IBM:
             qtm, dqt = self.solid_fill(m.qt, dqt, 0.0)
             m_new = replace(m_new, qt=qtm)
             dqt = dqt + corr(c.qt, c)
-        if dsv is not None and dsv.shape[0] > 0:
-            svm, dsv = self.solid_fill(m.sv, dsv, 0.0)
-            m_new = replace(m_new, sv=svm)
-        return du, dv, dw, dthl, dqt, dsv, m_new
+        return du, dv, dw, dthl, dqt, m_new
+
+    def fill_scalars(self, m, dsv):
+        """The last part of `ibmnorm`: the solid fill of the passive
+        scalars, value and tendency, all of them in one pass (the substep
+        runs it in its ``canopy`` leaf).  Returns (`m` with the filled
+        ``sv``, the filled `dsv`); without scalars both as given."""
+        if dsv is None or dsv.shape[0] == 0:
+            return m, dsv
+        svm, dsv = self.solid_fill(m.sv, dsv, 0.0)
+        return replace(m, sv=svm), dsv
 
     def solid_fill(self, var, rhs, val):
         """`solid` (modibm.f90:748-826): solid cells take the average of

@@ -17,8 +17,9 @@ and on a rank of a split (``ibm.mesh``) it reads the scalar fields with the
 one-cell ring of the mesh's exchange, stacked into one.
 
 `ibmnorm` is ``IBM.ibmnorm`` with that part sent through the wrapper: the
-call of the substep.  The conservative correction, qt and the passive
-scalars stay on the torch route (``IBM.ibmnorm_finish``).
+call of the substep.  The conservative correction and qt stay on the torch
+route (``IBM.ibmnorm_finish``), and so does the passive scalars' fill
+(``IBM.fill_scalars``), which the substep runs in its own leaf.
 """
 from __future__ import annotations
 
@@ -142,7 +143,9 @@ def ibmnorm(ibm, c, m, du, dv, dw, dthl, thl_vmean, dqt=None, dsv=None):
     """``ibm.ibmnorm`` with its velocity and thl part through
     `fused_ibmnorm`: the kernel on the card, the plain
     ``ibm.ibmnorm_uvw_thl`` on the CPU; the rest on the torch route
-    (``ibm.ibmnorm_finish``).  Returns what ``IBM.ibmnorm`` returns."""
-    return ibm.ibmnorm_finish(
-        c, m, *fused_ibmnorm(c, m, du, dv, dw, dthl, thl_vmean, ibm),
-        dqt, dsv)
+    (``ibm.ibmnorm_finish``, ``ibm.fill_scalars``).  Returns what
+    ``IBM.ibmnorm`` returns."""
+    du, dv, dw, dthl, dqt, m = ibm.ibmnorm_finish(
+        c, m, *fused_ibmnorm(c, m, du, dv, dw, dthl, thl_vmean, ibm), dqt)
+    m, dsv = ibm.fill_scalars(m, dsv)
+    return du, dv, dw, dthl, dqt, dsv, m

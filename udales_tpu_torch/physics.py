@@ -45,7 +45,13 @@ def chem_update(sv, dt, cfg: Config, IIc):
     """Fully implicit backward-Euler NO-NO2-O3 null cycle applied once per
     full step (modchem.f90:29-77).  `sv` is (nsv >= 3, nx, ny, nz), `dt` a
     number or a 0-d tensor, `IIc` the fluid mask (or ones).  Returns a new
-    tensor; scalars past the third pass through."""
+    tensor; scalars past the third pass through.
+
+    The molar change `d` is added in mass units, ``sv + M d``: the same
+    update as modchem's ``M (sv / M + d)``, which rounds sv three times a
+    step, and on the card divides by M as a multiply by its rounded
+    reciprocal, an error of one sign at every point; ``sv + M d`` rounds
+    the sum once."""
     k1 = cfg.chem.k1
     JNO2 = cfg.chem.JNO2
     no = IIc * sv[0] / M_NO
@@ -54,9 +60,9 @@ def chem_update(sv, dt, cfg: Config, IIc):
     num = dt * (-k1 * no * o3 + JNO2 * no2)
     den = 1.0 + ((no + o3) * k1 + JNO2) * dt
     d = num / den
-    return torch.cat([(M_NO * (sv[0] / M_NO + d))[None],
-                      (M_NO2 * (sv[1] / M_NO2 - d))[None],
-                      (M_O3 * (sv[2] / M_O3 + d))[None], sv[3:]])
+    return torch.cat([(sv[0] + M_NO * d)[None],
+                      (sv[1] - M_NO2 * d)[None],
+                      (sv[2] + M_O3 * d)[None], sv[3:]])
 
 
 # ---------------------------------------------------------------------------

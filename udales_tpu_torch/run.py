@@ -162,7 +162,15 @@ class Model:
     (`load_case` reads them; see also ``convert.load_profiles``).  With a
     `mesh` (``parallel.mesh.Mesh``) the Model steps this rank's block of the
     whole-domain `grid` (``domain_grid``), held in ``grid``; its `ibm` is
-    then the block's (``IBM.load(..., mesh=mesh)``)."""
+    then the block's (``IBM.load(..., mesh=mesh)``).
+
+    ``field_substeps`` counts the scalar fields a substep advects and
+    diffuses (nsv each substep; the trace's ``scalars.field_substeps``) and
+    ``chem_updates`` the chemistry's updates (one a step with ``lchem``;
+    ``chem.updates``)."""
+
+    field_substeps = trace.counter("scalars.field_substeps")
+    chem_updates = trace.counter("chem.updates")
 
     def __init__(self, cfg: Config, grid: Grid, ibm=None, device="cuda",
                  mesh=None):
@@ -204,6 +212,9 @@ class Model:
                                  and codes & {"tx", "ty", "tz", "hf"})
         self._nudge_prof = None
         self._step_jit = None    # graph.CompiledStep, built by step_jit()
+        # held in the registry from here, so that a capture finds them
+        self.field_substeps = 0
+        self.chem_updates = 0
         self.pois = PoissonSolver(grid, cfg, device=self.device, mesh=mesh)
         nz = grid.ktot
         kw = dict(dtype=grid.torch_dtype, device=self.device)
@@ -292,11 +303,16 @@ class Model:
         rk3step == 1, where c == m.  In the run's trace it is the span
         ``rk<rk3step>`` of the leaves thermo, openbc, closure, ghosts,
         advection (with the pressure-gradient terms and the shifted periodic
-        boundaries), diffusion, forces, wallfun, ibmnorm (with the
-        free-stream controllers and the volume-flow correction before it and
-        the canopy, heat pumps and scalar sources after it), poisson and
-        integrate (purifiers, the RK3 update, the inlet and outlet planes,
-        chemistry)."""
+        boundaries), scalars, diffusion, forces, wallfun, ibmnorm (with the
+        free-stream controllers and the volume-flow correction before it),
+        canopy, poisson, integrate (purifiers, the RK3 update, the inlet and
+        outlet planes) and chem.  Three are opened only where they hold
+        work, so that a case without it keeps the leaves and graph nodes it
+        had: scalars (the kappa advection and diffusion of the scalars)
+        where there are scalars; canopy (their solid fill, the trees, the
+        heat pumps, the scalar sources and the ``dw`` floor, which are
+        otherwise ibmnorm's) where there are scalars or trees; chem
+        (``chem_update``) on the third substep with ``lchem``."""
         with trace.span(f"rk{rk3step}"):
             return self._substep(state, rk3step, th, closure_out)
 
@@ -365,8 +381,6 @@ class Model:
                                  g, grid)
         dqt = adv.adv_c2(g.qt, g, grid) if lmoist else None
         de12 = adv.adv_c2(g.e12, g, grid) if oneeqn else None
-        # every scalar at once: g.sv is (nsv, ...) in the kappa layout
-        dsv = adv.adv_kappa(g.sv, g, grid) if nsv > 0 else c.sv
 
         # --- shifted periodic BCs (modforces.f90:953, after advection) -----
         if cfg.physics.ds > 0:
@@ -374,24 +388,32 @@ class Model:
                                       cfg.physics.ds, vsx=self.shift)
             du, dv, dw = du + su, dv + sv, dw + sw
 
-        # --- subgrid diffusion: the hand-written kernel on CUDA ------------
         # the IBM diffusion corrections (diffu_corr..diffc_corr) are folded
         # into the sweeps as {0,1} flux masks, as in udales_tpu
-        trace.leaf("diffusion")
         pmasks = Mc = None
         if ibm is not None:
             pmasks = dict(u=ibm.pmask_u, v=ibm.pmask_v, w=ibm.pmask_w)
             Mc = ibm.pmask_c
+
+        # --- the scalar stack: kappa advection and subgrid diffusion of
+        # every scalar at once (g.sv is (nsv, ...) in the kappa layout) -----
+        dsv = c.sv
+        if nsv > 0:
+            trace.leaf("scalars")
+            self.field_substeps += nsv
+            dsv = adv.adv_kappa(g.sv, g, grid)
+            # the h=1 view of the kappa-ghosted stack
+            dsv = dsv + sgs.diff_c(g.sv[:, 1:-1, 1:-1, 1:-1], g.ekh, grid,
+                                   M=Mc)
+
+        # --- subgrid diffusion: the hand-written kernel on CUDA ------------
+        trace.leaf("diffusion")
         xu, xv, xw = fused_diff_mom(g, grid, pmasks=pmasks)
         du, dv, dw = du + xu, dv + xv, dw + xw
         if ltemp:
             dthl = dthl + sgs.diff_c(g.thl, g.ekh, grid, M=Mc)
         if lmoist:
             dqt = dqt + sgs.diff_c(g.qt, g.ekh, grid, M=Mc)
-        if nsv > 0:
-            # the h=1 view of the kappa-ghosted stack
-            dsv = dsv + sgs.diff_c(g.sv[:, 1:-1, 1:-1, 1:-1], g.ekh, grid,
-                                   M=Mc)
         if oneeqn:
             de12 = de12 + sgs.diff_e(g, grid)
             de12 = de12 + sgs.tke_sources(g, grid, cfg, c.e12, ekm, ekh,
@@ -540,16 +562,24 @@ class Model:
         if cfg.physics.lvvolflowr and openx is None and openy is None:
             dv = masscorr_vvol(dv, m.v, grid, cfg, rk3coef, IIv)
 
-        # --- IBM: zero solid velocities, fill solid thl (ibmnorm) ----------
+        # --- IBM: zero solid velocities, fill solid thl and qt (ibmnorm) ---
         if ibm is not None:
             dzf = grid.t("dzf", self.device)
             thl_vmean = torch.sum(th.thl0av * dzf) / float(grid.zh[-1])
-            du, dv, dw, dthl, dqt, dsv, m = fused_ibmnorm.ibmnorm(
-                ibm, c, m, du, dv, dw, dthl, thl_vmean, dqt, dsv)
+            du, dv, dw, dthl, dqt, _, m = fused_ibmnorm.ibmnorm(
+                ibm, c, m, du, dv, dw, dthl, thl_vmean, dqt)
+
+        # --- the canopy: the scalars' solid fill (ibmnorm's, before the
+        # trees read m), the trees, the heat pumps, the sources --------------
+        veg = self.vegetation
+        trees = veg is not None and veg.has_canopy
+        if nsv > 0 or trees:
+            trace.leaf("canopy")
+        if ibm is not None:
+            m, dsv = ibm.fill_scalars(m, dsv)
 
         # --- vegetation canopy forcing (vegetation.f90:351) ----------------
-        veg = self.vegetation
-        if veg is not None and veg.has_canopy:
+        if trees:
             du, dv, dw, dthl, dqt, dsv = veg.forcing(m, grid, cfg, du, dv, dw,
                                                      dthl, dqt, dsv)
 
@@ -635,6 +665,8 @@ class Model:
         # chemistry once per full step on the updated scalars
         # (modtstep.f90:236-238, modchem.f90); the fluid mask of an IBM case
         if cfg.chem.lchem and rk3step == 3 and nsv >= 3:
+            trace.leaf("chem")
+            self.chem_updates += 1
             c_new = replace(c_new, sv=chem_update(
                 c_new.sv, state.dt, cfg,
                 ibm.masks.c if ibm is not None else 1.0))
