@@ -26,9 +26,9 @@ without a result line:
   1. require a CUDA device (no CPU fallback)
   2. card name and power limit (nvidia-smi), torch / CUDA versions
   3. build the kernels from the repository sources (nvcc, sm_90a):
-     fused_diff_mom.cu, fused_adv_mom.cu, fused_vreman.cu and
-     fused_ibmnorm.cu, their register and spill reports and resident
-     blocks per SM
+     fused_diff_mom.cu, fused_adv_mom.cu, fused_vreman.cu,
+     fused_ibmnorm.cu and fused_scalars.cu, their register and spill
+     reports and resident blocks per SM
   4. unmasked kernel against its plain PyTorch version on the card: a
      sweep of ragged shapes on a stretched grid (float32 and float64), then
      the main paths' shapes 128^3 and 256^3 in float32
@@ -262,6 +262,14 @@ without a result line:
      and the correction, timed as phase 61 times the Vreman kernel.
      Every main path's timed run with an IBM also counts its launches: 3
      a step
+ 63. (run after phase 62) the scalar-stack kernel (csrc/fused_scalars.cu)
+     against its plain route fused_scalars.plain_scalars on the card, bit
+     for bit: the ragged shapes on a stretched grid and a 64 x 64 x 128
+     rank block, float64 and float32, one and three scalars, with and
+     without the c mask; then 128^3 and 512 x 512 x 128 float32 with three
+     scalars and the mask, timed as phase 62 times the ibmnorm kernel.
+     Every main path's timed run with scalars also counts its launches: 3
+     a step
 The line before the last is a JSON object describing the kernels and the
 main paths; the last line is {"ok": true, "device": {...}}.
 
@@ -465,17 +473,20 @@ def timed_run(model, state, steps, graph, fused, label):
     diffusion kernel's own variant must launch 3 times a step, counted
     across replays, and the other not at all, and the advection kernel 3
     times a step, and the Vreman kernel as often as the step calls the
-    closure (`vreman_calls`), and the ibmnorm kernel 3 times a step with
-    an IBM.  Returns (numbers, final State)."""
+    closure (`vreman_calls`), the ibmnorm kernel 3 times a step with an
+    IBM, and the scalar-stack kernel 3 times a step with scalars.  Returns
+    (numbers, final State)."""
     from udales_tpu_torch.ops.fused_adv import fused_adv_mom
     from udales_tpu_torch.ops.fused_ibmnorm import fused_ibmnorm
+    from udales_tpu_torch.ops.fused_scalars import fused_scalars
     from udales_tpu_torch.ops.fused_vreman import fused_vreman
     masked = model.ibm is not None
+    scalars = state.c.sv.shape[0] > 0
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     fused.launch_count = fused.masked_launch_count = 0
     fused_adv_mom.launch_count = fused_vreman.launch_count = 0
-    fused_ibmnorm.launch_count = 0
+    fused_ibmnorm.launch_count = fused_scalars.launch_count = 0
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     t0 = time.perf_counter()
@@ -504,6 +515,10 @@ def timed_run(model, state, steps, graph, fused, label):
         raise RuntimeError(f"{label}: {fused_ibmnorm.launch_count} ibmnorm "
                            f"kernel launches in {steps} steps, expected "
                            f"{3 * steps if masked else 0}")
+    if fused_scalars.launch_count != (3 * steps if scalars else 0):
+        raise RuntimeError(f"{label}: {fused_scalars.launch_count} scalar-"
+                           f"stack kernel launches in {steps} steps, "
+                           f"expected {3 * steps if scalars else 0}")
     ms = start.elapsed_time(end) / steps
     n = model.grid.itot * model.grid.jtot * model.grid.ktot
     return dict(ms_per_step=ms, host_ms_per_step=host,
@@ -511,6 +526,7 @@ def timed_run(model, state, steps, graph, fused, label):
                 adv_launches=fused_adv_mom.launch_count,
                 vreman_launches=fused_vreman.launch_count,
                 ibmnorm_launches=fused_ibmnorm.launch_count,
+                scalars_launches=fused_scalars.launch_count,
                 peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
                 reserved_gib=torch.cuda.memory_reserved() / 2 ** 30), state
 
@@ -893,6 +909,89 @@ def ibmnorm_phase(smi, n=62):
         torch.cuda.empty_cache()
     return dict(shapes=len(shapes) + 3, t128=times[0], t256=times[1],
                 t512=times[2])
+
+
+def scalars_inputs(shape, np_dt, nsv, masked, seed, stretch=1.0):
+    """(g, grid, Mc) on the card as the scalar-stack kernel takes them,
+    from a numpy seed: a kappa-ghosted stack of `nsv` scalars with a flat
+    patch, h=1 ghosted velocities with a tenth of their faces at rest, a
+    positive ekh and, when `masked`, a ghosted {0, 1} c mask with a solid
+    box, over a grid of non-unit x and y spacings."""
+    from udales_tpu_torch.grid import Grid
+    nx, ny, nz = shape
+    rng = np.random.default_rng(seed)
+    zf = np.cumsum(stretch ** np.arange(nz)) - 0.5 * stretch ** np.arange(nz)
+    grid = Grid(nx, ny, nz, 1.3 * nx, 0.7 * ny, zf, dtype=np_dt)
+    t = lambda a: torch.tensor(a, dtype=grid.torch_dtype, device="cuda")
+    cell = (nx + 2, ny + 2, nz + 2)
+
+    def velocity(size):
+        a = rng.standard_normal(size)
+        a[rng.uniform(size=size) < 0.1] = 0.0
+        return t(a)
+    sv = 1.0 + rng.standard_normal((nsv, nx + 4, ny + 4, nz + 4))
+    sv[:, 3:7, 2:6, 4:9] = 0.5
+    g = SimpleNamespace(sv=t(sv), u=velocity(cell), v=velocity(cell),
+                        w=velocity((nx + 2, ny + 2, nz + 1)),
+                        ekh=t(0.1 + rng.uniform(size=cell)))
+    Mc = None
+    if masked:
+        m = (rng.uniform(size=cell) > 0.3).astype(np.float64)
+        m[2:7, 3:8, :5] = 0.0
+        Mc = t(m)
+    return g, grid, Mc
+
+
+def scalars_phase(smi, n=63):
+    """Phase 63: the scalar-stack kernel against its plain route
+    ``fused_scalars.plain_scalars`` over the ragged shapes and a rank
+    block, in both dtypes, with one and three scalars, with and without
+    the c mask, bit for bit; then its time with three scalars and the mask
+    at 128^3 and 512 x 512 x 128 float32 (as `ibmnorm_phase`).  Any miss
+    raises.  Returns dict(shapes, t128, t512)."""
+    from udales_tpu_torch.ops.fused_scalars import (fused_scalars,
+                                                    least_bytes,
+                                                    plain_scalars)
+
+    def check(shape, np_dt, nsv, masked, stretch):
+        g, grid, Mc = scalars_inputs(shape, np_dt, nsv, masked, seed=1,
+                                     stretch=stretch)
+        got = fused_scalars(g, grid, Mc)
+        torch.cuda.synchronize()
+        ref = plain_scalars(g, grid, Mc)
+        if not same_bits(got, ref):
+            raise RuntimeError(
+                f"scalar-stack kernel differs from plain on {shape} "
+                f"{np.dtype(np_dt).name} nsv {nsv} "
+                f"{'masked' if masked else 'open'}: max abs err "
+                f"{float((got - ref).abs().max()):.3e}")
+
+    shapes = RAGGED_SHAPES + [(64, 64, 128)]
+    for shape in shapes:
+        for np_dt in (np.float64, np.float32):
+            for nsv in (1, 3):
+                for masked in (False, True):
+                    check(shape, np_dt, nsv, masked, 1.04)
+    sizes = ((128, 128, 128), (512, 512, 128))
+    for size in sizes:
+        check(size, np.float32, 3, True, 1.0)
+    phase(n, f"scalar-stack kernel vs plain over {len(shapes)} shapes "
+             f"(stretched) in float64 and float32, 1 and 3 scalars, with "
+             f"and without the mask, and 128^3, 512 x 512 x 128 float32: "
+             f"bit for bit")
+    times = []
+    for size in sizes:
+        g, grid, Mc = scalars_inputs(size, np.float32, 3, True, seed=2)
+        times.append(kernel_turns(
+            lambda: fused_scalars(g, grid, Mc),
+            lambda: plain_scalars(g, grid, Mc), grid,
+            least_bytes(size, 4, 3, True), smi,
+            f"scalar-stack kernel {'x'.join(map(str, size))} float32 with 3 "
+            f"scalars and the mask", "plain_scalars", n))
+        del g, grid, Mc
+        torch.cuda.empty_cache()
+    return dict(shapes=len(shapes) + len(sizes), t128=times[0],
+                t512=times[1])
 
 
 def check_kernel(fused, g, grid, pmasks, rtol, label, n):
@@ -3682,6 +3781,7 @@ def main():
     from udales_tpu_torch.ops.fused_adv import fused_adv_mom
     from udales_tpu_torch.ops.fused_diff import SOURCE, fused_diff_mom
     from udales_tpu_torch.ops.fused_ibmnorm import fused_ibmnorm
+    from udales_tpu_torch.ops.fused_scalars import fused_scalars
     from udales_tpu_torch.ops.fused_vreman import fused_vreman
     from udales_tpu_torch.run import load_case
     phase(1, f"CUDA device: {torch.cuda.get_device_name(0)}, "
@@ -3746,6 +3846,18 @@ def main():
         f"{fused_ibmnorm.blocks_per_sm(dt, c)}"
         for dt in (torch.float32, torch.float64) for c in (False, True)),
         flush=True)
+    t0 = time.perf_counter()
+    fused_scalars.load()
+    phase(3, f"built fused_scalars.cu for sm_90a (no FMA contraction) in "
+             f"{time.perf_counter() - t0:.2f} s")
+    for line in fused_scalars.build_log.splitlines():
+        if "registers" in line or "spill" in line:
+            print("  " + line.strip(), flush=True)
+    print("  resident blocks per SM with 3 scalars: " + ", ".join(
+        f"{'masked' if m else 'open'} {str(dt)[6:]} "
+        f"{fused_scalars.blocks_per_sm(dt, m)}"
+        for dt in (torch.float32, torch.float64) for m in (False, True)),
+        flush=True)
 
     # 4. kernel against its plain version on the card
     ragged_sweep(fused_diff_mom, masked=False, n=4)
@@ -3798,6 +3910,9 @@ def main():
 
     # 62. the ibmnorm kernel against its plain route, and its time
     ibn = ibmnorm_phase(smi)
+
+    # 63. the scalar-stack kernel against its plain route, and its time
+    scs = scalars_phase(smi)
 
     # 9. stage the urban case (host NumPy preprocessing, no JAX)
     t0 = time.perf_counter()
@@ -3959,6 +4074,13 @@ def main():
     rates = lambda d: {k: d[k] for k in ("ms_per_step", "points_per_s",
                                          "peak_mem_gib")}
     print(json.dumps({"kernels": [
+        {"name": "fused_scalars", "route": "cuda",
+         "source": "udales_tpu_torch/csrc/fused_scalars.cu",
+         "replaces": None,
+         "launches": disp["dispersion"]["scalars_launches"],
+         "bit_for_bit": scs["shapes"], **scs["t128"], "bound_by": "bytes",
+         "library_ms": None,
+         **{f"{k}_512x512x128": v for k, v in scs["t512"].items()}},
         {"name": "fused_ibmnorm", "route": "cuda",
          "source": "udales_tpu_torch/csrc/fused_ibmnorm.cu",
          "replaces": None, "launches": urb["ibmnorm_launches"],

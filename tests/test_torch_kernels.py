@@ -1,12 +1,12 @@
 """The seam of the hand-written kernels (``ops/kernel.py``) under each of its
-four wrappers, on the CPU: the input checks refuse, naming the kernel and
+five wrappers, on the CPU: the input checks refuse, naming the kernel and
 the tensor, what a kernel does not take; a device other than the CPU and
 CUDA raises; the launch counters are taken back at capture and added per
 replay; each launcher's declared ctypes signature is the parameter list of
 its ``extern "C"`` declaration in ``csrc/``; and the modules import in any
 order, the plain layer importing none of them.  The kernels themselves are
 held against their plain routes in tests/test_torch_fused_{diff,adv,
-vreman,ibmnorm}.py.
+vreman,ibmnorm,scalars}.py.
 """
 import ast
 import re
@@ -26,14 +26,17 @@ from udales_tpu_torch.grid import Grid
 from udales_tpu_torch.ops.fused_adv import FusedAdvMom
 from udales_tpu_torch.ops.fused_diff import FusedDiffMom
 from udales_tpu_torch.ops.fused_ibmnorm import FusedIbmnorm
+from udales_tpu_torch.ops.fused_scalars import FusedScalars
 from udales_tpu_torch.ops.fused_vreman import FusedVreman
 from udales_tpu_torch.ops.kernel import NVCC_FLAGS, check_inputs
 from test_torch_fused_ibmnorm import random_call
+from test_torch_fused_scalars import random_call as scalars_call
 
 REPO = Path(__file__).resolve().parents[1]
 KERNELS = {k.name: k for k in (FusedDiffMom, FusedAdvMom, FusedVreman,
-                                FusedIbmnorm)}
-NO_FMA = ("fused_vreman", "fused_ibmnorm")   # built with --fmad=false
+                                FusedIbmnorm, FusedScalars)}
+# built with --fmad=false
+NO_FMA = ("fused_vreman", "fused_ibmnorm", "fused_scalars")
 SHAPE = (4, 3, 5)
 DT_NAMES = {np.dtype(np.float32): "f32", np.dtype(np.float64): "f64"}
 
@@ -42,7 +45,8 @@ def call_args(name, device="cpu", dtype=np.float32, seed=6):
     """(grid, the arguments of a call of kernel `name` in its variant that
     reads the most tensors: masked diffusion, advection with thl, the
     Vreman closure with the buoyancy correction, ibmnorm with the thl fill
-    and the liberal correction) on random inputs."""
+    and the liberal correction, the scalar stack with the c mask) on random
+    inputs."""
     nx, ny, nz = SHAPE
     grid = Grid.uniform(*SHAPE, 4.0, 3.0, 5.0, dtype=dtype)
     rng = np.random.default_rng(seed)
@@ -62,6 +66,10 @@ def call_args(name, device="cpu", dtype=np.float32, seed=6):
         ibm, args = random_call("liberal", DT_NAMES[np.dtype(dtype)],
                                 device=device, seed=seed, shape=SHAPE)
         return ibm.grid, (*args, ibm)
+    if name == "fused_scalars":
+        g, grid, Mc = scalars_call(DT_NAMES[np.dtype(dtype)], 3, True,
+                                   device=device, seed=seed, shape=SHAPE)
+        return grid, (g, grid, Mc)
     cfg = Config(domain=DomainConfig(itot=nx, jtot=ny, ktot=nz,
                                      xlen=float(nx), ylen=float(ny)),
                  physics=PhysicsConfig(ltempeq=True, lbuoyancy=True),
@@ -126,7 +134,8 @@ COUNTERS = [(FusedDiffMom, "launch_count", "fused_diff_mom.launches"),
              "fused_diff_mom.masked_launches"),
             (FusedAdvMom, "launch_count", "fused_adv_mom.launches"),
             (FusedVreman, "launch_count", "fused_vreman.launches"),
-            (FusedIbmnorm, "launch_count", "fused_ibmnorm.launches")]
+            (FusedIbmnorm, "launch_count", "fused_ibmnorm.launches"),
+            (FusedScalars, "launch_count", "fused_scalars.launches")]
 
 
 @pytest.mark.parametrize("cls,attr,counter", COUNTERS,
@@ -175,8 +184,8 @@ def test_signature_is_the_extern_c_declaration(name, entry):
 @pytest.mark.parametrize("name", sorted(KERNELS))
 def test_every_entry_point_is_declared(name):
     """The source exports the declared launchers and the occupancy query,
-    nothing else; the Vreman and ibmnorm kernels alone add to the shared
-    flags."""
+    nothing else; the Vreman, ibmnorm and scalar-stack kernels alone add
+    to the shared flags."""
     kern = KERNELS[name]
     assert extern_c(kern.source) == {**kern.signatures,
                                      f"{name}_blocks_per_sm": "ii"}
@@ -186,7 +195,7 @@ def test_every_entry_point_is_declared(name):
 
 @pytest.mark.parametrize("first", ["ops.kernel", "ops.fused_diff",
                                    "ops.fused_adv", "ops.fused_vreman",
-                                   "ops.fused_ibmnorm"])
+                                   "ops.fused_ibmnorm", "ops.fused_scalars"])
 def test_imports_in_any_order(first):
     """The seam and each wrapper imported first in a fresh interpreter
     leave every wrapper, its counters and its build flags whole: no import
@@ -195,11 +204,14 @@ def test_imports_in_any_order(first):
             "from udales_tpu_torch.ops import fused_adv, fused_diff, kernel\n"
             "from udales_tpu_torch.ops import fused_vreman as fv\n"
             "from udales_tpu_torch.ops import fused_ibmnorm as fi\n"
+            "from udales_tpu_torch.ops import fused_scalars as fs\n"
+            "assert fs.fused_scalars.launch_count == 0\n"
             "assert fv.fused_vreman.launch_count == 0\n"
             "assert fi.fused_ibmnorm.launch_count == 0\n"
             "assert fused_adv.fused_adv_mom.launch_count == 0\n"
             "assert fused_diff.fused_diff_mom.masked_launch_count == 0\n"
-            "assert kernel.NVCC_FLAGS and fv.NO_FMA and fi.NO_FMA\n")
+            "assert kernel.NVCC_FLAGS and fv.NO_FMA and fi.NO_FMA\n"
+            "assert fs.NO_FMA\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
@@ -243,7 +255,8 @@ def test_plain_layer_imports_no_kernel(plain):
                 or m.split(".")[-1].startswith("fused_")], found
     run = port_imports("udales_tpu_torch.run")
     assert {"udales_tpu_torch.ops.fused_vreman",
-            "udales_tpu_torch.ops.fused_ibmnorm"} <= run
+            "udales_tpu_torch.ops.fused_ibmnorm",
+            "udales_tpu_torch.ops.fused_scalars"} <= run
 
 
 # --- on the card ---------------------------------------------------------

@@ -12,9 +12,9 @@ branch on a tensor) and no host-to-device copy, so `step_jit` captures it
 as one CUDA graph (``graph.CompiledStep``) and ``run(..., graph=True)``
 replays it.  On the card hand-written kernels (``ops.kernel``) do a
 substep's advection leaf (``ops.fused_adv``), its Vreman closure
-(``ops.fused_vreman``), its momentum diffusion (``ops.fused_diff``) and the
-velocity and thl part of its ibmnorm (``ops.fused_ibmnorm``); on the CPU
-their plain versions run.
+(``ops.fused_vreman``), its momentum diffusion (``ops.fused_diff``), the
+velocity and thl part of its ibmnorm (``ops.fused_ibmnorm``) and its
+scalar stack (``ops.fused_scalars``); on the CPU their plain versions run.
 
 With an ``ibm.IBM`` the substep takes the IBM hooks where udales_tpu's does
 (run.py:162-535): masked thermodynamics slab averages, the pmask-folded
@@ -99,6 +99,7 @@ from .ops.forces import (coriolis, fixuinf1, forces, grwdamp, lstend,
 from .ops import fused_ibmnorm, fused_vreman
 from .ops.fused_adv import fused_adv_mom
 from .ops.fused_diff import fused_diff_mom
+from .ops.fused_scalars import fused_scalars
 from .ops.halo import pad_edge, pad_periodic_xy, pad_wrap
 from .ops.inletgen import (InletGenParams, init_inletgen, inletgen_planes,
                            inletgen_update)
@@ -401,10 +402,7 @@ class Model:
         if nsv > 0:
             trace.leaf("scalars")
             self.field_substeps += nsv
-            dsv = adv.adv_kappa(g.sv, g, grid)
-            # the h=1 view of the kappa-ghosted stack
-            dsv = dsv + sgs.diff_c(g.sv[:, 1:-1, 1:-1, 1:-1], g.ekh, grid,
-                                   M=Mc)
+            dsv = fused_scalars(g, grid, Mc)
 
         # --- subgrid diffusion: the hand-written kernel on CUDA ------------
         trace.leaf("diffusion")
